@@ -1,14 +1,19 @@
 """Smoke run of raytracevs_tpu_torch on one CUDA card.
 
-Drives the port's main path: Engine(1920, 1080, device="cuda") renders three
-frames of the analytic demo scene (spp 2, 6 bounces, denoiser on) with the
-camera orbiting 2 degrees a frame. Before that it builds the four CUDA
-kernels from csrc/, holds each against its plain PyTorch version on the card
-at 1920x1080 (K2-K4 on the G-buffer of a rendered frame), and times both;
-after it, it checks the frames and that every kernel launched, compares a
-small frame with the CPU's plain pipeline, and times each stage of a 1080p
-frame. It prints a JSON line of the kernels, the card's name and power
-limit, and as its last line {"ok": true, "device": {...}}.
+Drives the port's two main paths: Engine(1920, 1080, device="cuda") renders
+three frames of the analytic demo scene, then Engine(1920, 1080,
+device="cuda", mesh_service=...) three frames of the mesh demo scene (the
+demo scene plus a 199,712-triangle opaque sphere and a 36,864-triangle
+absorbing glass ball), spp 2, 6 bounces, denoiser on, the camera orbiting 2
+degrees a frame. Before that it builds the CUDA kernels from csrc/ and the
+host BVH builder from csrc/host/, holds each kernel against its plain
+PyTorch version on the card at 1920x1080 (K2-K4 on the G-buffer of a
+rendered frame; K1-mesh also on nine mesh instances at 480x270), and times
+both; after each path it checks the frames and that every kernel of the
+path launched; then it compares small frames with the CPU's plain pipeline
+and times each stage of a 1080p frame of both scenes. It prints a JSON line
+of the kernels, the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 
@@ -34,6 +39,8 @@ KERNELS = [
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:472"),
     ("shadow_denoise", "raytracevs_tpu_torch/csrc/denoise.cu",
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:657"),
+    ("render_accum_mesh", "raytracevs_tpu_torch/csrc/megakernel.cu",
+     "raytracevs_tpu/ops/pallas/megakernel.py:3155"),
 ]
 FULL_W, FULL_H = 1920, 1080
 FRAMES = 3
@@ -84,6 +91,86 @@ def demo_scene(D, frame):
 OVERRIDES = {"max_soft_samples": 4}
 
 
+def uv_sphere(rings, segs, radius):
+    """Smooth UV sphere, 2*rings*segs triangles (tests/_torch_scenes.py::uv_sphere)."""
+    vs = []
+    for r in range(rings + 1):
+        th = np.pi * r / rings
+        for s in range(segs + 1):
+            ph = 2.0 * np.pi * s / segs
+            n = np.array([np.sin(th) * np.cos(ph), np.cos(th), np.sin(th) * np.sin(ph)])
+            vs.append((radius * n, n))
+    verts = np.zeros((len(vs), 8), np.float32)
+    for i, (p, n) in enumerate(vs):
+        verts[i, 0:3] = p
+        verts[i, 4:7] = n
+    idx = []
+    for r in range(rings):
+        for s in range(segs):
+            a = r * (segs + 1) + s
+            b = a + segs + 1
+            idx += [a, b, a + 1, a + 1, b, b + 1]
+    return verts.reshape(-1), np.asarray(idx, np.uint32)
+
+
+def mesh_service(meshes):
+    """A MeshCacheService serving {name: (rings, segs, radius)} UV spheres."""
+    from raytracevs_tpu_torch.io.mesh_cache import CachedMesh, MeshCacheService
+
+    ms = MeshCacheService(".")  # register() only: no directory is read
+    for name, (rings, segs, radius) in meshes.items():
+        verts, indices = uv_sphere(rings, segs, radius)
+        ms.register(name, CachedMesh(name=name, vertices=verts, indices=indices,
+                                     bounds_min=np.full(3, -radius),
+                                     bounds_max=np.full(3, radius)))
+    return ms
+
+
+# the mesh demo scene (tests/_torch_scenes.py::mesh_demo_scene), full size;
+# the -1 z scale turns uv_sphere's inward-wound triangles right side out
+OUTWARD = np.array([1.0, 1.0, -1.0])
+MESH_DEMO = {"BigSphere": (316, 316, 0.9), "GlassBall": (96, 192, 0.6)}
+GLASS_BALL = dict(base_color=np.array([0.95, 0.95, 0.95, 1.0]), transmission=1.0, ior=1.5,
+                  roughness=0.0, absorption=np.array([0.5, 0.2, 0.05]))
+
+
+def mesh_demo_scene(D, frame):
+    s = demo_scene(D, frame)
+    s.objects += [
+        D.MeshObjectData(mesh_name="BigSphere", material=D.MaterialData(
+            base_color=np.array([0.8, 0.5, 0.3, 1.0]), roughness=0.5),
+            transform=D.Transform(position=np.array([2.4, 0.95, 3.2]), scale=OUTWARD)),
+        D.MeshObjectData(mesh_name="GlassBall", material=D.MaterialData(**GLASS_BALL),
+                         transform=D.Transform(position=np.array([-1.25, 0.65, -1.2]),
+                                               scale=OUTWARD)),
+    ]
+    return s
+
+
+def nine_ball_scene(D):
+    """Nine instances of one ball (tests/_torch_scenes.py::nine_ball_scene):
+    more than 8 instances, so the shadow walk multiplies per crossing."""
+    s = D.SceneData()
+    s.camera.position = np.array([0.0, 2.2, -3.4])
+    s.camera.look_at = np.array([0.0, 0.4, 0.4])
+    s.settings.samples_per_pixel = 1
+    s.settings.max_bounces = 4
+    for i in range(9):
+        mat = (D.MaterialData(**dict(GLASS_BALL, absorption=np.array([0.2, 0.6, 1.0]) * (i / 8.0)))
+               if i % 2 == 0 else D.MaterialData(
+                   base_color=np.array([0.3 + 0.07 * i, 0.5, 0.6, 1.0]),
+                   metallic=float(i % 4 == 1), roughness=0.3))
+        pos = np.array([(i % 3 - 1) * 0.8, 0.32 + 0.05 * (i // 3), (i // 3) * 0.8])
+        s.objects.append(D.MeshObjectData(mesh_name="Ball", material=mat, transform=D.Transform(
+            position=pos, scale=OUTWARD if i % 2 else np.ones(3))))
+    s.objects.append(D.PlaneData())
+    s.lights += [
+        D.LightData(type=D.LightType.POINT, position=np.array([1.5, 4.0, -1.5]), intensity=10.0),
+        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
+    ]
+    return s
+
+
 def gpu_ms(fn, reps):
     """Mean ms of fn() over `reps` runs after one warm-up, by CUDA events."""
     fn()
@@ -97,14 +184,53 @@ def gpu_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def stage_times(P, D, MK, K, PD, frames):
+def timed_ms(fn):
+    """(fn(), ms of that one call by CUDA events, the device synchronised)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_k1(name, MK, R, sc, cfg):
+    """K1 (or K1-mesh) against its plain version on the card: per-pixel ray
+    counts and object ids equal, colour 2e-4 on >= 99% of pixels. Returns
+    (max |d|, kernel ms of the compared launch, plain ms of its run)."""
+    got, k_ms = timed_ms(lambda: MK.render_accum(sc, cfg))
+    want, p_ms = timed_ms(lambda: R.render_accum(sc, cfg))
+    rays_k, rays_p = int(got[R.CH_RAYS].double().sum()), int(want[R.CH_RAYS].double().sum())
+    same_rays = torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
+    same_ids = torch.equal(got[R.CH_OBJ_ID], want[R.CH_OBJ_ID])
+    d = (got[0:3] - want[0:3]).abs().amax(0)
+    frac = float((d <= 2e-4).float().mean())
+    err = float(d.max())
+    bad = int((d > 2e-4).sum())
+    print(f"{name} {cfg.width}x{cfg.height}: rays kernel {rays_k} plain {rays_p} per-pixel "
+          f"equal {same_rays}, obj_id equal {same_ids}, colour |d|<=2e-4 on {frac:.5f} of "
+          f"pixels ({bad} above), max |d| {err:.3g}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
+          flush=True)
+    if not (same_rays and same_ids and frac >= 0.99):
+        raise AssertionError(f"{name} disagrees with its plain version beyond the band "
+                             "(rays exact, obj_id exact, colour 2e-4 on >= 99%)")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite accumulator planes")
+    return err, k_ms, p_ms
+
+
+def stage_times(P, D, MK, K, PD, frames, build, meshes=None):
     """Host ms of each stage of Engine.render's 1080p frame (runtime/engine.py::
     render_frame and post/denoise.py::denoise_frame_cf, stage by stage), the
-    device synchronised before and after each, over `frames` orbiting frames."""
+    device synchronised before and after each, over `frames` orbiting frames
+    of build(D, frame). With meshes, update_scene includes the BVH work:
+    the SAH build on frame 0, a retransform after it."""
     from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf
     from raytracevs_tpu_torch.post import composite, tonemap
 
-    eng = P.Engine(FULL_W, FULL_H, device="cuda")
+    eng = P.Engine(FULL_W, FULL_H, device="cuda",
+                   mesh_service=None if meshes is None else mesh_service(meshes))
     state = PD.init_state_cf(FULL_H, FULL_W, eng.device)
     times = {}
 
@@ -118,7 +244,7 @@ def stage_times(P, D, MK, K, PD, frames):
 
     for f in range(frames):
         stage("update_scene: sanitize, flatten, to_device (host)",
-              lambda: eng.update_scene(demo_scene(D, f), **OVERRIDES))
+              lambda: eng.update_scene(build(D, f), **OVERRIDES))
         sc, cfg = eng._scene_t, eng._cfg
         acc = stage("K1 render_accum (incl. table packing)", lambda: MK.render_accum(sc, cfg))
         out = stage("assemble_frame_cf (plain torch)",
@@ -145,6 +271,62 @@ def stage_times(P, D, MK, K, PD, frames):
     return times
 
 
+def print_stages(label, stages):
+    for name, ms in stages.items():
+        print(f"phase 7 {label} stage {name}: median {float(np.median(ms[1:])):.3f} ms "
+              f"(frame 0: {ms[0]:.3f}; frames 1-4: {[round(m, 3) for m in ms[1:]]})", flush=True)
+    print(f"phase 7 {label} sum of stage medians "
+          f"{sum(float(np.median(ms[1:])) for ms in stages.values()):.3f} ms", flush=True)
+
+
+def run_engine(P, D, label, build, counters, meshes=None):
+    """Three orbiting 1080p frames through the Engine, every launch count set
+    to 0 just before and read just after; checks the frames."""
+    for c in counters.values():
+        c.launches = 0
+    eng = P.Engine(FULL_W, FULL_H, device="cuda",
+                   mesh_service=None if meshes is None else mesh_service(meshes))
+    imgs = []
+    for f in range(FRAMES):
+        t0 = time.perf_counter()
+        eng.update_scene(build(D, f), **OVERRIDES)
+        upd = (time.perf_counter() - t0) * 1e3
+        imgs.append(eng.render())
+        print(f"phase 5 {label} frame {f}: {eng.last_render_ms:.2f} ms, {eng.last_rays} rays, "
+              f"{eng.last_mrays_per_s:.1f} Mrays/s (update_scene {upd:.1f} ms)", flush=True)
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"phase 5 {label} launches: {launches}", flush=True)
+    for img in imgs:
+        if img.shape != (FULL_H, FULL_W, 4) or img.dtype != np.uint8:
+            raise AssertionError(f"frame shape {img.shape} {img.dtype}")
+        if not img[..., :3].any():
+            raise AssertionError("an all-zero frame")
+    if not bool(torch.isfinite(eng._denoise_state.packed).all()):
+        raise AssertionError("non-finite denoiser history")
+    if not bool(torch.isfinite(eng._last_hdr_t).all()):
+        raise AssertionError("non-finite HDR frame")
+    return launches
+
+
+def compare_small(P, D, label, build, frames, meshes=None):
+    """A 96x54 frame through the CUDA Engine and the CPU's plain pipeline:
+    ray counts equal, RGBA |d| <= 1 on >= 99.5% of pixels."""
+    w, h = 96, 54
+    ms = None if meshes is None else mesh_service(meshes)
+    gpu_e = P.Engine(w, h, device="cuda", mesh_service=ms)
+    cpu_e = P.Engine(w, h, device="cpu", mesh_service=ms)
+    for f in range(frames):
+        for e in (gpu_e, cpu_e):
+            e.update_scene(build(D, f), **OVERRIDES)
+        a, b = gpu_e.render(), cpu_e.render()
+        dd = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
+        print(f"phase 6 {label} {w}x{h} frame {f}: rays cuda {gpu_e.last_rays} cpu "
+              f"{cpu_e.last_rays}, RGBA |d|<=1 on {(dd <= 1).mean():.5f}, max {dd.max()} "
+              f"(cpu frame {cpu_e.last_render_ms:.0f} ms)", flush=True)
+        if gpu_e.last_rays != cpu_e.last_rays or (dd <= 1).mean() < 0.995:
+            raise AssertionError("CUDA frame differs from the CPU plain frame beyond the band")
+
+
 def main():
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -158,8 +340,9 @@ def main():
     smi = smi.splitlines()[0]
     print(f"phase 2 nvidia-smi: {smi}", flush=True)
 
-    # phase 3: build the kernels from csrc/
+    # phase 3: build the kernels from csrc/ and the host BVH builder from csrc/host/
     import raytracevs_tpu_torch as P
+    from raytracevs_tpu_torch.io import native
     from raytracevs_tpu_torch.ops import render as R
     from raytracevs_tpu_torch.ops.cuda import _build
     from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
@@ -173,8 +356,13 @@ def main():
     print(f"phase 3 build: {time.perf_counter() - t0:.1f} s -> {_build.library_path()}", flush=True)
     with open(_build.build_log_path()) as f:
         for line in f:
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if ("Compiling entry function" in line or "registers" in line or "spill" in line
+                    or "stack frame" in line):
                 print("  ptxas:", line.strip())
+    t0 = time.perf_counter()
+    native.load_library()
+    print(f"phase 3 host BVH builder: {time.perf_counter() - t0:.1f} s -> "
+          f"{native.library_path()}", flush=True)
 
     # phase 4: every kernel against its plain version on the card, at the
     # main path's size
@@ -183,22 +371,7 @@ def main():
     scene = demo_scene(D, 0)
     sc = P.to_device(P.flatten_scene(P.sanitize_scene(scene), aspect=FULL_W / FULL_H), dev)
     cfg = P.make_config(scene, FULL_W, FULL_H, **OVERRIDES)
-    got = MK.render_accum(sc, cfg)
-    want = R.render_accum(sc, cfg)
-    torch.cuda.synchronize()
-    rays_k, rays_p = int(got[R.CH_RAYS].double().sum()), int(want[R.CH_RAYS].double().sum())
-    same_rays = torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
-    same_ids = torch.equal(got[R.CH_OBJ_ID], want[R.CH_OBJ_ID])
-    d = (got[0:3] - want[0:3]).abs().amax(0)
-    frac = float((d <= 2e-4).float().mean())
-    k1_err = float(d.max())
-    print(f"phase 4 K1 {FULL_W}x{FULL_H}: rays kernel {rays_k} plain {rays_p} per-pixel equal "
-          f"{same_rays}, obj_id equal {same_ids}, colour |d|<=2e-4 on {frac:.5f} of pixels, "
-          f"max |d| {k1_err:.3g}", flush=True)
-    if not (same_rays and same_ids and frac >= 0.99):
-        raise AssertionError("K1 disagrees with its plain version beyond the band "
-                             "(rays exact, obj_id exact, colour 2e-4 on >= 99%)")
-    del got, want
+    k1_err, _, _ = check_k1("phase 4 K1", MK, R, sc, cfg)
     k1_ms = gpu_ms(lambda: MK.render_accum(sc, cfg), 3)
     k1_plain_ms = gpu_ms(lambda: R.render_accum(sc, cfg), 1)
     results["render_accum"] = (k1_err, k1_ms, k1_plain_ms)
@@ -241,51 +414,61 @@ def main():
         results[name] = (err, gpu_ms(kern, 20), gpu_ms(plain, 5))
         print(f"  {name}: kernel {results[name][1]:.4f} ms, plain {results[name][2]:.4f} ms",
               flush=True)
+    del g, state, gb, curr, k2_args, new_state, normal, guide, k3_args, k4_args
 
-    # phase 5: the main path, through the Engine
-    counters = [MK.render_accum, K.reproject_accumulate, K.atrous, K.shadow_denoise]
-    for c in counters:
-        c.launches = 0
-    eng = P.Engine(FULL_W, FULL_H, device="cuda")
-    imgs = []
-    for f in range(FRAMES):
-        eng.update_scene(demo_scene(D, f), **OVERRIDES)
-        imgs.append(eng.render())
-        print(f"phase 5 frame {f}: {eng.last_render_ms:.2f} ms, {eng.last_rays} rays, "
-              f"{eng.last_mrays_per_s:.1f} Mrays/s", flush=True)
-    launches = {name: c.launches for (name, _, _), c in zip(KERNELS, counters)}
-    print(f"phase 5 launches: {launches}", flush=True)
-    for name, n in launches.items():
-        if n < FRAMES:
-            raise AssertionError(f"{name} launched {n} times in {FRAMES} frames")
-    for img in imgs:
-        if img.shape != (FULL_H, FULL_W, 4) or img.dtype != np.uint8:
-            raise AssertionError(f"frame shape {img.shape} {img.dtype}")
-        if not img[..., :3].any():
-            raise AssertionError("an all-zero frame")
-    if not bool(torch.isfinite(eng._denoise_state.packed).all()):
-        raise AssertionError("non-finite denoiser history")
+    # K1-mesh on the mesh demo scene at 1080p, and on nine instances
+    meshes, blas_cache = mesh_service(MESH_DEMO), P.BLASCache()
+    mscene = mesh_demo_scene(D, 0)
+    t0 = time.perf_counter()
+    mflat = P.flatten_scene(P.sanitize_scene(mscene), aspect=FULL_W / FULL_H,
+                            mesh_service=meshes, blas_cache=blas_cache)
+    t1 = time.perf_counter()
+    P.flatten_scene(P.sanitize_scene(mesh_demo_scene(D, 1)), aspect=FULL_W / FULL_H,
+                    mesh_service=meshes, blas_cache=blas_cache)
+    t2 = time.perf_counter()
+    msc = P.to_device(mflat, dev)
+    torch.cuda.synchronize()
+    print(f"phase 4 mesh demo scene: {mflat.mesh.num_tris} triangles, {mflat.mesh.num_nodes} "
+          f"nodes, {mflat.mesh.num_inst} instances; flatten with the SAH builds "
+          f"{(t1 - t0) * 1e3:.1f} ms, flatten with cached BLASes (retransform only) "
+          f"{(t2 - t1) * 1e3:.1f} ms, to_device with the plane table "
+          f"{(time.perf_counter() - t2) * 1e3:.1f} ms", flush=True)
+    mcfg = P.make_config(mscene, FULL_W, FULL_H, **OVERRIDES)
+    mk_err, _, mk_plain_ms = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg)
+    mk_ms = gpu_ms(lambda: MK.render_accum(msc, mcfg), 3)
+    results["render_accum_mesh"] = (mk_err, mk_ms, mk_plain_ms)
+    print(f"  render_accum_mesh: kernel {mk_ms:.3f} ms (mean of 3), plain {mk_plain_ms:.3f} ms "
+          f"(one run)", flush=True)
+    nscene = nine_ball_scene(D)
+    nsc = P.to_device(P.flatten_scene(P.sanitize_scene(nscene), aspect=480 / 270,
+                                      mesh_service=mesh_service({"Ball": (24, 32, 0.3)})), dev)
+    n_err, _, _ = check_k1("phase 4 K1-mesh, nine instances,", MK, R, nsc,
+                           P.make_config(nscene, 480, 270))
+    results["render_accum_mesh"] = (max(mk_err, n_err),) + results["render_accum_mesh"][1:]
+    del msc, nsc
 
-    # phase 6: the frame against the plain pipeline on a small input
-    w, h = 96, 54
-    gpu_e, cpu_e = P.Engine(w, h, device="cuda"), P.Engine(w, h, device="cpu")
-    for f in range(2):
-        for e in (gpu_e, cpu_e):
-            e.update_scene(demo_scene(D, f), **OVERRIDES)
-        a, b = gpu_e.render(), cpu_e.render()
-        dd = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
-        print(f"phase 6 {w}x{h} frame {f}: rays cuda {gpu_e.last_rays} cpu {cpu_e.last_rays}, "
-              f"RGBA |d|<=1 on {(dd <= 1).mean():.5f}, max {dd.max()}", flush=True)
-        if (dd <= 1).mean() < 0.995:
-            raise AssertionError("CUDA frame differs from the CPU plain frame beyond the band")
+    # phase 5: the main paths, through the Engine
+    counters = {"render_accum": MK.render_accum, "reproject_accumulate": K.reproject_accumulate,
+                "atrous": K.atrous, "shadow_denoise": K.shadow_denoise,
+                "render_accum_mesh": MK.render_accum_mesh}
+    launches = run_engine(P, D, "analytic", demo_scene, counters)
+    for name in ("render_accum", "reproject_accumulate", "atrous", "shadow_denoise"):
+        if launches[name] < FRAMES:
+            raise AssertionError(f"{name} launched {launches[name]} times in {FRAMES} frames")
+    mesh_launches = run_engine(P, D, "mesh", mesh_demo_scene, counters, MESH_DEMO)
+    for name in ("render_accum_mesh", "reproject_accumulate", "atrous", "shadow_denoise"):
+        if mesh_launches[name] < FRAMES:
+            raise AssertionError(f"{name} launched {mesh_launches[name]} times in {FRAMES} "
+                                 "mesh frames")
+    launches["render_accum_mesh"] = mesh_launches["render_accum_mesh"]
+
+    # phase 6: frames against the plain pipeline on a small input
+    compare_small(P, D, "analytic", demo_scene, 2)
+    compare_small(P, D, "mesh", mesh_demo_scene, 1, MESH_DEMO)
 
     # phase 7: where the time of a 1080p frame goes
-    stages = stage_times(P, D, MK, K, PD, frames=5)
-    for name, ms in stages.items():
-        print(f"phase 7 stage {name}: median {float(np.median(ms[1:])):.3f} ms "
-              f"(frames 1-4: {[round(m, 3) for m in ms[1:]]})", flush=True)
-    print(f"phase 7 sum of stage medians "
-          f"{sum(float(np.median(ms[1:])) for ms in stages.values()):.3f} ms", flush=True)
+    print_stages("analytic", stage_times(P, D, MK, K, PD, 5, demo_scene))
+    print_stages("mesh", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO))
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -1,11 +1,15 @@
 """raytracevs_tpu_torch: the PyTorch + CUDA port of raytracevs_tpu.
 
-It renders analytic scenes (spheres, planes, OBBs) with the default frame:
-path tracing through the render megakernel, the REBLUR-style denoiser,
-composite and tone map. On a CUDA device the frame runs through four
-hand-written Hopper kernels (csrc/); on the CPU through their plain PyTorch
-versions. It imports PyTorch and numpy, never JAX.
+It renders scenes of analytic primitives (spheres, planes, OBBs) and
+triangle meshes with the default frame: path tracing through the render
+megakernel, the REBLUR-style denoiser, composite and tone map. On a CUDA
+device the frame runs through four hand-written Hopper kernels (csrc/); on
+the CPU through their plain PyTorch versions. The host BVH builder
+(csrc/host/) is compiled by g++ at first use. It imports PyTorch and numpy,
+never JAX.
 """
+from .io.mesh_cache import CachedMesh, MeshCacheService
+from .ops.bvh import BLASCache
 from .runtime.engine import Engine
 from .scene.data import (
     BoxData, CameraData, LightData, LightType, MaterialData, MeshObjectData,

@@ -22,6 +22,22 @@
 // samples loop inside the thread, the stack is a per-thread local array.
 // On the TPU the stack and the tile's rays were VMEM planes walked in
 // lockstep; here each thread retires on its own. Divergence is left as is.
+//
+// K1-mesh (the HAS_MESH instantiation, entry rtvs_render_accum_mesh) adds
+// the triangle meshes: it replaces make_kernel's mesh walks (mesh_closest_k,
+// mesh_shadow_count_k, mesh_shadow_k, and mesh_thickness_k through the
+// fused thickness of the closest walk) and covers make_kernel(mesh_hbm=True),
+// since every table is read from global memory whatever its size. Each ray
+// walks the fine threaded BVH (LEAF_SIZE 4, hit_next/miss_next links)
+// stacklessly and alone: no 32x128 packet union, no fat leaves, no VMEM
+// budget. The plain version is raytracevs_tpu_torch/ops/bvh.py (walks) and
+// ops/intersect.py (merges); the plane table and the per-instance shadow
+// factors come from torch (ops/bvh.py::to_device), not from this file.
+// What bounds the walks: dependent node and triangle loads (32 B of box +
+// 16 B of links a node, 48 B of plane row a triangle, all through __ldg;
+// ~11 MB of plane rows for 237k triangles stay in the 50 MB L2) and
+// divergence between rays that walk a few nodes and rays that walk
+// hundreds. The analytic instantiation compiles without any of it.
 
 #include "common.cuh"
 
@@ -29,7 +45,8 @@ namespace {
 
 constexpr int STACK_DEPTH = 8;
 constexpr int INVALID = 0x7FFFFFFF;
-constexpr int TYPE_SPHERE = 0, TYPE_PLANE = 1, TYPE_BOX = 2;
+constexpr int TYPE_SPHERE = 0, TYPE_PLANE = 1, TYPE_BOX = 2, TYPE_MESH = 3;
+constexpr int LEAF_SIZE = 4, NODE_END = -1;
 constexpr int LIGHT_AMBIENT = 0, LIGHT_DIRECTIONAL = 2;
 constexpr int PATH_FLAG_INSIDE = 1, PATH_FLAG_SPECULAR = 2, RAYFLAG_SKIP_SELF = 1;
 constexpr uint32_t SALT_SHADOW = 6, SALT_REFLECT = 7, SALT_REFRACT = 8;
@@ -53,10 +70,27 @@ struct Cfg {
   float aspect;
 };
 
+// The mesh tables (ops/cuda/megakernel.py::pack_mesh): node_box [Nn][2]
+// float4 = (min.x, min.y, min.z, max.x), (max.y, max.z, 0, 0); node_link
+// [Nn] int4 = (hit_next, miss_next, tri_start, tri_count); plane [T][3]
+// float4 = the 12 floats of ops/bvh.py::plane_table; n0/n1/n2/e1/e2 [T,3];
+// inst [T]; inst_tbl [I][8] = (transmission, absorption xyz, shadow Beer
+// factor xyz, 0).
+struct Mesh {
+  const float4* node_box;
+  const int4* node_link;
+  const float4* plane;
+  const float *n0, *n1, *n2, *e1, *e2;
+  const int* inst;
+  const float* inst_tbl;
+  int num_nodes, num_tris, num_inst;
+};
+
 struct Scene {
   const float *sph, *pln, *box, *mat, *lts, *par, *bn;
   int num_lights, max_shadow_lights;
   uint32_t frame;
+  Mesh mesh;
 };
 
 struct Ray {
@@ -69,10 +103,165 @@ struct Hit {
   bool hit;
   float t;
   int type, index, slot;
+  // mesh hits: triangle and barycentrics; the fused thickness query
+  int tri;
+  float u, v;
+  bool thick_hit;
+  float thick_t;
 };
 
 __device__ __forceinline__ float par(const Scene& sc, int i) { return __ldg(sc.par + i); }
 __device__ __forceinline__ V3 par3(const Scene& sc, int i) { return ld3(sc.par + i); }
+
+// ---- mesh walks (raytracevs_tpu_torch/ops/bvh.py) ---------------------------
+__device__ __forceinline__ float safe_inv1(float x) {
+  return 1.0f / (fabsf(x) < F(1e-12) ? (x < 0.0f ? F(-1e-12) : F(1e-12)) : x);
+}
+
+// slab test of a node box (ops/bvh.py::_ray_aabb)
+__device__ __forceinline__ bool ray_aabb(V3 o, V3 inv, float4 a, float4 b, float tmin,
+                                         float tmax) {
+  float t0x = (a.x - o.x) * inv.x, t1x = (a.w - o.x) * inv.x;
+  float t0y = (a.y - o.y) * inv.y, t1y = (b.x - o.y) * inv.y;
+  float t0z = (a.z - o.z) * inv.z, t1z = (b.y - o.z) * inv.z;
+  float t_near = maxn(maxn(maxn(minn(t0x, t1x), minn(t0y, t1y)), minn(t0z, t1z)), tmin);
+  float t_far = minn(minn(minn(maxn(t0x, t1x), maxn(t0y, t1y)), maxn(t0z, t1z)), tmax);
+  return t_near <= t_far;
+}
+
+// plane-row triangle test (ops/bvh.py::_leaf): `base` is the hit without
+// its t <= tmax part, which the walks apply in slot order
+__device__ __forceinline__ bool tri_plane(const float4* row, V3 o, V3 d, float tmin, float& t,
+                                          float& u, float& v) {
+  float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
+  float nd = r0.x * d.x + r0.y * d.y + r0.z * d.z;
+  float no = r0.x * o.x + r0.y * o.y + r0.z * o.z;
+  bool ok = fabsf(nd) > F(1e-9);
+  t = (r0.w - no) / (ok ? nd : 1.0f);
+  V3 hx = v3(o.x + t * d.x, o.y + t * d.y, o.z + t * d.z);
+  u = r1.x * hx.x + r1.y * hx.y + r1.z * hx.z + r1.w;
+  v = r2.x * hx.x + r2.y * hx.y + r2.z * hx.z + r2.w;
+  return ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmin;
+}
+
+struct MeshHit {
+  bool hit, thick_hit;
+  float t, u, v, thick_t;
+  int tri, inst;
+};
+
+// closest triangle with skip-self by instance and the fused same-instance
+// thickness (ops/bvh.py::traverse_closest)
+__device__ __noinline__ MeshHit mesh_closest(Mesh m, V3 o, V3 d, float tmin, float tmax,
+                                             bool skip_active, int skip_inst, int thick_inst) {
+  V3 inv = v3(safe_inv1(d.x), safe_inv1(d.y), safe_inv1(d.z));
+  MeshHit r;
+  r.t = tmax;
+  r.u = r.v = 0.0f;
+  r.tri = 0;
+  r.thick_t = BIG;
+  r.thick_hit = false;
+  int node = 0;
+  for (int step = 0; node != NODE_END && step <= m.num_nodes; ++step) {
+    bool pend = thick_inst >= 0 && !r.thick_hit;  // fixed for the step
+    float4 a = __ldg(m.node_box + 2 * node), b = __ldg(m.node_box + 2 * node + 1);
+    int4 link = __ldg(m.node_link + node);
+    bool box_hit = ray_aabb(o, inv, a, b, tmin, pend ? BIG : r.t);
+    if (box_hit && link.w > 0) {
+      for (int k = 0; k < LEAF_SIZE && k < link.w; ++k) {
+        int ti = min(max(link.z + k, 0), m.num_tris - 1);
+        float tt, tu, tv;
+        bool base = tri_plane(m.plane + 3 * ti, o, d, tmin, tt, tu, tv);
+        if (!(base && tt <= (pend ? BIG : r.t))) continue;
+        int it = __ldg(m.inst + ti);
+        if (it == thick_inst && tt < r.thick_t) {
+          r.thick_t = tt;
+          r.thick_hit = true;
+        }
+        if (!(skip_active && it == skip_inst) && tt < r.t) {
+          r.t = tt;
+          r.tri = ti;
+          r.u = tu;
+          r.v = tv;
+        }
+      }
+    }
+    node = box_hit ? link.x : link.y;
+  }
+  r.hit = r.t < tmax * F(0.9999);
+  r.inst = __ldg(m.inst + r.tri);
+  return r;
+}
+
+// base ** n for n in [0, 255] by repeated squaring (ops/bvh.py::pow_u8)
+__device__ __forceinline__ float pow_u8(float base, uint32_t n) {
+  float r = 1.0f, b = base;
+#pragma unroll
+  for (int bit = 0; bit < 8; ++bit) {
+    if ((n >> bit) & 1u) r = r * b;
+    if (bit < 7) b = b * b;
+  }
+  return r;
+}
+
+// shadow transmission over every triangle crossed (ops/bvh.py::
+// traverse_shadow): per-instance 8-bit crossing counts in two words for up
+// to 8 instances, a product per crossing in walk order beyond
+__device__ __noinline__ void mesh_shadow(Mesh m, V3 o, V3 d, float max_dist, bool blocked,
+                                         float& vis, V3& color, float& occ) {
+  V3 inv = v3(safe_inv1(d.x), safe_inv1(d.y), safe_inv1(d.z));
+  bool count_mode = m.num_inst <= 8;
+  uint32_t c0 = 0u, c1 = 0u;
+  vis = 1.0f;
+  color = v3(1.0f, 1.0f, 1.0f);
+  occ = FP16_MAX;
+  int node = blocked ? NODE_END : 0;
+  for (int step = 0; node != NODE_END && step <= m.num_nodes; ++step) {
+    float4 a = __ldg(m.node_box + 2 * node), b = __ldg(m.node_box + 2 * node + 1);
+    int4 link = __ldg(m.node_link + node);
+    bool box_hit = ray_aabb(o, inv, a, b, RAY_TMIN, max_dist);
+    if (box_hit && link.w > 0) {
+      for (int k = 0; k < LEAF_SIZE && k < link.w; ++k) {
+        int ti = min(max(link.z + k, 0), m.num_tris - 1);
+        float tt, tu, tv;
+        bool base = tri_plane(m.plane + 3 * ti, o, d, RAY_TMIN, tt, tu, tv);
+        if (!(base && tt <= max_dist)) continue;
+        int it = __ldg(m.inst + ti);
+        const float* row = m.inst_tbl + 8 * it;
+        float tr = __ldg(row);
+        if (tr < F(0.01)) blocked = true;  // opaque: the search ends after this leaf
+        occ = minn(occ, tt);
+        if (count_mode) {
+          uint32_t inc = 1u << ((it & 3) * 8);
+          if (it >= 4) c1 += inc;
+          else c0 += inc;
+        } else if (tr >= F(0.01)) {
+          vis = vis * tr;
+          color = mul(color, ld3(row + 4));
+        }
+      }
+    }
+    node = blocked ? NODE_END : (box_hit ? link.x : link.y);
+  }
+  if (count_mode) {
+    float cr = 1.0f, cg = 1.0f, cb = 1.0f;
+    for (int i = 0; i < m.num_inst; ++i) {
+      const float* row = m.inst_tbl + 8 * i;
+      float tr = __ldg(row);
+      uint32_t n_i = ((i >= 4 ? c1 : c0) >> ((i & 3) * 8)) & 255u;
+      if (tr < F(0.01)) n_i = 0u;  // opaque instances act through `blocked` only
+      vis = vis * pow_u8(tr, n_i);
+      cr = cr * pow_u8(__ldg(row + 4), n_i);
+      cg = cg * pow_u8(__ldg(row + 5), n_i);
+      cb = cb * pow_u8(__ldg(row + 6), n_i);
+    }
+    color = v3(cr, cg, cb);
+  }
+  if (blocked) {
+    vis = 0.0f;
+    color = v3(0.0f, 0.0f, 0.0f);
+  }
+}
 
 // ---- RNG (Common.hlsli:761-797) ---------------------------------------------
 __device__ __forceinline__ uint32_t pcg_hash(uint32_t v) {
@@ -202,9 +391,11 @@ __device__ float isect_box(V3 o, V3 d, float tmin, float tmax, const float* b) {
   return ok ? t : BIG;
 }
 
-// closest hit over spheres ++ planes ++ boxes; ties keep the first primitive
+// closest hit over spheres ++ planes ++ boxes; ties keep the first primitive;
+// then the mesh walk, whose hit wins only when strictly nearer
+template <bool HAS_MESH>
 __device__ Hit trace_closest(const Cfg& c, const Scene& sc, V3 o, V3 d, int skip_type,
-                             int skip_index) {
+                             int skip_index, int thick_inst) {
   float best_t = BIG;
   int best = 0, g = 0;
   for (int i = 0; i < c.S; ++i, ++g) {
@@ -230,6 +421,26 @@ __device__ Hit trace_closest(const Cfg& c, const Scene& sc, V3 o, V3 d, int skip
   else if (best >= c.S) { h.type = TYPE_PLANE; h.index = best - c.S; }
   else { h.type = TYPE_SPHERE; h.index = best; }
   if (!h.hit) h.type = INVALID;
+  h.tri = 0;
+  h.u = h.v = 0.0f;
+  h.thick_hit = false;
+  h.thick_t = BIG;
+  if constexpr (HAS_MESH) {
+    MeshHit mh = mesh_closest(sc.mesh, o, d, RAY_TMIN, RAY_TMAX, skip_type == TYPE_MESH,
+                              skip_index, thick_inst);
+    h.thick_hit = mh.thick_hit;
+    h.thick_t = mh.thick_t;
+    if (mh.hit && mh.t < best_t) {
+      h.hit = true;
+      h.t = mh.t;
+      h.type = TYPE_MESH;
+      h.index = mh.inst;
+      h.slot = c.S + c.P + c.B + mh.inst;
+      h.tri = mh.tri;
+      h.u = mh.u;
+      h.v = mh.v;
+    }
+  }
   return h;
 }
 
@@ -256,7 +467,9 @@ __device__ V3 box_face_normal(V3 pos, const float* b) {
   return normalize(world);
 }
 
-// shadow transmission along a segment (AnyHit_Shadow.hlsl:10-57)
+// shadow transmission along a segment (AnyHit_Shadow.hlsl:10-57), the mesh
+// walk seeded blocked where an opaque analytic hit ended the search
+template <bool HAS_MESH>
 __device__ void trace_shadow(const Cfg& c, const Scene& sc, V3 o, V3 d, float max_dist,
                              float& vis, V3& color, float& occ) {
   vis = 1.0f;
@@ -289,6 +502,14 @@ __device__ void trace_shadow(const Cfg& c, const Scene& sc, V3 o, V3 d, float ma
   if (blocked) {
     vis = 0.0f;
     color = v3(0.0f, 0.0f, 0.0f);
+  }
+  if constexpr (HAS_MESH) {
+    float mvis, mocc;
+    V3 mcol;
+    mesh_shadow(sc.mesh, o, d, max_dist, blocked, mvis, mcol, mocc);
+    vis = vis * mvis;
+    color = mul(color, mcol);
+    occ = minn(occ, mocc);
   }
 }
 
@@ -383,6 +604,7 @@ __device__ __forceinline__ float pen_directional(float d_occ, float tan_ang) {
   return d_occ >= FP16_MAX ? FP16_MAX : minn(radius, F(32768.0));
 }
 
+template <bool HAS_MESH>
 __device__ Shadow soft_shadow(const Cfg& c, const Scene& sc, V3 pos, V3 nrm, bool active, int lt,
                               V3 lpos, float radius, float samples, uint32_t& seed) {
   Shadow r;
@@ -450,7 +672,7 @@ __device__ Shadow soft_shadow(const Cfg& c, const Scene& sc, V3 pos, V3 nrm, boo
     }
     float sv, so;
     V3 scol;
-    trace_shadow(c, sc, origin, trace_dir, trace_max, sv, scol, so);
+    trace_shadow<HAS_MESH>(c, sc, origin, trace_dir, trace_max, sv, scol, so);
     r.rays += 1;
     if (iter_hard) {
       vis_h = sv;
@@ -522,22 +744,42 @@ struct Shaded {
   bool glass_spawn, metal_spawn, tir, entering;
   V3 reflect_dir, refract_dir, metal_dir, reflect_tp, refract_tp, metal_tp;
   int hit_type, hit_index;
+  int thick_tag;  // refract child's pending mesh thickness: (instance + 1) << 8
 };
 
+template <bool HAS_MESH>
 __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint32_t py,
                                 uint32_t sample, const Ray& ray, Shaded& out) {
   int skip_t = (ray.rflags & RAYFLAG_SKIP_SELF) ? ray.stype : INVALID;
   int skip_i = (ray.rflags & RAYFLAG_SKIP_SELF) ? ray.sidx : 0;
-  Hit h = trace_closest(c, sc, ray.o, ray.d, skip_t, skip_i);
+  // a refract child tagged with instance+1 in rflags bits 8+ resolves its
+  // mesh-glass thickness in this closest walk; the Beer factor the
+  // reference applied at spawn multiplies the throughput here and the
+  // colour at the end (ops/wavefront.py::shade_and_spawn)
+  int thick_inst = (ray.rflags >> 8) - 1;
+  Hit h = trace_closest<HAS_MESH>(c, sc, ray.o, ray.d, skip_t, skip_i, thick_inst);
+  V3 tp = ray.tp;
+  V3 beer = v3(1.0f, 1.0f, 1.0f);
+  bool fused = HAS_MESH && c.any_absorption;
+  if (fused) {
+    float t_th = (thick_inst >= 0 && h.thick_hit) ? h.thick_t : 0.0f;
+    float tscale = t_th * F(0.6);
+    V3 ab = ld3(sc.mesh.inst_tbl + 8 * min(max(thick_inst, 0), sc.mesh.num_inst - 1) + 1);
+    if (t_th > 0.0f)
+      beer = v3(expf(-ab.x * tscale), expf(-ab.y * tscale), expf(-ab.z * tscale));
+    tp = mul(tp, beer);
+  }
   out.hit = h.hit;
   out.rays = 0;
   out.glass_spawn = out.metal_spawn = out.tir = false;
   out.hit_type = h.type;
   out.hit_index = h.index;
+  out.thick_tag = 0;
   if (!h.hit) {
     V3 sky = sky_color(ray.d);
     V3 col = scale(sky, ray.boost);
-    if (!finite3(col)) col = mul(ray.tp, sky);
+    if (!finite3(col)) col = mul(tp, sky);
+    if (fused) col = mul(col, beer);
     out.color = col;
     out.diffuse = scale(sky, ray.boost);
     out.specular = v3(0.0f, 0.0f, 0.0f);
@@ -550,15 +792,30 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
   }
   V3 pos = add(ray.o, scale(ray.d, h.t));
   V3 n;
+  bool front;
   if (h.type == TYPE_SPHERE) {
     n = normalize(sub(pos, ld3(sc.sph + SPH_W * min(max(h.index, 0), c.S - 1))));
   } else if (h.type == TYPE_PLANE) {
     n = normalize(ld3(sc.pln + PLN_W * min(max(h.index, 0), c.P - 1) + 3));
-  } else {
+  } else if (!HAS_MESH || h.type == TYPE_BOX) {
     n = box_face_normal(pos, sc.box + BOX_W * min(max(h.index, 0), c.B - 1));
   }
-  bool front = dot(ray.d, n) < 0.0f;
-  V3 nrm = front ? n : neg(n);
+  V3 nrm;
+  if (HAS_MESH && h.type == TYPE_MESH) {
+    // barycentric smooth normal; the geometric normal decides the face
+    // (ClosestHit_Triangle.hlsl:14-136, ops/bvh.py::shading_normal)
+    int ti = h.tri;
+    float w = 1.0f - h.u - h.v;
+    V3 a = ld3(sc.mesh.n0 + 3 * ti), b = ld3(sc.mesh.n1 + 3 * ti), cc = ld3(sc.mesh.n2 + 3 * ti);
+    V3 sm = normalize(v3(a.x * w + b.x * h.u + cc.x * h.v, a.y * w + b.y * h.u + cc.y * h.v,
+                         a.z * w + b.z * h.u + cc.z * h.v));
+    V3 geo = normalize(cross(ld3(sc.mesh.e1 + 3 * ti), ld3(sc.mesh.e2 + 3 * ti)));
+    front = dot(ray.d, geo) < 0.0f;
+    nrm = front ? sm : neg(sm);
+  } else {
+    front = dot(ray.d, n) < 0.0f;
+    nrm = front ? n : neg(n);
+  }
 
   // material fetch (ClosestHit.hlsl:54-125)
   const float* mt = sc.mat + MAT_W * h.slot;
@@ -648,7 +905,8 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
       LightGeom g = light_geom(sc, pos, nrm, type, lpos);
       int samples = shadow_samples(__ldg(lt + 9), t0i, t0c, t1i, t1c, idx);
       bool active = selm && g.ndotl > 0.0f;
-      res[w] = soft_shadow(c, sc, pos, nrm, active, type, lpos, __ldg(lt + 8), (float)samples,
+      res[w] = soft_shadow<HAS_MESH>(c, sc, pos, nrm, active, type, lpos, __ldg(lt + 8),
+                                     (float)samples,
                            seed);
       if (active) rays += res[w].rays;
     }
@@ -701,7 +959,8 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     float fb_ndotl = maxn(dot(nrm, fb_l), 0.0f);
     float fb_vis, fb_occ;
     V3 fb_scol;
-    trace_shadow(c, sc, add(pos, scale(nrm, F(0.001))), fb_l, fb_dist, fb_vis, fb_scol, fb_occ);
+    trace_shadow<HAS_MESH>(c, sc, add(pos, scale(nrm, F(0.001))), fb_l, fb_dist, fb_vis, fb_scol,
+                           fb_occ);
     rays += 1;
     float fb_amount = clampn((1.0f - fb_vis) * par(sc, P_SHADOW_STRENGTH), 0.0f, 1.0f);
     float k = F(1.5) * fb_atten * (1.0f - fb_amount);
@@ -725,7 +984,8 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
   V3 diff_lit = add(ambient, scale(ddiff, direct_weight));
   V3 col = is_glass ? add(highlight, emission)
                     : clamp3(add(add(diff_lit, dspec), emission), 0.0f, INFINITY);
-  if (!finite3(col)) col = mul(ray.tp, sky_color(ray.d));  // NaN/Inf guard (RayGen.hlsl:250-260)
+  if (!finite3(col)) col = mul(tp, sky_color(ray.d));  // NaN/Inf guard (RayGen.hlsl:250-260)
+  if (fused) col = mul(col, beer);
   out.color = col;
   out.diffuse = is_glass ? v3(0.0f, 0.0f, 0.0f) : add(diff_lit, emission);
   out.specular = is_glass ? highlight : dspec;
@@ -773,7 +1033,12 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     V3 refract_tp = clamp3(v3(ft * tint.x, ft * tint.y, ft * tint.z), 0.0f, 1.0f);
     V3 absorb = v3(1.0f, 1.0f, 1.0f);
     if (c.any_absorption && !tir) {
-      // thickness ray for Beer-Lambert absorption (RayGen.hlsl:646-678)
+      // thickness ray for Beer-Lambert absorption (RayGen.hlsl:646-678);
+      // on a mesh it finds nothing here: the refract child's closest walk
+      // resolves it (tagged below)
+      if (HAS_MESH && h.type == TYPE_MESH &&
+          (absorption.x > 0.0f || absorption.y > 0.0f || absorption.z > 0.0f))
+        out.thick_tag = (h.index + 1) << 8;
       float th_t;
       bool th_hit = trace_thickness(c, sc, add(pos, scale(g_refract, F(0.002))), g_refract,
                                     h.type, h.index, th_t);
@@ -788,8 +1053,8 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     out.tir = tir;
     out.reflect_dir = g_reflect;
     out.refract_dir = g_refract;
-    out.reflect_tp = v3(rtp * ray.tp.x, rtp * ray.tp.y, rtp * ray.tp.z);
-    out.refract_tp = mul(mul(refract_tp, absorb), ray.tp);
+    out.reflect_tp = v3(rtp * tp.x, rtp * tp.y, rtp * tp.z);
+    out.refract_tp = mul(mul(refract_tp, absorb), tp);
   }
   if (c.any_metal && !is_glass && metallic > F(0.1)) {
     // metal child (RayGen.hlsl:806-846)
@@ -800,12 +1065,13 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     V3 f_metal = fresnel_schlick3(ndotv_m, f0);
     float reflect_scale = 1.0f - roughness * 0.5f;
     float boost = ray.depth > 0 ? F(1.5) : 1.0f;
-    out.metal_tp = mul(scale(f_metal, reflect_scale * boost), ray.tp);
+    out.metal_tp = mul(scale(f_metal, reflect_scale * boost), tp);
     out.metal_spawn = true;
   }
   out.rays = rays;
 }
 
+template <bool HAS_MESH>
 __global__ void __launch_bounds__(256)
     render_accum_kernel(Cfg c, Scene sc, const int* __restrict__ itab, float* __restrict__ out) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -877,7 +1143,7 @@ __global__ void __launch_bounds__(256)
       } else if (valid && !(maxn(maxn(cur.tp.x, cur.tp.y), cur.tp.z) < F(0.01) &&
                             (cur.flags & PATH_FLAG_SPECULAR) == 0)) {
         Shaded sh;
-        shade_and_spawn(c, sc, px, py, (uint32_t)s, cur, sh);
+        shade_and_spawn<HAS_MESH>(c, sc, px, py, (uint32_t)s, cur, sh);
         s_rays += 1 + sh.rays;
         V3 contrib = mul(cur.tp, sh.color);
         s_color = add(s_color, contrib);
@@ -939,7 +1205,7 @@ __global__ void __launch_bounds__(256)
           next.depth = next_depth;
           next.flags = sh.entering ? (spec_flags | PATH_FLAG_INSIDE)
                                    : (spec_flags & ~PATH_FLAG_INSIDE);
-          next.rflags = 0;
+          next.rflags = sh.thick_tag;
           next.stype = INVALID;
           next.sidx = 0;
           has_cont = true;
@@ -997,16 +1263,9 @@ __global__ void __launch_bounds__(256)
   for (int ch = 0; ch < 32; ++ch) o[ch * plane] = vals[ch];
 }
 
-}  // namespace
-
-// ftab: the float tables of pack_scene (spheres, planes, boxes, materials,
-// lights, 32 params, the 16x16x4 blue-noise tile); itab: [num_lights,
-// max_shadow_lights, frame]; out: [32, height, width]. flags: bit 0 has_lights,
-// 1 any_glass, 2 any_metal, 3 any_absorption. Returns the launch's cudaError_t.
-extern "C" int rtvs_render_accum(const float* ftab, const int* itab, float* out, int width,
-                                 int height, int S, int P, int B, int L,
-                                 int spp, int max_bounces, int max_iters, int max_soft,
-                                 int flags, float aspect, void* stream) {
+// Fill the launch configuration from the C arguments (see the entry points).
+Cfg make_cfg(int width, int height, int S, int P, int B, int L, int spp, int max_bounces,
+             int max_iters, int max_soft, int flags, float aspect) {
   Cfg c;
   c.width = width;
   c.height = height;
@@ -1023,8 +1282,13 @@ extern "C" int rtvs_render_accum(const float* ftab, const int* itab, float* out,
   c.any_metal = flags & 4;
   c.any_absorption = flags & 8;
   c.aspect = aspect;
-  int M = S + P + B > 0 ? S + P + B : 1;
-  Scene sc;
+  return c;
+}
+
+// Point the scene at ftab's tables; M material rows (S+P+B, plus one per
+// mesh instance, at least 1).
+Scene make_scene(const float* ftab, int S, int P, int B, int M, int L) {
+  Scene sc = {};
   sc.sph = ftab;
   sc.pln = sc.sph + SPH_W * S;
   sc.box = sc.pln + PLN_W * P;
@@ -1032,10 +1296,60 @@ extern "C" int rtvs_render_accum(const float* ftab, const int* itab, float* out,
   sc.lts = sc.mat + MAT_W * M;
   sc.par = sc.lts + LT_W * L;
   sc.bn = sc.par + 32;
-  sc.num_lights = sc.max_shadow_lights = 0;
-  sc.frame = 0u;
+  return sc;
+}
+
+template <bool HAS_MESH>
+int launch(const Cfg& c, const Scene& sc, const int* itab, float* out, void* stream) {
   dim3 block(16, 16);
-  dim3 grid((width + 15) / 16, (height + 15) / 16);
-  render_accum_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab, out);
+  dim3 grid((c.width + 15) / 16, (c.height + 15) / 16);
+  render_accum_kernel<HAS_MESH><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab, out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// ftab: the float tables of pack_scene (spheres, planes, boxes, materials,
+// lights, 32 params, the 16x16x4 blue-noise tile); itab: [num_lights,
+// max_shadow_lights, frame]; out: [32, height, width]. flags: bit 0 has_lights,
+// 1 any_glass, 2 any_metal, 3 any_absorption. Returns the launch's cudaError_t.
+extern "C" int rtvs_render_accum(const float* ftab, const int* itab, float* out, int width,
+                                 int height, int S, int P, int B, int L,
+                                 int spp, int max_bounces, int max_iters, int max_soft,
+                                 int flags, float aspect, void* stream) {
+  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
+                   aspect);
+  Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
+  return launch<false>(c, sc, itab, out, stream);
+}
+
+// K1-mesh: as rtvs_render_accum, with I mesh instances (material rows
+// S+P+B+i) and the mesh tables of ops/cuda/megakernel.py::pack_mesh:
+// node_box [Nn,8], node_link [Nn,4] int32, plane [T,12], n0/n1/n2/e1/e2
+// [T,3], inst [T] int32, inst_tbl [I,8].
+extern "C" int rtvs_render_accum_mesh(const float* ftab, const int* itab, float* out, int width,
+                                      int height, int S, int P, int B, int L, int spp,
+                                      int max_bounces, int max_iters, int max_soft, int flags,
+                                      float aspect, const float* node_box, const int* node_link,
+                                      const float* plane, const float* n0, const float* n1,
+                                      const float* n2, const float* e1, const float* e2,
+                                      const int* inst, const float* inst_tbl, int num_nodes,
+                                      int num_tris, int num_inst, void* stream) {
+  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
+                   aspect);
+  Scene sc = make_scene(ftab, S, P, B, S + P + B + num_inst > 0 ? S + P + B + num_inst : 1, L);
+  sc.mesh.node_box = reinterpret_cast<const float4*>(node_box);
+  sc.mesh.node_link = reinterpret_cast<const int4*>(node_link);
+  sc.mesh.plane = reinterpret_cast<const float4*>(plane);
+  sc.mesh.n0 = n0;
+  sc.mesh.n1 = n1;
+  sc.mesh.n2 = n2;
+  sc.mesh.e1 = e1;
+  sc.mesh.e2 = e2;
+  sc.mesh.inst = inst;
+  sc.mesh.inst_tbl = inst_tbl;
+  sc.mesh.num_nodes = num_nodes;
+  sc.mesh.num_tris = num_tris;
+  sc.mesh.num_inst = num_inst;
+  return launch<true>(c, sc, itab, out, stream);
 }

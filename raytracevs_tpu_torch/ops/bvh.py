@@ -1,0 +1,572 @@
+"""Triangle-mesh BVH: the host build and the plain PyTorch walks.
+
+Restates raytracevs_tpu/ops/bvh.py. The host half builds one object-space
+BLAS per mesh with the native binned-SAH builder (io/native.py), retransforms
+it per instance and chains the instances into one threaded forest (the
+reference's BLAS cache and combined TLAS, AccelerationStructure.cpp:560-848).
+The device half walks the fine LEAF_SIZE-4 tree stacklessly through its
+`hit_next`/`miss_next` links: closest hit with skip-self and the fused
+same-instance thickness, the shadow walks (per-instance crossing counts for
+up to 8 instances, a product per crossing beyond), the standalone thickness
+walk and the shading normal. These walks are the plain versions of the
+mesh walks of kernel K1 (csrc/megakernel.cu), which follows them operation
+for operation; both read the triangle plane table and the per-instance
+shadow factors that `to_device` computes once per scene update.
+
+The JAX package's fat-leaf tree (`mk_*`, `collapse_leaves`, 8-per-row
+packing) and the RTVS_PRESPLIT builder are TPU layout devices and are not
+part of the port.
+
+Each walk here runs on the lanes still walking only: every few steps the
+finished lanes are written back and dropped (`_walk`), so a 1080p frame's
+late steps touch a few thousand lanes instead of two million. Per lane the
+arithmetic and the visit order are those of the JAX walk.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from . import vec
+
+LEAF_SIZE = 4
+_END = -1
+_BIG = 1e30
+_COMPACT_EVERY = 4  # walk steps between two compactions of the live lanes
+
+
+@dataclass
+class BuiltBVH:
+    """Host-side build result (numpy), nodes in DFS preorder."""
+
+    bbox_min: np.ndarray  # [Nn,3]
+    bbox_max: np.ndarray  # [Nn,3]
+    hit_next: np.ndarray  # [Nn] next node if the AABB is hit (leaf: == miss_next)
+    miss_next: np.ndarray  # [Nn] next node if missed (-1 = done)
+    tri_start: np.ndarray  # [Nn] leaf triangle range start (internal: 0)
+    tri_count: np.ndarray  # [Nn] leaf triangle count (internal: 0)
+    v0: np.ndarray  # [T,3] leaf-ordered triangle soup
+    edge1: np.ndarray  # [T,3]
+    edge2: np.ndarray  # [T,3]
+    n0: np.ndarray  # [T,3] smooth vertex normals
+    n1: np.ndarray
+    n2: np.ndarray
+    inst: np.ndarray  # [T] instance index (material lookup)
+
+
+def build_bvh(v0, v1, v2, n0, n1, n2, inst) -> BuiltBVH:
+    """Threaded BVH over world-space triangles, built by the native
+    binned-SAH builder (raytracevs_tpu/ops/bvh.py::build_bvh, native path)."""
+    from ..io import native
+
+    v0 = np.asarray(v0, np.float32)
+    v1 = np.asarray(v1, np.float32)
+    v2 = np.asarray(v2, np.float32)
+    if len(v0) == 0:
+        raise ValueError("empty triangle list")
+    bbox_min, bbox_max, hit_next, miss_next, tri_start, tri_count, order = (
+        native.build_bvh_native(v0, v1, v2, LEAF_SIZE))
+    o = order.astype(np.int64)
+    e1 = (v1 - v0).astype(np.float32)
+    e2 = (v2 - v0).astype(np.float32)
+    return BuiltBVH(
+        bbox_min=bbox_min, bbox_max=bbox_max, hit_next=hit_next, miss_next=miss_next,
+        tri_start=tri_start, tri_count=tri_count,
+        v0=v0[o], edge1=e1[o], edge2=e2[o],
+        n0=np.asarray(n0, np.float32)[o], n1=np.asarray(n1, np.float32)[o],
+        n2=np.asarray(n2, np.float32)[o], inst=np.asarray(inst, np.int32)[o])
+
+
+class BLASCache:
+    """Name-keyed cache of object-space BLASes (the reference's name-keyed
+    BLAS cache, AccelerationStructure.cpp:560-663): the SAH build runs once
+    per mesh; instance transforms only retransform (`transform_blas`). A
+    content fingerprint rebuilds a name whose geometry changed."""
+
+    def __init__(self):
+        self._cache: dict = {}
+        self.build_count = 0  # SAH builds performed
+
+    def get(self, name: str, cached_mesh) -> BuiltBVH:
+        pos_a = np.ascontiguousarray(cached_mesh.positions)
+        nrm_a = np.ascontiguousarray(cached_mesh.normals)
+        idx = np.ascontiguousarray(cached_mesh.indices)
+        fp = (pos_a.size, idx.size, zlib.crc32(pos_a.tobytes()), zlib.crc32(nrm_a.tobytes()),
+              zlib.crc32(idx.tobytes()))
+        entry = self._cache.get(name)
+        if entry is None or entry[0] != fp:
+            pos = np.asarray(cached_mesh.positions, np.float32)
+            nrm = np.asarray(cached_mesh.normals, np.float32)
+            tris = np.asarray(cached_mesh.indices).reshape(-1, 3).astype(np.int64)
+            blas = build_bvh(pos[tris[:, 0]], pos[tris[:, 1]], pos[tris[:, 2]],
+                             nrm[tris[:, 0]], nrm[tris[:, 1]], nrm[tris[:, 2]],
+                             np.zeros(len(tris), np.int32))
+            self.build_count += 1
+            self._cache[name] = (fp, blas)  # one entry per name: bounded
+        return self._cache[name][1]
+
+
+def transform_blas(b: BuiltBVH, m4: np.ndarray, inst_index: int) -> BuiltBVH:
+    """World-space copy of an object-space BLAS under a row-vector TRS m4:
+    triangles map linearly, normals by the inverse transpose, node AABBs by
+    bounding their 8 transformed corners; the topology is untouched, so a
+    transform edit costs no SAH rebuild."""
+    M = np.asarray(m4[:3, :3], np.float64)
+    t = np.asarray(m4[3, :3], np.float64)
+    nmat = np.linalg.inv(M).T
+
+    v0 = (b.v0.astype(np.float64) @ M + t).astype(np.float32)
+    e1 = (b.edge1.astype(np.float64) @ M).astype(np.float32)
+    e2 = (b.edge2.astype(np.float64) @ M).astype(np.float32)
+
+    def xn(n):
+        w = n.astype(np.float64) @ nmat
+        ln = np.linalg.norm(w, axis=1, keepdims=True)
+        return (w / np.where(ln < 1e-12, 1.0, ln)).astype(np.float32)
+
+    lo, hi = b.bbox_min.astype(np.float64), b.bbox_max.astype(np.float64)
+    new_lo = np.full_like(lo, np.inf)
+    new_hi = np.full_like(hi, -np.inf)
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                corner = np.stack([hi[:, 0] if cx else lo[:, 0], hi[:, 1] if cy else lo[:, 1],
+                                   hi[:, 2] if cz else lo[:, 2]], axis=1)
+                w = corner @ M + t
+                new_lo = np.minimum(new_lo, w)
+                new_hi = np.maximum(new_hi, w)
+
+    return BuiltBVH(
+        bbox_min=new_lo.astype(np.float32), bbox_max=new_hi.astype(np.float32),
+        hit_next=b.hit_next, miss_next=b.miss_next, tri_start=b.tri_start,
+        tri_count=b.tri_count, v0=v0, edge1=e1, edge2=e2,
+        n0=xn(b.n0), n1=xn(b.n1), n2=xn(b.n2), inst=np.full(len(b.v0), inst_index, np.int32))
+
+
+def combine_blas(blas_list) -> BuiltBVH:
+    """Chain world-space BLASes into one traversable forest: instance i's
+    exit links retarget to instance i+1's root (a linear TLAS, the
+    reference's combined TLAS analog, AccelerationStructure.cpp:665-848)."""
+    if len(blas_list) == 1:
+        return blas_list[0]
+    node_off = np.cumsum([0] + [len(b.bbox_min) for b in blas_list])
+    tri_off = np.cumsum([0] + [len(b.v0) for b in blas_list])
+
+    def links(b, i):
+        nxt = node_off[i + 1] if i + 1 < len(blas_list) else _END
+        hit = np.where(b.hit_next == _END, nxt, b.hit_next + node_off[i])
+        miss = np.where(b.miss_next == _END, nxt, b.miss_next + node_off[i])
+        return hit.astype(np.int32), miss.astype(np.int32)
+
+    hits, misses = zip(*(links(b, i) for i, b in enumerate(blas_list)))
+
+    def cat(field):
+        return np.concatenate([getattr(b, field) for b in blas_list])
+
+    return BuiltBVH(
+        bbox_min=cat("bbox_min"), bbox_max=cat("bbox_max"),
+        hit_next=np.concatenate(hits), miss_next=np.concatenate(misses),
+        tri_start=np.concatenate(
+            [b.tri_start + tri_off[i] for i, b in enumerate(blas_list)]).astype(np.int32),
+        tri_count=cat("tri_count"), v0=cat("v0"), edge1=cat("edge1"), edge2=cat("edge2"),
+        n0=cat("n0"), n1=cat("n1"), n2=cat("n2"), inst=cat("inst"))
+
+
+class MeshArrays(NamedTuple):
+    """The fine-tree mesh tables: numpy after `mesh_arrays`, tensors after
+    `to_device` (which adds the two derived tables)."""
+
+    bbox_min: object  # [Nn,3] f32
+    bbox_max: object  # [Nn,3] f32
+    hit_next: object  # [Nn] i32
+    miss_next: object  # [Nn] i32
+    tri_start: object  # [Nn] i32
+    tri_count: object  # [Nn] i32
+    v0: object  # [T,3] f32
+    edge1: object  # [T,3]
+    edge2: object  # [T,3]
+    n0: object  # [T,3]
+    n1: object
+    n2: object
+    inst: object  # [T] i32 instance index
+    inst_transmission: object  # [I] f32
+    inst_absorption: object  # [I,3] f32
+    plane: object = None  # [T,12] f32 plane rows (`plane_table`), device only
+    inst_beer: object = None  # [I,3] f32 shadow Beer factor per crossing, device only
+
+    @property
+    def num_nodes(self) -> int:
+        return self.bbox_min.shape[0]
+
+    @property
+    def num_tris(self) -> int:
+        return self.v0.shape[0]
+
+    @property
+    def num_inst(self) -> int:
+        return self.inst_transmission.shape[0]
+
+
+FINE_FIELDS = MeshArrays._fields[:15]
+
+
+def mesh_arrays(b: BuiltBVH, inst_transmission, inst_absorption) -> MeshArrays:
+    """Numpy MeshArrays of a built forest and its per-instance materials."""
+    return MeshArrays(
+        bbox_min=b.bbox_min, bbox_max=b.bbox_max, hit_next=b.hit_next, miss_next=b.miss_next,
+        tri_start=b.tri_start, tri_count=b.tri_count, v0=b.v0, edge1=b.edge1, edge2=b.edge2,
+        n0=b.n0, n1=b.n1, n2=b.n2, inst=b.inst,
+        inst_transmission=np.asarray(inst_transmission, np.float32),
+        inst_absorption=np.asarray(inst_absorption, np.float32))
+
+
+def plane_table(v0, e1, e2):
+    """[T,12] plane rows n(0:3) d0(3) pu(4:7) pu0(7) pv(8:11) pv0(11)
+    (raytracevs_tpu/ops/bvh.py::plane_repr/_plane_table). For x on the
+    triangle's plane u = pu.x + pu0 and v = pv.x + pv0; n = e1 x e2 is the
+    unnormalised geometric normal."""
+    n = vec.cross(e1, e2)
+    nn = vec.dot(n, n)
+    safe = nn > 1e-24
+    inv = torch.where(safe, 1.0 / torch.where(safe, nn, 1.0), 0.0)[:, None]
+    pu = vec.cross(e2, n) * inv
+    pv = vec.cross(n, e1) * inv
+    d0 = vec.dot(n, v0)
+    pu0 = -vec.dot(pu, v0)
+    pv0 = -vec.dot(pv, v0)
+    return torch.cat([n, d0[:, None], pu, pu0[:, None], pv, pv0[:, None]], dim=-1).contiguous()
+
+
+def to_device(mesh: MeshArrays, device, shadow_absorption_scale) -> MeshArrays:
+    """The tables as tensors on `device`, plus the plane table and the
+    per-instance shadow Beer factor exp(-absorption * SHADOW_ABSORPTION_
+    THICKNESS * shadow_absorption_scale) (1 where the instance does not
+    absorb), both computed here once by torch on the device."""
+    t = {f: torch.from_numpy(np.ascontiguousarray(getattr(mesh, f))).to(device)
+         for f in FINE_FIELDS}
+    scale = torch.as_tensor(shadow_absorption_scale, dtype=torch.float32).to(device)
+    ab = t["inst_absorption"]
+    beer = torch.exp(-ab * (C.SHADOW_ABSORPTION_THICKNESS * scale))
+    beer = torch.where(torch.any(ab > 0.0, dim=-1)[:, None], beer, 1.0)
+    return MeshArrays(**t, plane=plane_table(t["v0"], t["edge1"], t["edge2"]),
+                      inst_beer=beer.contiguous())
+
+
+# ---- device half: the plain walks ------------------------------------------
+
+class TriHit(NamedTuple):
+    hit: torch.Tensor  # [N] bool
+    t: torch.Tensor  # [N]
+    tri: torch.Tensor  # [N] i32 triangle index
+    u: torch.Tensor  # [N] barycentric
+    v: torch.Tensor  # [N]
+    inst: torch.Tensor  # [N] i32 instance index
+    thick_hit: Optional[torch.Tensor] = None  # [N] fused same-instance thickness found
+    thick_t: Optional[torch.Tensor] = None  # [N] its distance
+
+
+def _lanes(x, n, dtype, device):
+    """A scalar or [N] argument as an [N] tensor."""
+    return torch.as_tensor(x, dtype=dtype, device=device).expand(n).contiguous()
+
+
+def _safe_inv(d):
+    """1 / d with |d| < 1e-12 replaced by +-1e-12 (sign of d; -0 counts as +)."""
+    return 1.0 / torch.where(torch.abs(d) < 1e-12, torch.where(d < 0, -1e-12, 1e-12), d)
+
+
+def _max3(a):
+    return torch.maximum(torch.maximum(a[:, 0], a[:, 1]), a[:, 2])
+
+
+def _min3(a):
+    return torch.minimum(torch.minimum(a[:, 0], a[:, 1]), a[:, 2])
+
+
+def _ray_aabb(o, inv_d, bb_min, bb_max, tmin, tmax):
+    """Slab test of [N] rays against [N] boxes; NaN propagates like jnp."""
+    t0 = (bb_min - o) * inv_d
+    t1 = (bb_max - o) * inv_d
+    t_near = torch.maximum(_max3(torch.minimum(t0, t1)), tmin)
+    t_far = torch.minimum(_min3(torch.maximum(t0, t1)), tmax)
+    return t_near <= t_far
+
+
+def _leaf(mesh, s, node_idx, box_hit):
+    """The plane test of a leaf's LEAF_SIZE triangle slots, for every lane
+    at once. Returns (ti [N,K] i32, t, u, v [N,K], hit [N,K] without its
+    t <= tmax part, which the caller applies per slot in order)."""
+    count = mesh.tri_count[node_idx]
+    start = mesh.tri_start[node_idx]
+    k = torch.arange(LEAF_SIZE, device=count.device, dtype=count.dtype)
+    ti = torch.clamp(start[:, None] + k, 0, mesh.num_tris - 1)
+    valid = (box_hit & (count > 0))[:, None] & (k < count[:, None])
+    row = mesh.plane[ti]  # [N,K,12]
+    o, d = s["o"][:, None, :], s["d"][:, None, :]
+    nd = vec.dot(row[..., 0:3], d)
+    no = vec.dot(row[..., 0:3], o)
+    ok = torch.abs(nd) > 1e-9  # both windings hit (TRIANGLE_CULL_DISABLE)
+    t = (row[..., 3] - no) / torch.where(ok, nd, 1.0)
+    hx = o + t[..., None] * d
+    u = vec.dot(row[..., 4:7], hx) + row[..., 7]
+    v = vec.dot(row[..., 8:11], hx) + row[..., 11]
+    hit = valid & ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= s["tmin"][:, None])
+    return ti, t, u, v, hit
+
+
+def _next(mesh, s, node_idx, box_hit):
+    live = s["node"] != _END
+    nxt = torch.where(box_hit, mesh.hit_next[node_idx], mesh.miss_next[node_idx])
+    return torch.where(live, nxt, s["node"])
+
+
+def _walk(lanes: dict, step, max_steps: int, results) -> dict:
+    """Advance every lane through `step` until its node is _END or it has
+    taken max_steps steps (the JAX walk's while-loop, lane by lane). `lanes`
+    holds [N, ...] walk state with "node"; `step` maps such a dict, for any
+    subset of lanes, to its next state and leaves _END lanes unchanged.
+    Every _COMPACT_EVERY steps the finished lanes' `results` keys are
+    written back and those lanes dropped from the working set."""
+    out = {k: lanes[k] for k in results}
+    idx = torch.nonzero(lanes["node"] != _END).squeeze(1)
+    cur = {k: v[idx] for k, v in lanes.items()}
+    steps = 0
+    while idx.numel() > 0 and steps < max_steps:
+        for _ in range(min(_COMPACT_EVERY, max_steps - steps)):
+            cur = step(cur)
+            steps += 1
+        live = cur["node"] != _END
+        if steps < max_steps and bool(live.all()):
+            continue
+        for k in out:
+            out[k] = out[k].index_copy(0, idx, cur[k])
+        idx = idx[live]
+        cur = {k: v[live] for k, v in cur.items()}
+    return out
+
+
+def _start(mesh, o, d, active, n, dev, tmin):
+    node = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if active is not None:
+        node = torch.where(active, node, _END)
+    return {"node": node, "o": o, "d": d, "inv_d": _safe_inv(d),
+            "tmin": _lanes(tmin, n, torch.float32, dev)}
+
+
+def traverse_closest(mesh: MeshArrays, o, d, tmin, tmax, skip_active=None, skip_inst=None,
+                     thick_inst=None, active=None) -> TriHit:
+    """Stackless closest-hit walk (raytracevs_tpu/ops/bvh.py::traverse_closest).
+
+    skip_active/skip_inst: RAYFLAG_SKIP_SELF for mesh instances (masks by
+    instance, AnyHit_SkipSelf.hlsl). thick_inst ([N] i32, -1 = none): lanes
+    with a pending same-instance thickness query resolve it in this walk;
+    their interval stays open until the first same-instance hit
+    (AnyHit_Thickness_Triangle's AcceptHitAndEndSearch). `active` ([N] bool)
+    limits the walk to those lanes; the others report a miss."""
+    n, dev = o.shape[0], o.device
+    f32, i32 = torch.float32, torch.int32
+    tmax_l = _lanes(tmax, n, f32, dev)
+    track = thick_inst is not None
+    s = _start(mesh, o, d, active, n, dev, tmin)
+    s.update(best_t=tmax_l.clone(), best_tri=torch.zeros((n,), dtype=i32, device=dev),
+             best_u=torch.zeros((n,), dtype=f32, device=dev),
+             best_v=torch.zeros((n,), dtype=f32, device=dev),
+             skip_active=(torch.zeros((n,), dtype=torch.bool, device=dev)
+                          if skip_active is None else skip_active),
+             skip_inst=(torch.zeros((n,), dtype=i32, device=dev)
+                        if skip_inst is None else skip_inst.to(i32)))
+    if track:
+        s.update(thick_inst=thick_inst.to(i32),
+                 thick_t=torch.full((n,), _BIG, dtype=f32, device=dev),
+                 thick_f=torch.zeros((n,), dtype=torch.bool, device=dev))
+
+    def step(s):
+        s = dict(s)
+        ni = torch.clamp(s["node"], 0, mesh.num_nodes - 1)
+        best_t = s["best_t"]
+        if track:
+            pend = (s["thick_inst"] >= 0) & ~s["thick_f"]
+            bound = torch.where(pend, _BIG, best_t)
+        else:
+            bound = best_t
+        box_hit = (s["node"] != _END) & _ray_aabb(s["o"], s["inv_d"], mesh.bbox_min[ni],
+                                                  mesh.bbox_max[ni], s["tmin"], bound)
+        ti, t, u, v, base = _leaf(mesh, s, ni, box_hit)
+        tinst = mesh.inst[ti]
+        skip = s["skip_active"][:, None] & (tinst == s["skip_inst"][:, None])
+        best_tri, best_u, best_v = s["best_tri"], s["best_u"], s["best_v"]
+        for k in range(LEAF_SIZE):
+            tt = t[:, k]
+            bnd = torch.where(pend, _BIG, best_t) if track else best_t
+            th = base[:, k] & (tt <= bnd)
+            if track:
+                tm = th & (tinst[:, k] == s["thick_inst"]) & (tt < s["thick_t"])
+                s["thick_t"] = torch.where(tm, tt, s["thick_t"])
+                s["thick_f"] = s["thick_f"] | tm
+            better = th & ~skip[:, k] & (tt < best_t)
+            best_t = torch.where(better, tt, best_t)
+            best_tri = torch.where(better, ti[:, k], best_tri)
+            best_u = torch.where(better, u[:, k], best_u)
+            best_v = torch.where(better, v[:, k], best_v)
+        s.update(best_t=best_t, best_tri=best_tri, best_u=best_u, best_v=best_v,
+                 node=_next(mesh, s, ni, box_hit))
+        return s
+
+    keep = ["best_t", "best_tri", "best_u", "best_v"] + (["thick_t", "thick_f"] if track else [])
+    r = _walk(s, step, mesh.num_nodes + 1, keep)
+    hit = r["best_t"] < tmax_l * 0.9999
+    return TriHit(hit=hit, t=r["best_t"], tri=r["best_tri"], u=r["best_u"], v=r["best_v"],
+                  inst=mesh.inst[r["best_tri"]], thick_hit=r.get("thick_f"),
+                  thick_t=r.get("thick_t"))
+
+
+def pow_u8(base, n_vec, one):
+    """base ** n for integer n in [0, 255] by repeated squaring: multiplies
+    only, in the JAX package's order (bvh.py::_pow_u8)."""
+    r = one
+    b = base
+    for bit in range(8):
+        r = torch.where(((n_vec >> bit) & 1) != 0, r * b, r)
+        if bit < 7:
+            b = b * b
+    return r
+
+
+def traverse_shadow(mesh: MeshArrays, o, d, max_dist, blocked0=None, active=None):
+    """Shadow walk: transmission over every triangle crossed
+    (AnyHit_Shadow_Triangle, AnyHit_Shadow.hlsl:60-88; raytracevs_tpu/ops/
+    bvh.py::traverse_shadow with its default count mode).
+
+    Up to 8 instances the walk counts crossings per instance (8 bits each,
+    in one or two int32 words) and evaluates trans^n and beer^n once at the
+    end; beyond 8 it multiplies per crossing in walk order. An opaque
+    (transmission < 0.01) crossing ends the walk after its leaf
+    (AcceptHitAndEndSearch); blocked0 ([N] bool) lanes ended on an opaque
+    analytic hit and do not walk. Returns (visibility [N], colour [N,3],
+    occluder distance [N])."""
+    n, dev = o.shape[0], o.device
+    f32 = torch.float32
+    blocked = torch.zeros((n,), dtype=torch.bool, device=dev) if blocked0 is None else blocked0
+    s = _start(mesh, o, d, active, n, dev, C.RAY_TMIN)
+    s.update(tmax=_lanes(max_dist, n, f32, dev), blocked=blocked,
+             occ=torch.full((n,), C.NRD_FP16_MAX, dtype=f32, device=dev))
+    s["node"] = torch.where(blocked, _END, s["node"])
+    trans_i = mesh.inst_transmission
+    opq = trans_i < 0.01
+    num_inst = mesh.num_inst
+    count_mode = num_inst <= 8
+    if count_mode:
+        n_words = (num_inst + 3) // 4
+        for w in range(n_words):
+            s[f"cnt{w}"] = torch.zeros((n,), dtype=torch.int32, device=dev)
+    else:
+        s.update(vis=torch.ones((n,), dtype=f32, device=dev),
+                 color=torch.ones((n, 3), dtype=f32, device=dev))
+
+    def step(s):
+        s = dict(s)
+        ni = torch.clamp(s["node"], 0, mesh.num_nodes - 1)
+        box_hit = (s["node"] != _END) & _ray_aabb(s["o"], s["inv_d"], mesh.bbox_min[ni],
+                                                  mesh.bbox_max[ni], s["tmin"], s["tmax"])
+        ti, t, _, _, base = _leaf(mesh, s, ni, box_hit)
+        th = base & (t <= s["tmax"][:, None])
+        tinst = mesh.inst[ti]
+        blocked = s["blocked"] | torch.any(th & opq[tinst], dim=1)
+        occ = torch.minimum(s["occ"], torch.amin(torch.where(th, t, C.NRD_FP16_MAX), dim=1))
+        if count_mode:
+            inc = th.to(torch.int32) << ((tinst & 3) * 8)
+            if n_words == 1:
+                s["cnt0"] = s["cnt0"] + inc.sum(dim=1, dtype=torch.int32)
+            else:
+                hi = tinst >= 4
+                s["cnt0"] = s["cnt0"] + torch.where(hi, 0, inc).sum(dim=1, dtype=torch.int32)
+                s["cnt1"] = s["cnt1"] + torch.where(hi, inc, 0).sum(dim=1, dtype=torch.int32)
+        else:
+            vis, color = s["vis"], s["color"]
+            for k in range(LEAF_SIZE):
+                translucent = th[:, k] & (trans_i[tinst[:, k]] >= 0.01)
+                vis = torch.where(translucent, vis * trans_i[tinst[:, k]], vis)
+                color = vec.where3(translucent, color * mesh.inst_beer[tinst[:, k]], color)
+            s.update(vis=vis, color=color)
+        nxt = _next(mesh, s, ni, box_hit)
+        # an opaque crossing ends the search (AnyHit_Shadow.hlsl:44-49, 76-81)
+        s.update(blocked=blocked, occ=occ, node=torch.where(blocked, _END, nxt))
+        return s
+
+    keep = ["blocked", "occ"] + ([f"cnt{w}" for w in range(n_words)] if count_mode
+                                 else ["vis", "color"])
+    r = _walk(s, step, mesh.num_nodes + 1, keep)
+    blocked = r["blocked"]
+    if count_mode:
+        one = torch.ones((n,), dtype=f32, device=dev)
+        vis, cr, cg, cb = one, one, one, one
+        beer = mesh.inst_beer
+        for i in range(num_inst):
+            n_i = (r[f"cnt{i // 4}"] >> ((i & 3) * 8)) & 255
+            # opaque instances act through `blocked` only
+            n_i = torch.where(opq[i], 0, n_i)
+            vis = vis * pow_u8(trans_i[i], n_i, one)
+            cr = cr * pow_u8(beer[i, 0], n_i, one)
+            cg = cg * pow_u8(beer[i, 1], n_i, one)
+            cb = cb * pow_u8(beer[i, 2], n_i, one)
+        color = torch.stack([cr, cg, cb], dim=-1)
+    else:
+        vis, color = r["vis"], r["color"]
+    vis = torch.where(blocked, 0.0, vis)
+    color = vec.where3(blocked, torch.zeros_like(color), color)
+    return vis, color, r["occ"]
+
+
+def traverse_thickness(mesh: MeshArrays, o, d, inst_id, active=None):
+    """Same-instance thickness walk (AnyHit_Thickness_Triangle.hlsl:111-129;
+    raytracevs_tpu/ops/bvh.py::traverse_thickness): the walk stops at the
+    first threaded-order leaf with a same-instance hit and returns the
+    nearest hit within it. Returns (hit [N] bool, t [N]).
+
+    The render resolves mesh-glass thickness inside the refract child's
+    closest walk instead (`traverse_closest`'s thick_inst), as the JAX
+    package's render does."""
+    n, dev = o.shape[0], o.device
+    big = C.NRD_FP16_MAX
+    s = _start(mesh, o, d, active, n, dev, C.RAY_TMIN)
+    s.update(inst_id=inst_id.to(torch.int32),
+             best_t=torch.full((n,), big, dtype=torch.float32, device=dev))
+
+    def step(s):
+        s = dict(s)
+        ni = torch.clamp(s["node"], 0, mesh.num_nodes - 1)
+        best_t = s["best_t"]
+        box_hit = (s["node"] != _END) & _ray_aabb(s["o"], s["inv_d"], mesh.bbox_min[ni],
+                                                  mesh.bbox_max[ni], s["tmin"], best_t)
+        ti, t, _, _, base = _leaf(mesh, s, ni, box_hit)
+        base = base & (mesh.inst[ti] == s["inst_id"][:, None])
+        hit_leaf = torch.zeros_like(box_hit)
+        for k in range(LEAF_SIZE):
+            th = base[:, k] & (t[:, k] <= best_t)
+            best_t = torch.where(th & (t[:, k] < best_t), t[:, k], best_t)
+            hit_leaf = hit_leaf | th
+        nxt = _next(mesh, s, ni, box_hit)
+        s.update(best_t=best_t, node=torch.where(hit_leaf, _END, nxt))
+        return s
+
+    best_t = _walk(s, step, mesh.num_nodes + 1, ["best_t"])["best_t"]
+    hit = best_t < big * 0.999
+    return hit, torch.where(hit, best_t, big)
+
+
+def shading_normal(mesh: MeshArrays, hit: TriHit, direction):
+    """Triangle shading normal (ClosestHit_Triangle.hlsl:14-136): the
+    barycentric smooth normal, and the front-face flag decided by the
+    geometric normal (thin shells). Returns (normal [N,3], front [N])."""
+    ti = hit.tri
+    w = 1.0 - hit.u - hit.v
+    n = mesh.n0[ti] * w[:, None] + mesh.n1[ti] * hit.u[:, None] + mesh.n2[ti] * hit.v[:, None]
+    n = vec.normalize(n)
+    geo = vec.normalize(vec.cross(mesh.edge1[ti], mesh.edge2[ti]))
+    front = vec.dot(direction, geo) < 0.0
+    return n, front

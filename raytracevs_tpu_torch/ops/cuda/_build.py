@@ -36,6 +36,9 @@ SIGNATURES = {
     # ftab, itab, out, width, height, S, P, B, L, spp, max_bounces,
     # max_iters, max_soft, flags, aspect, stream
     "rtvs_render_accum": (_P, _P, _P) + (_I,) * 11 + (_F, _P),
+    # ... as rtvs_render_accum up to aspect, then node_box, node_link, plane,
+    # n0, n1, n2, e1, e2, inst, inst_tbl, num_nodes, num_tris, num_inst, stream
+    "rtvs_render_accum_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + (_P,) * 10 + (_I,) * 3 + (_P,),
     # state, curr, motion, motion_spec, view_z, roughness, out, H, W, stream
     "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 2 + (_P,),
     # img6, out6, H, W, stream

@@ -1,11 +1,10 @@
-"""Batched analytic primitive intersection (rays x primitives).
+"""Batched primitive intersection (rays x primitives).
 
-Restates raytracevs_tpu/ops/intersect.py for spheres, planes and OBBs
-(src/Shader/Intersection.hlsl:17-198): the sphere quadratic, infinite plane
-and OBB slab tests, the closest-hit resolve, AnyHit_SkipSelf
-(AnyHit_SkipSelf.hlsl:6-28), shadow transmission (AnyHit_Shadow.hlsl:10-57)
-and the same-object thickness query (:91-108). Triangle meshes are not part
-of this port yet.
+Restates raytracevs_tpu/ops/intersect.py: the sphere quadratic, infinite
+plane and OBB slab tests (src/Shader/Intersection.hlsl:17-198), the
+closest-hit resolve, AnyHit_SkipSelf (AnyHit_SkipSelf.hlsl:6-28), shadow
+transmission (AnyHit_Shadow.hlsl:10-57) and the same-object thickness query
+(:91-108), with the triangle meshes' BVH walks (ops/bvh.py) merged in.
 
 Rays are [N,3]/[N] tensors; the primitive axis is reduced here. The CUDA
 megakernel (csrc/megakernel.cu) walks the same tables per thread with the
@@ -13,12 +12,12 @@ same arithmetic in the same order.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .. import constants as C
-from . import vec
+from . import bvh, vec
 
 _BIG = 1e30
 _INF = 1e20  # Intersection.hlsl:102
@@ -80,8 +79,13 @@ class Hit(NamedTuple):
     hit: torch.Tensor  # [N] bool
     t: torch.Tensor  # [N]
     obj_type: torch.Tensor  # [N] int64 (OBJECT_TYPE_*; INVALID on a miss)
-    obj_index: torch.Tensor  # [N] int64, index within its type
+    obj_index: torch.Tensor  # [N] int64, index within its type (mesh: instance)
     mat_slot: torch.Tensor  # [N] int64, row of the combined material table
+    tri: Optional[torch.Tensor] = None  # [N] triangle index (mesh hits)
+    bary_u: Optional[torch.Tensor] = None  # [N]
+    bary_v: Optional[torch.Tensor] = None  # [N]
+    thick_hit: Optional[torch.Tensor] = None  # [N] fused same-instance thickness found
+    thick_t: Optional[torch.Tensor] = None  # [N] its distance
 
 
 def _apply_skip(t, obj_type, skip_type, skip_index):
@@ -91,10 +95,14 @@ def _apply_skip(t, obj_type, skip_type, skip_index):
     return torch.where(skip, _BIG, t)
 
 
-def trace_closest(scene, origin, direction, tmin, tmax, skip_type=None, skip_index=None) -> Hit:
+def trace_closest(scene, origin, direction, tmin, tmax, skip_type=None, skip_index=None,
+                  thick_inst=None, active=None) -> Hit:
     """Closest hit over spheres ++ planes ++ boxes (the global primitive
-    order of the reference's procedural BLAS, so mat_slot = global index).
-    Ties go to the first primitive in that order."""
+    order of the reference's procedural BLAS, so mat_slot = global index),
+    then the mesh instances, whose material rows follow. Ties go to the
+    first primitive in that order, and to an analytic hit over a triangle.
+    thick_inst rides the mesh walk for deferred same-instance thickness
+    (bvh.traverse_closest); the mesh is walked on `active` lanes only."""
     n = origin.shape[0]
     dev = origin.device
     if skip_type is None:
@@ -128,7 +136,20 @@ def trace_closest(scene, origin, direction, tmin, tmax, skip_type=None, skip_ind
                            torch.where(is_plane, C.OBJECT_TYPE_PLANE, C.OBJECT_TYPE_SPHERE))
     obj_type = torch.where(hit, obj_type, INVALID)
     obj_index = torch.where(is_box, best - s_cap - p_cap, torch.where(is_plane, best - s_cap, best))
-    return Hit(hit=hit, t=t, obj_type=obj_type, obj_index=obj_index, mat_slot=best)
+    if scene.mesh is None:
+        return Hit(hit=hit, t=t, obj_type=obj_type, obj_index=obj_index, mat_slot=best)
+    mh = bvh.traverse_closest(scene.mesh, origin, direction, tmin, tmax,
+                              skip_active=skip_type == C.OBJECT_TYPE_MESH, skip_inst=skip_index,
+                              thick_inst=thick_inst, active=active)
+    better = mh.hit & (mh.t < t)
+    inst = mh.inst.to(torch.int64)
+    return Hit(hit=hit | better, t=torch.where(better, mh.t, t),
+               obj_type=torch.where(better, C.OBJECT_TYPE_MESH, obj_type),
+               obj_index=torch.where(better, inst, obj_index),
+               mat_slot=torch.where(better, s_cap + p_cap + b_cap + inst, best),
+               tri=torch.where(better, mh.tri.to(torch.int64), 0),
+               bary_u=torch.where(better, mh.u, 0.0), bary_v=torch.where(better, mh.v, 0.0),
+               thick_hit=mh.thick_hit, thick_t=mh.thick_t)
 
 
 def box_face_normal(hit_position, centers, halves, axes, index):
@@ -153,7 +174,8 @@ def box_face_normal(hit_position, centers, halves, axes, index):
 def surface_normal(scene, hit: Hit, origin, direction):
     """(hit position, normal faced against the ray, front-face flag):
     the outward geometric normal flipped to face the ray
-    (ClosestHit.hlsl:127-129)."""
+    (ClosestHit.hlsl:127-129); on a triangle the smooth normal, with the
+    geometric normal deciding the face (ClosestHit_Triangle.hlsl:122-126)."""
     pos = origin + direction * hit.t[:, None]
     n = vec.const3(0.0, 1.0, 0.0, like=pos).expand_as(pos)
     if scene.sphere_capacity:
@@ -167,15 +189,26 @@ def surface_normal(scene, hit: Hit, origin, direction):
                                 torch.clamp(hit.obj_index, 0, scene.box_capacity - 1))
         n = vec.where3(hit.obj_type == C.OBJECT_TYPE_BOX, n_box, n)
     front_face = vec.dot(direction, n) < 0.0
-    return pos, vec.where3(front_face, n, -n), front_face
+    faced = vec.where3(front_face, n, -n)
+    if scene.mesh is not None:
+        is_mesh = hit.obj_type == C.OBJECT_TYPE_MESH
+        smooth, front_geo = bvh.shading_normal(scene.mesh, bvh.TriHit(
+            hit=is_mesh, t=hit.t, tri=hit.tri, u=hit.bary_u, v=hit.bary_v, inst=hit.obj_index),
+            direction)
+        faced = vec.where3(is_mesh, vec.where3(front_geo, smooth, -smooth), faced)
+        front_face = torch.where(is_mesh, front_geo, front_face)
+    return pos, faced, front_face
 
 
-def trace_shadow(scene, origin, direction, max_dist):
+def trace_shadow(scene, origin, direction, max_dist, active=None):
     """Shadow transmission along a segment (AnyHit_Shadow.hlsl:10-57).
 
     An opaque (transmission < 0.01) hit blocks fully; translucent hits
     multiply their transmission into the visibility and a Beer-Lambert tint
-    into the shadow colour, one intersection per primitive. Returns
+    into the shadow colour, one intersection per primitive; then the mesh
+    walk folds in every triangle crossed, seeded blocked where an opaque
+    analytic hit already ended the search. The mesh is walked on `active`
+    lanes only (the others keep the analytic result). Returns
     (visibility [N], shadow_color [N,3], occluder_distance [N])."""
     n = origin.shape[0]
     dev = origin.device
@@ -191,9 +224,10 @@ def trace_shadow(scene, origin, direction, max_dist):
         parts.append(intersect_boxes(origin, direction, tmin, max_dist, scene.box_center,
                                      scene.box_half, scene.box_axes, scene.box_valid)[0])
     if not parts:
-        return (torch.ones((n,), dtype=torch.float32, device=dev),
-                torch.ones((n, 3), dtype=torch.float32, device=dev),
-                torch.full((n,), C.NRD_FP16_MAX, dtype=torch.float32, device=dev))
+        vis = torch.ones((n,), dtype=torch.float32, device=dev)
+        color = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        occ = torch.full((n,), C.NRD_FP16_MAX, dtype=torch.float32, device=dev)
+        return _merge_mesh_shadow(scene, origin, direction, max_dist, vis, color, occ, None, active)
     all_t = torch.cat(parts, dim=1)
     hit_mask = all_t < _BIG * 0.5
     m = all_t.shape[1]
@@ -214,13 +248,25 @@ def trace_shadow(scene, origin, direction, max_dist):
     vis = torch.where(blocked, 0.0, vis)
     color = vec.where3(blocked, torch.zeros_like(color), color)
     occluder = torch.amin(torch.where(hit_mask, all_t, C.NRD_FP16_MAX), dim=1)
-    return vis, color, occluder
+    return _merge_mesh_shadow(scene, origin, direction, max_dist, vis, color, occluder, blocked,
+                              active)
+
+
+def _merge_mesh_shadow(scene, origin, direction, max_dist, vis, color, occluder, blocked, active):
+    """Fold the mesh instances' shadow transmission into the analytic result."""
+    if scene.mesh is None:
+        return vis, color, occluder
+    mvis, mcolor, mocc = bvh.traverse_shadow(scene.mesh, origin, direction, max_dist,
+                                             blocked0=blocked, active=active)
+    return vis * mvis, color * mcolor, torch.minimum(occluder, mocc)
 
 
 def trace_thickness(scene, origin, direction, obj_type, obj_index):
     """Same-object thickness query (RayGen.hlsl:646-672, AnyHit_Thickness):
     the nearest intersection with the *same* sphere or box along the
-    refraction direction. Returns (hit [N] bool, t [N])."""
+    refraction direction, and for a mesh instance its thickness walk (the
+    render passes no mesh lanes: it resolves mesh-glass thickness in the
+    refract child's closest walk). Returns (hit [N] bool, t [N])."""
     n = origin.shape[0]
     dev = origin.device
     tmin = torch.full((n,), C.RAY_TMIN, dtype=torch.float32, device=dev)
@@ -239,4 +285,10 @@ def trace_thickness(scene, origin, direction, obj_type, obj_index):
         t = torch.where(obj_type == C.OBJECT_TYPE_BOX,
                         torch.gather(tb, 1, idx[:, None])[:, 0], t)
     hit = (t < _BIG * 0.5) & ((obj_type == C.OBJECT_TYPE_SPHERE) | (obj_type == C.OBJECT_TYPE_BOX))
-    return hit, torch.where(hit, t, C.NRD_FP16_MAX)
+    t = torch.where(hit, t, C.NRD_FP16_MAX)
+    if scene.mesh is not None:
+        is_mesh = obj_type == C.OBJECT_TYPE_MESH
+        mh, mt = bvh.traverse_thickness(scene.mesh, origin, direction, obj_index, active=is_mesh)
+        hit = torch.where(is_mesh, mh, hit)
+        t = torch.where(is_mesh, mt, t)
+    return hit, t

@@ -191,6 +191,9 @@ def calculate_soft_shadow(scene, hit_pos, normal, active, lt_type, lt_position, 
     shadowed = active & ~is_ambient
     soft_active = shadowed & soft
     hard_active = shadowed & ~soft
+    # every sample's ray first (the RNG stream does not depend on what the
+    # rays hit), then one trace of all of them, then the sums in sample order
+    rays_s = []
     for s in range(max_samples):
         iter_soft = soft_active & (s < num_samples)
         seed, u1 = sampling.masked_rng_next(seed, iter_soft)
@@ -211,7 +214,13 @@ def calculate_soft_shadow(scene, hit_pos, normal, active, lt_type, lt_position, 
         trace_max = torch.where(soft, samp_max, hard_dist)
         above = vec.dot(samp_dir, normal) > 0.0
         do_trace = (iter_soft & above) | iter_hard
-        sv, sc, so = intersect.trace_shadow(scene, origin, trace_dir, trace_max)
+        rays_s.append((iter_soft, iter_hard, above, do_trace, trace_dir, trace_max))
+    sv_all, sc_all, so_all = intersect.trace_shadow(
+        scene, origin.repeat(max_samples, 1), torch.cat([x[4] for x in rays_s]),
+        torch.cat([x[5] for x in rays_s]), active=torch.cat([x[3] for x in rays_s]))
+
+    for s, (iter_soft, iter_hard, above, do_trace, _, _) in enumerate(rays_s):
+        sv, sc, so = (x[s * n:(s + 1) * n] for x in (sv_all, sc_all, so_all))
         rays = rays + do_trace.to(torch.int32)
 
         vis_h = torch.where(iter_hard, sv, vis_h)

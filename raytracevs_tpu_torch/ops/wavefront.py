@@ -2,7 +2,7 @@
 version of the CUDA megakernel (csrc/megakernel.cu).
 
 Restates raytracevs_tpu/ops/wavefront.py (itself the reference's RayGen
-work-queue loop, src/Shader/RayGen.hlsl:48-1045) for analytic scenes. Per
+work-queue loop, src/Shader/RayGen.hlsl:48-1045). Per
 lane a "current ray" register file holds the WorkItem being traced and an
 8-deep LIFO stack holds deferred siblings; each iteration traces and shades
 the current item of every lane, records the depth-0 NRD payload, and picks
@@ -131,7 +131,24 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     skip_self = (state.ray_flags & C.RAYFLAG_SKIP_SELF) != 0
     skip_t = torch.where(skip_self, state.skip_type, _INVALID)
     skip_i = torch.where(skip_self, state.skip_index, 0)
-    hit = intersect.trace_closest(scene, state.origin, state.direction, tmin, tmax, skip_t, skip_i)
+    # Deferred mesh-glass thickness: a refract child tagged with instance+1
+    # in ray_flags bits 8+ resolves its same-instance thickness during this
+    # closest walk (its ray IS the reference's thickness ray, RayGen.hlsl:
+    # 650/776 share the origin); the Beer factor the reference applied at
+    # spawn multiplies the path here instead, and the product is the same.
+    beer = None
+    if scene.mesh is not None and cfg.any_absorption:
+        thick_inst = torch.where(traced, (state.ray_flags >> 8) - 1, -1)
+        hit = intersect.trace_closest(scene, state.origin, state.direction, tmin, tmax, skip_t,
+                                      skip_i, thick_inst=thick_inst, active=traced)
+        t_th = torch.where((thick_inst >= 0) & hit.thick_hit, hit.thick_t, 0.0)
+        tscale = t_th * C.GLASS_ABSORPTION_SCALE
+        ab = scene.mesh.inst_absorption[torch.clamp(thick_inst, 0, scene.mesh.num_inst - 1)]
+        beer = vec.where3(t_th > 0.0, torch.exp(-ab * tscale[:, None]), ones3)
+        state = state._replace(throughput=state.throughput * beer)
+    else:
+        hit = intersect.trace_closest(scene, state.origin, state.direction, tmin, tmax, skip_t,
+                                      skip_i, active=traced)
     hit_mask = hit.hit & traced
     pos, nrm, front_face = intersect.surface_normal(scene, hit, state.origin, state.direction)
 
@@ -268,7 +285,7 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
         fb_ndotl = torch.clamp(vec.dot(nrm, fb_l), min=0.0)
         fb_active = shade_mask & fb_needed
         fb_vis, fb_scol, fb_occ = intersect.trace_shadow(
-            scene, pos + nrm * C.SHADOW_NORMAL_OFFSET, fb_l, fb_dist)
+            scene, pos + nrm * C.SHADOW_NORMAL_OFFSET, fb_l, fb_dist, active=fb_active)
         ray_count = ray_count + fb_active.to(torch.int64)
         fb_amount = torch.clamp((1.0 - fb_vis) * scene.shadow_strength, 0.0, 1.0)
         fb_radiance = (1.5 * fb_atten * (1.0 - fb_amount))[:, None] * fb_scol
@@ -323,6 +340,7 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     no = torch.zeros((n,), dtype=torch.bool, device=dev)
     entering = front_face
     glass_spawn, tir = no, no
+    thick_tag = torch.zeros((n,), dtype=torch.int64, device=dev)
     g_reflect = g_refract = reflect_tp = refract_tp = zeros3
     refraction_absorb = ones3
     if cfg.any_glass:
@@ -352,8 +370,18 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
             # thickness ray for Beer-Lambert absorption (RayGen.hlsl:646-678)
             th_origin = pos + g_refract * C.SELF_OFFSET
             do_thickness = glass_spawn & ~tir
-            th_hit, th_t = intersect.trace_thickness(scene, th_origin, g_refract,
-                                                     hit.obj_type, hit.obj_index)
+            th_type = hit.obj_type
+            if scene.mesh is not None:
+                # mesh-glass lanes defer their thickness to the refract
+                # child's closest walk (above): the child carries the tag;
+                # the thickness ray still counts, as the reference traces it
+                absorbing = torch.any(absorption > 0.0, dim=-1)
+                is_mesh_th = th_type == C.OBJECT_TYPE_MESH
+                thick_tag = torch.where(do_thickness & is_mesh_th & absorbing,
+                                        (hit.obj_index + 1) << 8, 0)
+                th_type = torch.where(is_mesh_th, _INVALID, th_type)
+            th_hit, th_t = intersect.trace_thickness(scene, th_origin, g_refract, th_type,
+                                                     hit.obj_index)
             ray_count = ray_count + do_thickness.to(torch.int64)
             thickness = torch.where(do_thickness & th_hit, th_t, 0.0)
             refraction_absorb = vec.where3(
@@ -391,7 +419,13 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
         "normal": nrm,
         "hit_obj_type": hit.obj_type,
         "hit_obj_index": hit.obj_index,
+        "thick_tag": thick_tag,
     }
+    if beer is not None:
+        # the caller adds cur.throughput (without the Beer factor) * color,
+        # so the deferred factor rides the radiance; tagged lanes have
+        # depth >= 1 and never record
+        color = color * beer
     return color, records, children, ray_count
 
 
@@ -495,7 +529,7 @@ def run_sample(scene, cfg, px, py, sample_index, primary: RayState, prev_prim_hi
             direction=ch["refract_dir"], depth=next_depth, throughput=ch["refract_tp"],
             flags=torch.where(ch["entering"], spec_flags | C.PATH_FLAG_INSIDE,
                               spec_flags & ~C.PATH_FLAG_INSIDE),
-            sky_boost=full(C.SKY_BOOST_GLASS, f32), ray_flags=full(0),
+            sky_boost=full(C.SKY_BOOST_GLASS, f32), ray_flags=ch["thick_tag"],
             skip_type=full(_INVALID), skip_index=full(0))
         metal_inside = (spec_flags & C.PATH_FLAG_INSIDE) != 0
         metal_child = RayState(

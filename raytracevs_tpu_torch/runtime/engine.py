@@ -7,8 +7,13 @@ on the card and the four kernels launch (render K1, reprojection K2, a-trous
 K3, shadow filter K4); on "cpu" the same pipeline runs their plain PyTorch
 versions.
 
+Triangle meshes come from a mesh service (io/mesh_cache.MeshCacheService):
+`update_scene` flattens each mesh instance into one BVH forest, building a
+mesh's BVH once (the Engine's BLASCache) and retransforming it when an
+instance moves.
+
 Example:
-    engine = Engine(1920, 1080, device="cuda")
+    engine = Engine(1920, 1080, device="cuda", mesh_service=meshes)
     engine.update_scene(scene_data)      # evaluated SceneData
     img = engine.render()                # np.uint8 [H, W, 4]
 """
@@ -20,6 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops.bvh import BLASCache
 from ..ops.render_cf import render_rows_cf
 from ..post import composite as composite_mod
 from ..post import denoise as denoise_mod
@@ -33,7 +39,7 @@ from ..utils.checksum import scene_content_checksum
 def render_frame(scene, cfg: RenderConfig, denoise_state):
     """One frame on the scene tensors' device: render -> (denoise) ->
     composite -> RGBA8. Returns (rgba uint8 [H,W,4] tensor, rays tensor,
-    new denoiser state)."""
+    new denoiser state, linear HDR colour [3,H,W] tensor)."""
     out = render_rows_cf(scene, cfg)
     if cfg.enable_denoiser:
         dd, ds, _dshadow, denoise_state = denoise_mod.denoise_frame_cf(out.gbuffer, denoise_state)
@@ -46,15 +52,16 @@ def render_frame(scene, cfg: RenderConfig, denoise_state):
         color01 = composite_mod.composite_cf(
             out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
             use_denoised=False)
-    return tonemap.to_rgba8_cf(color01), out.rays, denoise_state
+    return tonemap.to_rgba8_cf(color01), out.rays, denoise_state, out.color
 
 
 class Engine:
     """Render engine with the EngineWrapper-compatible surface."""
 
-    def __init__(self, width: int, height: int, device="cpu"):
+    def __init__(self, width: int, height: int, device="cpu", mesh_service=None):
         self.width = int(width)
         self.height = int(height)
+        self.mesh_service = mesh_service
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -68,10 +75,14 @@ class Engine:
         self._frame_index = 0
         self._checksum = None
         self._last_rgba: Optional[np.ndarray] = None
+        self._last_hdr_t: Optional[torch.Tensor] = None  # [3,H,W] on the device
         self._last_rays = 0
         self._last_render_ms = 0.0
         self._prev_view_proj = None
         self._denoise_state = None
+        # object-space BLASes by mesh name: a transform edit retransforms,
+        # only new geometry runs the SAH build (AccelerationStructure.cpp:560-663)
+        self._blas_cache = BLASCache()
 
     # -- scene input ------------------------------------------------------
     def update_scene(self, scene: SceneData, **config_overrides) -> None:
@@ -90,7 +101,8 @@ class Engine:
         self._checksum = new_checksum
         self._flat = flatten_scene(clean, frame_index=self._frame_index,
                                    aspect=self.width / self.height,
-                                   prev_view_proj=self._prev_view_proj)
+                                   prev_view_proj=self._prev_view_proj,
+                                   mesh_service=self.mesh_service, blas_cache=self._blas_cache)
         self._cfg = make_config(clean, self.width, self.height, **config_overrides)
         self._prev_view_proj = np.asarray(self._flat.view_proj)
         self._scene_t = to_device(self._flat, self.device)
@@ -103,8 +115,8 @@ class Engine:
         if self._cfg.enable_denoiser and self._denoise_state is None:
             self._denoise_state = denoise_mod.init_state_cf(self.height, self.width, self.device)
         start = time.perf_counter()
-        rgba_t, rays_t, self._denoise_state = render_frame(self._scene_t, self._cfg,
-                                                           self._denoise_state)
+        rgba_t, rays_t, self._denoise_state, self._last_hdr_t = render_frame(
+            self._scene_t, self._cfg, self._denoise_state)
         rgba = rgba_t.cpu().numpy()  # waits for the device
         self._last_render_ms = (time.perf_counter() - start) * 1000.0
         self._last_rgba = rgba
@@ -120,6 +132,14 @@ class Engine:
         if self._last_rgba is None:
             raise RuntimeError("render() must be called before get_pixel_data()")
         return self._last_rgba.tobytes()
+
+    @property
+    def last_hdr(self) -> Optional[np.ndarray]:
+        """Linear HDR colour [H, W, 3] of the last frame, before composite
+        and tone map (read from the device only when asked for)."""
+        if self._last_hdr_t is None:
+            return None
+        return self._last_hdr_t.permute(1, 2, 0).cpu().numpy()
 
     # -- metrics ----------------------------------------------------------
     @property

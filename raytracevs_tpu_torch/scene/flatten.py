@@ -9,10 +9,9 @@ leaf into a tensor on one device; the renderer reads those.
 Primitive index convention matches the reference's procedural BLAS ordering
 (AccelerationStructure.cpp:107-300): global primitive index =
 spheres ++ planes ++ boxes; the combined material table is indexed the same
-way so a hit's (type, index) resolves materials with one gather.
-
-Triangle meshes are not part of this port yet: a scene holding a
-``MeshObjectData`` raises ``NotImplementedError``.
+way, followed by one row per mesh instance, so a hit's (type, index)
+resolves materials with one gather. Mesh instances become one threaded BVH
+forest (ops/bvh.py) in the ``mesh`` leaf.
 """
 from __future__ import annotations
 
@@ -23,7 +22,8 @@ import numpy as np
 import torch
 
 from .. import constants as C
-from .data import LightType, MeshObjectData, SceneData
+from ..ops import bvh as bvh_mod
+from .data import LightType, SceneData
 
 
 def _pad_capacity(n: int, minimum: int) -> int:
@@ -53,7 +53,8 @@ class FlatScene(NamedTuple):
     box_half: object  # [B,3] half extents
     box_axes: object  # [B,3,3] rows = axisX/axisY/axisZ in world space
     box_valid: object  # [B]
-    # Combined material table, indexed spheres ++ planes ++ boxes [M]
+    # Combined material table, indexed spheres ++ planes ++ boxes ++ mesh
+    # instances [M]
     mat_color: object  # [M,4]
     mat_metallic: object  # [M]
     mat_roughness: object  # [M]
@@ -96,6 +97,8 @@ class FlatScene(NamedTuple):
     # Row-vector view-projection matrices (DXRPipeline.cpp:794-804)
     view_proj: object  # [4,4]
     prev_view_proj: object  # [4,4]
+    # Triangle meshes: ops/bvh.py MeshArrays of the instance forest, or None
+    mesh: object = None
 
     @property
     def sphere_capacity(self) -> int:
@@ -204,20 +207,31 @@ def view_projection(scene: SceneData, aspect: float) -> np.ndarray:
 
 def flatten_scene(scene: SceneData, *, frame_index: int = 0,
                   aspect: float = 16.0 / 9.0,
-                  prev_view_proj: np.ndarray = None) -> FlatScene:
-    """Build the numpy FlatScene from an evaluated, sanitized SceneData."""
-    if any(isinstance(o, MeshObjectData) for o in scene.objects):
-        raise NotImplementedError("mesh: not ported yet")
+                  prev_view_proj: np.ndarray = None, mesh_service=None,
+                  blas_cache=None) -> FlatScene:
+    """Build the numpy FlatScene from an evaluated, sanitized SceneData.
+
+    `mesh_service` resolves mesh names (io/mesh_cache.MeshCacheService);
+    instances whose mesh it does not have are skipped, like the reference
+    drops FBX nodes absent from its cache (SceneFileService.cs:52-62).
+    `blas_cache` (ops/bvh.BLASCache) keeps object-space BLASes across scene
+    updates, so a transform edit skips the SAH build."""
     f32 = np.float32
     spheres = scene.spheres
     planes = scene.planes
     boxes = scene.boxes
+    instances = []
+    if mesh_service is not None:
+        for mi in scene.mesh_instances:
+            cached = mesh_service.get_mesh(mi.mesh_name)
+            if cached is not None:
+                instances.append((mi, cached))
 
     s_cap = _pad_capacity(len(spheres), 2)
     p_cap = _pad_capacity(len(planes), 1)
     b_cap = _pad_capacity(len(boxes), 2)
     l_cap = _pad_capacity(len(scene.lights), 2)
-    m_cap = max(1, s_cap + p_cap + b_cap)
+    m_cap = max(1, s_cap + p_cap + b_cap + len(instances))
 
     sph_center = np.zeros((s_cap, 3), f32)
     sph_radius = np.full((s_cap,), 1.0, f32)
@@ -288,6 +302,23 @@ def flatten_scene(scene: SceneData, *, frame_index: int = 0,
         lt_samples[i] = min(max(lt.soft_shadow_samples, 1.0), 16.0)
         lt_valid[i] = True
 
+    # Triangle meshes: one object-space BLAS per mesh name (BLASCache), each
+    # instance retransformed and the instances chained into one forest
+    # (AccelerationStructure.cpp:560-848).
+    mesh = None
+    if instances:
+        if blas_cache is None:
+            blas_cache = bvh_mod.BLASCache()
+        world_blas, inst_trans, inst_absorb = [], [], []
+        for inst_idx, (mi, cached) in enumerate(instances):
+            blas = blas_cache.get(mi.mesh_name, cached)
+            world_blas.append(bvh_mod.transform_blas(blas, mi.transform.matrix(), inst_idx))
+            put_material(s_cap + p_cap + b_cap + inst_idx, mi.material)
+            inst_trans.append(mi.material.transmission)
+            inst_absorb.append(np.asarray(mi.material.absorption, np.float64)[:3])
+        mesh = bvh_mod.mesh_arrays(bvh_mod.combine_blas(world_blas), np.asarray(inst_trans, f32),
+                                   np.asarray(inst_absorb, f32))
+
     fwd, right, up = camera_basis(scene.camera.position, scene.camera.look_at, scene.camera.up)
     st = scene.settings
     vp = view_projection(scene, aspect)
@@ -342,19 +373,24 @@ def flatten_scene(scene: SceneData, *, frame_index: int = 0,
         frame_index=np.asarray(frame_index, np.uint32),
         view_proj=np.asarray(vp, f32),
         prev_view_proj=np.asarray(pvp, f32),
+        mesh=mesh,
     )
 
 
 def to_device(flat: FlatScene, device) -> FlatScene:
     """The same FlatScene with every leaf a tensor on `device` (the u32
-    frame index widens to int64, which holds every u32 exactly)."""
+    frame index widens to int64, which holds every u32 exactly); the mesh
+    tables gain their plane table and shadow factors (ops/bvh.py::to_device)."""
     def conv(a):
         a = np.asarray(a)
         if a.dtype == np.uint32:
             a = a.astype(np.int64)
         return torch.from_numpy(a.copy()).to(device)  # copy: contiguous, keeps 0-d
 
-    return FlatScene(*(conv(leaf) for leaf in flat))
+    mesh = None
+    if flat.mesh is not None:
+        mesh = bvh_mod.to_device(flat.mesh, device, flat.shadow_absorption_scale)
+    return FlatScene(*(conv(leaf) for leaf in flat[:-1]), mesh=mesh)
 
 
 def make_config(scene: SceneData, width: int, height: int, **overrides) -> RenderConfig:

@@ -1,9 +1,10 @@
 """Scenes built in code for the port's parity tests.
 
-Every builder takes a package's ``scene.data`` module, so the same literals
-build a raytracevs_tpu SceneData and a raytracevs_tpu_torch SceneData. The
-demo scene is the slice's workload (chip_smoke.py keeps its own copy of
-these literals, because it cannot import this tests helper's JAX side).
+Every builder takes a package's ``scene.data`` module (and, for meshes, its
+``io.mesh_cache`` module), so the same literals build a raytracevs_tpu
+SceneData and a raytracevs_tpu_torch SceneData. The demo scene and the mesh
+demo scene are the port's workloads (chip_smoke.py keeps its own copy of
+these literals, because it cannot import JAX). Nothing here imports JAX.
 """
 import math
 
@@ -127,5 +128,132 @@ def scene_and_overrides(D, name: str):
 
 
 def jax_leaves(flat) -> dict:
-    """A raytracevs_tpu FlatScene's leaves as numpy, keyed by field name."""
-    return {k: (None if v is None else np.asarray(v)) for k, v in flat._asdict().items()}
+    """A raytracevs_tpu FlatScene's leaves as numpy, keyed by field name;
+    the mesh leaf as a dict of its MeshArrays leaves (or None)."""
+    out = {k: (None if v is None else np.asarray(v)) for k, v in flat._asdict().items()
+           if k != "mesh"}
+    out["mesh"] = (None if flat.mesh is None
+                   else {k: np.asarray(v) for k, v in flat.mesh._asdict().items()})
+    return out
+
+
+def uv_sphere(rings=78, segs=78, radius=0.9):
+    """Smooth UV sphere, 2*rings*segs triangles with analytic normals, as
+    interleaved vertices [V*8] f32 and indices [3T] u32 (the same arrays as
+    tests/test_big_mesh.py::_uv_sphere)."""
+    vs = []
+    for r in range(rings + 1):
+        th = np.pi * r / rings
+        for s in range(segs + 1):
+            ph = 2.0 * np.pi * s / segs
+            n = np.array([np.sin(th) * np.cos(ph), np.cos(th), np.sin(th) * np.sin(ph)])
+            vs.append((radius * n, n))
+    verts = np.zeros((len(vs), 8), np.float32)
+    for i, (p, n) in enumerate(vs):
+        verts[i, 0:3] = p
+        verts[i, 4:7] = n
+    idx = []
+    for r in range(rings):
+        for s in range(segs):
+            a = r * (segs + 1) + s
+            b = a + segs + 1
+            idx += [a, b, a + 1, a + 1, b, b + 1]
+    return verts.reshape(-1), np.asarray(idx, np.uint32)
+
+
+def mesh_service(MC, meshes: dict):
+    """A MeshCacheService of `MC` (a package's io.mesh_cache) serving
+    {name: uv_sphere arguments}; register() only, no directory is read."""
+    ms = MC.MeshCacheService(".")
+    for name, (rings, segs, radius) in meshes.items():
+        verts, indices = uv_sphere(rings, segs, radius)
+        ms.register(name, MC.CachedMesh(name=name, vertices=verts, indices=indices,
+                                        bounds_min=np.full(3, -radius),
+                                        bounds_max=np.full(3, radius)))
+    return ms
+
+
+GLASS_BALL = dict(base_color=np.array([0.95, 0.95, 0.95, 1.0]), transmission=1.0, ior=1.5,
+                  roughness=0.0, absorption=np.array([0.5, 0.2, 0.05]))
+BIG_SPHERE = dict(base_color=np.array([0.8, 0.5, 0.3, 1.0]), roughness=0.5)
+# uv_sphere winds its triangles clockwise seen from outside, so its geometric
+# normals (e1 x e2) point inward and the renderer, which decides the face by
+# them (ClosestHit_Triangle.hlsl:122-126), sees its outside as a back face.
+# An instance scaled by -1 in z is the same sphere turned right side out.
+OUTWARD = np.array([1.0, 1.0, -1.0])
+# The mesh demo scene's meshes, (rings, segs, radius), cut down for the tests;
+# full size (chip_smoke.py) is BigSphere (316, 316, 0.9), GlassBall (96, 192, 0.6)
+MESH_DEMO_SMALL = {"BigSphere": (10, 12, 0.9), "GlassBall": (8, 12, 0.6)}
+
+
+def mesh_demo_scene(D, frame: int = 0):
+    """The demo scene plus two mesh instances: "BigSphere", an opaque
+    rough sphere behind the metal sphere, and "GlassBall", an absorbing
+    glass ball standing in front of the mirror sphere. Neither overlaps an
+    analytic object; both stay in view over the orbit. Render with
+    DEMO_OVERRIDES and a mesh service of MESH_DEMO_SMALL (or the full size)."""
+    s = demo_scene(D, frame)
+    s.objects += [
+        D.MeshObjectData(mesh_name="BigSphere", material=D.MaterialData(**BIG_SPHERE),
+                         transform=D.Transform(position=np.array([2.4, 0.95, 3.2]),
+                                               scale=OUTWARD)),
+        D.MeshObjectData(mesh_name="GlassBall", material=D.MaterialData(**GLASS_BALL),
+                         transform=D.Transform(position=np.array([-1.25, 0.65, -1.2]),
+                                               scale=OUTWARD)),
+    ]
+    return s
+
+
+def glass_ball_scene(D, opaque=False):
+    """The mesh scene of tests/test_shadow_fuse.py::_mesh_scene: one mesh
+    ball (absorbing glass, or opaque) on a checker floor beside an analytic
+    sphere, a soft point light, a directional and an ambient light. Render
+    with {"max_soft_samples": 2} and a mesh service {"GlassBall": (9, 9, 0.7)}."""
+    mat = (D.MaterialData(base_color=np.array([0.7, 0.7, 0.8, 1.0]), roughness=0.3) if opaque
+           else D.MaterialData(**dict(GLASS_BALL, ior=1.2)))
+    s = D.SceneData()
+    s.camera.position = np.array([0.0, 1.2, -3.0])
+    s.camera.look_at = np.array([0.0, 0.7, 0.0])
+    s.settings.samples_per_pixel = 1
+    s.settings.max_bounces = 3
+    s.objects += [
+        D.MeshObjectData(mesh_name="GlassBall", material=mat,
+                         transform=D.Transform(position=np.array([0.0, 0.7, 0.0]))),
+        D.SphereData(position=np.array([1.4, 1.2, -0.6]), radius=0.4,
+                     material=D.MaterialData(roughness=0.4)),
+        D.PlaneData(),
+    ]
+    s.lights += [
+        D.LightData(type=D.LightType.POINT, position=np.array([2.5, 5.0, -2.0]), intensity=12.0,
+                    radius=0.35, soft_shadow_samples=2.0),
+        D.LightData(type=D.LightType.DIRECTIONAL, direction=np.array([0.4, -1.0, 0.2]),
+                    intensity=0.8),
+        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.3, 0.3, 0.3, 1.0])),
+    ]
+    return s
+
+
+def nine_ball_scene(D):
+    """Nine mesh instances of one ball in a 3x3 grid, glass and opaque
+    alternating, the odd ones turned right side out (more than 8 instances:
+    the shadow walk multiplies per crossing). Render with a mesh service
+    {"Ball": (6, 8, 0.3)}."""
+    s = D.SceneData()
+    s.camera.position = np.array([0.0, 2.2, -3.4])
+    s.camera.look_at = np.array([0.0, 0.4, 0.4])
+    s.settings.samples_per_pixel = 1
+    s.settings.max_bounces = 4
+    for i in range(9):
+        glass = i % 2 == 0
+        mat = (D.MaterialData(**dict(GLASS_BALL, absorption=np.array([0.2, 0.6, 1.0]) * (i / 8.0)))
+               if glass else D.MaterialData(base_color=np.array([0.3 + 0.07 * i, 0.5, 0.6, 1.0]),
+                                            metallic=float(i % 4 == 1), roughness=0.3))
+        pos = np.array([(i % 3 - 1) * 0.8, 0.32 + 0.05 * (i // 3), (i // 3) * 0.8])
+        s.objects.append(D.MeshObjectData(mesh_name="Ball", material=mat, transform=D.Transform(
+            position=pos, scale=OUTWARD if i % 2 else np.ones(3))))
+    s.objects.append(D.PlaneData())
+    s.lights += [
+        D.LightData(type=D.LightType.POINT, position=np.array([1.5, 4.0, -1.5]), intensity=10.0),
+        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
+    ]
+    return s

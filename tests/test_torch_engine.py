@@ -1,7 +1,8 @@
 """The port's Engine end to end on the CPU vs raytracevs_tpu's Engine
 (backend "jnp", no device mesh), over three frames of the orbiting demo
-scene with the denoiser on; plus the Engine's contract: no JAX import,
-device handling, mesh rejection and the checksum-keyed history reset.
+scene and of the mesh demo scene (small meshes) with the denoiser on; plus
+the Engine's contract: no JAX import, device handling, meshes from the mesh
+service and the checksum-keyed history reset.
 
 Band: RGBA8 |diff| <= 1 on >= 99.5% of pixels (the renderers agree to
 float rounding; uint8 rounding near .5 moves by one), and <= 4 everywhere
@@ -21,8 +22,10 @@ import torch
 
 import _torch_scenes as S
 from raytracevs_tpu import Engine as JEngine
+from raytracevs_tpu.io import mesh_cache as JMC
 from raytracevs_tpu.scene import data as JD
 from raytracevs_tpu_torch import Engine
+from raytracevs_tpu_torch.io import mesh_cache as PMC
 from raytracevs_tpu_torch.ops.render_cf import render_rows_cf
 from raytracevs_tpu_torch.scene import data as PD
 
@@ -32,29 +35,38 @@ W, H = 64, 32
 HDR_ATOL = 2e-4
 
 
-@pytest.fixture(scope="module")
-def frames():
-    je = JEngine(W, H, backend="jnp", device_mesh=None)
-    pe = Engine(W, H, device="cpu")
+def _render_pair(build, jms=None, pms=None):
+    """Three orbiting frames of build(D, frame) through both Engines."""
+    je = JEngine(W, H, backend="jnp", device_mesh=None, mesh_service=jms)
+    pe = Engine(W, H, device="cpu", mesh_service=pms)
     out = []
     for f in range(3):
-        je.update_scene(S.demo_scene(JD, f), **S.DEMO_OVERRIDES)
-        pe.update_scene(S.demo_scene(PD, f), **S.DEMO_OVERRIDES)
-        port_hdr = render_rows_cf(pe._scene_t, pe._cfg).color.permute(1, 2, 0).numpy()
+        je.update_scene(build(JD, f), **S.DEMO_OVERRIDES)
+        pe.update_scene(build(PD, f), **S.DEMO_OVERRIDES)
         jflat, jcfg = je._flat, je._cfg
         out.append(dict(jimg=je.render(), pimg=pe.render(), jrays=je.last_rays,
-                        prays=pe.last_rays, engine=pe, jhdr=je.last_hdr, phdr=port_hdr,
+                        prays=pe.last_rays, engine=pe, jhdr=je.last_hdr, phdr=pe.last_hdr,
                         jflat=jflat, jcfg=jcfg))
     return out
+
+
+@pytest.fixture(scope="module")
+def frames():
+    return _render_pair(S.demo_scene)
+
+
+@pytest.fixture(scope="module")
+def mesh_frames():
+    """The mesh demo scene, with small meshes (MESH_DEMO_SMALL)."""
+    return _render_pair(S.mesh_demo_scene, S.mesh_service(JMC, S.MESH_DEMO_SMALL),
+                        S.mesh_service(PMC, S.MESH_DEMO_SMALL))
 
 
 def _hdr_outliers(fr):
     return np.argwhere(np.abs(fr["phdr"] - fr["jhdr"]).max(axis=-1) > HDR_ATOL)
 
 
-@pytest.mark.parametrize("frame", [0, 1, 2])
-def test_engine_frames_match_jax(frames, frame):
-    fr = frames[frame]
+def _assert_frame_matches(fr):
     pimg, jimg = fr["pimg"], fr["jimg"]
     assert pimg.shape == (H, W, 4) and pimg.dtype == np.uint8
     assert fr["prays"] == fr["jrays"]
@@ -66,6 +78,30 @@ def test_engine_frames_match_jax(frames, frame):
     for y, x in np.argwhere(d > 4):
         assert any(abs(y - oy) <= 8 and abs(x - ox) <= 8 for oy, ox in outliers), (y, x, d[y, x])
     assert (pimg[..., 3] == 255).all() and pimg[..., :3].std() > 10
+
+
+@pytest.mark.parametrize("frame", [0, 1, 2])
+def test_engine_frames_match_jax(frames, frame):
+    _assert_frame_matches(frames[frame])
+
+
+@pytest.mark.parametrize("frame", [0, 1, 2])
+def test_mesh_engine_frames_match_jax(mesh_frames, frame):
+    """The mesh demo scene through both Engines (mesh_service, BVH build and
+    retransform per update, K1's mesh walks, the denoiser) under the same
+    bands; both mesh instances are in the frame."""
+    fr = mesh_frames[frame]
+    _assert_frame_matches(fr)
+    ids = set(fr["engine"]._scene_t.mesh.inst.unique().tolist())
+    assert ids == {0, 1}
+    hdr = fr["phdr"]
+    assert np.isfinite(hdr).all()
+
+
+def test_mesh_engine_builds_each_bvh_once(mesh_frames):
+    """Three orbit frames re-flatten the scene three times; each mesh's SAH
+    build ran once (the Engine's BLASCache)."""
+    assert mesh_frames[-1]["engine"]._blas_cache.build_count == 2
 
 
 def test_engine_outliers_are_xla_whole_frame_rounding(frames):
@@ -100,6 +136,9 @@ def test_engine_metrics_and_pixels(frames):
     assert pe.last_rays == prays > W * H
     assert pe.last_render_ms > 0 and pe.last_mrays_per_s > 0
     assert pe._frame_index == 3
+    hdr = render_rows_cf(pe._scene_t._replace(frame_index=pe._scene_t.frame_index - 1),
+                         pe._cfg).color.permute(1, 2, 0).numpy()
+    np.testing.assert_array_equal(pe.last_hdr, hdr)  # last_hdr is the last frame's
     # frames 1 and 2 reprojected history through a moving camera
     assert float(pe._denoise_state.packed[14].max()) == 2.0
 
@@ -122,10 +161,18 @@ def test_cuda_device_requires_cuda():
 
 
 def test_mesh_scene_raises():
+    """A mesh the BVH builder cannot take (no triangles) raises in
+    update_scene; without a mesh service the instance is dropped."""
     s = S.demo_scene(PD)
     s.objects.append(PD.MeshObjectData(mesh_name="WineGlass"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Engine(8, 8).update_scene(s)
+    empty = PMC.MeshCacheService(".")
+    empty.register("WineGlass", PMC.CachedMesh("WineGlass", np.zeros(8, np.float32),
+                                               np.zeros(0, np.uint32), np.zeros(3), np.zeros(3)))
+    with pytest.raises(ValueError, match="empty triangle list"):
+        Engine(8, 8, mesh_service=empty).update_scene(s)
+    e = Engine(8, 8)
+    e.update_scene(s)
+    assert e._flat.mesh is None
 
 
 def test_history_resets_only_on_geometry_change():

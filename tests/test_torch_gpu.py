@@ -1,6 +1,6 @@
-"""The port's CUDA kernels K1-K4 vs their plain PyTorch versions, on the
-card. Every test needs a CUDA device and skips without one. This file
-imports no JAX, so it runs where JAX is absent:
+"""The port's CUDA kernels K1 (analytic and mesh) and K2-K4 vs their plain
+PyTorch versions, on the card. Every test needs a CUDA device and skips
+without one. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -13,6 +13,7 @@ import torch
 
 import _torch_scenes as S
 from raytracevs_tpu_torch import Engine
+from raytracevs_tpu_torch.io import mesh_cache as PMC
 from raytracevs_tpu_torch.ops import render as R
 from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
 from raytracevs_tpu_torch.ops.cuda import megakernel as MK
@@ -43,6 +44,40 @@ def test_k1_cuda_matches_plain(name):
     torch.cuda.synchronize()
     assert torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
     assert torch.equal(got[R.CH_OBJ_ID], want[R.CH_OBJ_ID])
+    d = (got[0:3] - want[0:3]).abs().amax(0)
+    assert float((d <= 2e-4).float().mean()) >= 0.99, float(d.max())
+    assert torch.isfinite(got).all()
+
+
+MESH_SCENES = {
+    "glass_ball": (lambda: S.glass_ball_scene(D), {"max_soft_samples": 2},
+                   {"GlassBall": (9, 9, 0.7)}),
+    "opaque_ball": (lambda: S.glass_ball_scene(D, opaque=True), {"max_soft_samples": 2},
+                    {"GlassBall": (9, 9, 0.7)}),
+    "nine_balls": (lambda: S.nine_ball_scene(D), {}, {"Ball": (6, 8, 0.3)}),
+    "mesh_demo": (lambda: S.mesh_demo_scene(D), S.DEMO_OVERRIDES, S.MESH_DEMO_SMALL),
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_SCENES))
+def test_k1_mesh_cuda_matches_plain(name):
+    """K1-mesh (rtvs_render_accum_mesh) launches for a scene with meshes,
+    counted on its own wrapper, and matches the plain walks."""
+    _need_cuda()
+    build, over, meshes = MESH_SCENES[name]
+    scene = build()
+    w, h = 72, 40
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3,
+                                 mesh_service=S.mesh_service(PMC, meshes)), "cuda")
+    cfg = make_config(scene, w, h, **over)
+    before = (MK.render_accum.launches, MK.render_accum_mesh.launches)
+    got = MK.render_accum(sc, cfg)
+    assert (MK.render_accum.launches, MK.render_accum_mesh.launches) == (before[0], before[1] + 1)
+    want = R.render_accum(sc, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
+    assert torch.equal(got[R.CH_OBJ_ID], want[R.CH_OBJ_ID])
+    assert bool((got[R.CH_OBJ_ID] >= 3 * 65536).any())  # a mesh is in the frame
     d = (got[0:3] - want[0:3]).abs().amax(0)
     assert float((d <= 2e-4).float().mean()) >= 0.99, float(d.max())
     assert torch.isfinite(got).all()
@@ -106,6 +141,25 @@ def test_engine_cuda_matches_cpu_and_launches_every_kernel():
     after = [MK.render_accum.launches, K.reproject_accumulate.launches, K.atrous.launches,
              K.shadow_denoise.launches]
     assert [y - x for x, y in zip(counts, after)] == [2, 2, 6, 2]
+
+
+def test_mesh_engine_cuda_matches_cpu_and_launches_every_kernel():
+    _need_cuda()
+    w, h = 64, 36
+    gpu = Engine(w, h, device="cuda", mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL))
+    cpu = Engine(w, h, device="cpu", mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL))
+    counts = [MK.render_accum.launches, MK.render_accum_mesh.launches,
+              K.reproject_accumulate.launches, K.atrous.launches, K.shadow_denoise.launches]
+    for f in range(2):
+        for e in (gpu, cpu):
+            e.update_scene(S.mesh_demo_scene(D, f), **S.DEMO_OVERRIDES)
+        a, b = gpu.render(), cpu.render()
+        assert gpu.last_rays == cpu.last_rays
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
+        assert (d <= 1).mean() >= 0.995
+    after = [MK.render_accum.launches, MK.render_accum_mesh.launches,
+             K.reproject_accumulate.launches, K.atrous.launches, K.shadow_denoise.launches]
+    assert [y - x for x, y in zip(counts, after)] == [0, 2, 2, 6, 2]
 
 
 def test_wrappers_reject_bad_inputs():

@@ -190,3 +190,35 @@ def test_dominant_lights_and_soft_shadow_match(scenes, rays):
         _close(pr.shadow_color.numpy(), jr.shadow_color)
         _close(pr.occluder_distance.numpy(), jr.occluder_distance, rtol=1e-6)
         _close(pr.penumbra.numpy(), jr.penumbra, rtol=1e-5)
+
+
+def test_trace_thickness_takes_the_mesh_walk_on_mesh_lanes():
+    """trace_thickness answers mesh lanes with bvh.traverse_thickness (the
+    render itself resolves mesh thickness in the closest walk instead, so
+    this branch is checked here)."""
+    from raytracevs_tpu_torch.io import mesh_cache as PMC
+    from raytracevs_tpu_torch.ops import bvh as PB
+
+    pf = to_device(flatten_scene(sanitize_scene(S.mesh_demo_scene(PD)),
+                                 mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL)), "cpu")
+    rng = np.random.default_rng(3)
+    n = 512
+    inst = rng.integers(0, 2, n)  # 0 BigSphere, 1 GlassBall
+    centre = np.where(inst[:, None] == 0, [[2.4, 0.95, 3.2]], [[-1.25, 0.65, -1.2]])
+    o = (centre + rng.normal(scale=0.2, size=(n, 3))).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    obj_type = torch.from_numpy(rng.choice([0, 3], n))
+    obj_index = torch.from_numpy(inst)
+    hit, t = PI.trace_thickness(pf, _f(o), _f(d), obj_type, obj_index)
+    mh, mt = PB.traverse_thickness(pf.mesh, _f(o), _f(d), obj_index)
+    m = obj_type == 3
+    # the render's call: mesh lanes passed as INVALID, analytic lanes as they are
+    ah, at = PI.trace_thickness(pf, _f(o), _f(d), torch.where(m, PI.INVALID, obj_type),
+                                obj_index)
+    assert float(mh[m].float().mean()) > 0.9  # most rays start inside their ball
+    np.testing.assert_array_equal(hit[m].numpy(), mh[m].numpy())
+    np.testing.assert_array_equal(t[m].numpy(), mt[m].numpy())
+    np.testing.assert_array_equal(hit[~m].numpy(), ah[~m].numpy())
+    np.testing.assert_array_equal(t[~m].numpy(), at[~m].numpy())
+    assert not bool(ah[m].any())

@@ -1,5 +1,8 @@
 """Plain K1 (render_rows_cf on the CPU) vs raytracevs_tpu render_rows
-(backend="jnp") at 32x32, on the demo scene and golden configs 2, 3, 6.
+(backend="jnp") at 32x32, on the demo scene and golden configs 2, 3, 6, and
+on mesh scenes: the glass ball of tests/test_shadow_fuse.py (absorbing
+glass and opaque) and nine mesh instances (the multiply-per-crossing shadow
+walk).
 
 Bands: the ray count and object ids exact; HDR colour, and the radiance
 planes of the G-buffer that split it, atol 2e-4 on >= 99% of pixels (the
@@ -7,7 +10,10 @@ two libraries' sin/cos/exp differ in the last bit, which moves a few glass
 paths further); the geometric G-buffer planes atol 1e-4, plus rtol 1e-5
 for the hit distances and view depths of grazing floor hits 10^3-10^4
 units away, where float32 resolves only ~1e-3 and the plane division's
-rounding is carried into view_z.
+rounding is carried into view_z. The mesh scenes hold the same bands: XLA
+contracts the walk's multiply-adds into FMAs (ROADMAP C5), which moves
+triangle t, u and v by ~1e-6 and the colour by < 1e-4 at 32x32, and no
+decision flips there.
 The CUDA kernel is held against this plain version on the card
 (tests/test_torch_gpu.py)."""
 import jax
@@ -17,12 +23,14 @@ import pytest
 import torch
 
 import _torch_scenes as S
+from raytracevs_tpu.io import mesh_cache as JMC
 from raytracevs_tpu.ops.render import render_rows as j_render_rows
 from raytracevs_tpu.ops.render_cf import assemble_frame_cf as j_assemble_cf
 from raytracevs_tpu.scene import data as JD
 from raytracevs_tpu.scene.flatten import flatten_scene as j_flatten
 from raytracevs_tpu.scene.flatten import make_config as j_make_config
 from raytracevs_tpu.scene.sanitize import sanitize_scene as j_sanitize
+from raytracevs_tpu_torch.io import mesh_cache as PMC
 from raytracevs_tpu_torch.ops import render as R
 from raytracevs_tpu_torch.ops.cuda import megakernel as mk
 from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf, render_rows_cf
@@ -32,12 +40,27 @@ from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
 W = H = 32
 NAMES = ("demo", "config2_obb_mirror", "config3_glass_soft", "config6_soft_shadows")
+MESH_NAMES = ("glass_ball", "opaque_ball", "nine_balls")
 GBUF_FIELDS = ("diffuse_hitdist", "specular_hitdist", "normal_roughness", "motion", "albedo",
                "shadow_data", "shadow_translucency", "motion_spec")
 _CACHE = {}
 
 
+def _mesh_scene(D, MC, name):
+    """(SceneData, overrides, mesh service) of a mesh scene."""
+    if name == "nine_balls":
+        return S.nine_ball_scene(D), {}, S.mesh_service(MC, {"Ball": (6, 8, 0.3)})
+    return (S.glass_ball_scene(D, opaque=name == "opaque_ball"), {"max_soft_samples": 2},
+            S.mesh_service(MC, {"GlassBall": (9, 9, 0.7)}))
+
+
 def _setup(name):
+    if name in MESH_NAMES:
+        js, jo, jms = _mesh_scene(JD, JMC, name)
+        ps, po, pms = _mesh_scene(PD, PMC, name)
+        jf = j_flatten(j_sanitize(js), aspect=1.0, frame_index=3, mesh_service=jms)
+        pf = flatten_scene(sanitize_scene(ps), aspect=1.0, frame_index=3, mesh_service=pms)
+        return jf, j_make_config(js, W, H, **jo), to_device(pf, "cpu"), make_config(ps, W, H, **po)
     js, jo = S.scene_and_overrides(JD, name)
     ps, po = S.scene_and_overrides(PD, name)
     prev = None
@@ -65,14 +88,14 @@ def _lanes(a):
     return a.permute(1, 2, 0).reshape(-1, a.shape[0]).numpy()
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + MESH_NAMES)
 def test_k1_plain_ray_count_and_obj_id_exact(name):
     jout, pout = _frames(name)
     assert int(pout.rays) == int(jout.rays)
     np.testing.assert_array_equal(_lanes(pout.gbuffer.obj_id), np.asarray(jout.gbuffer.obj_id))
 
 
-@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("name", NAMES + MESH_NAMES)
 def test_k1_plain_hdr_color(name):
     jout, pout = _frames(name)
     d = np.abs(_lanes(pout.color) - np.asarray(jout.color)).max(axis=-1)
@@ -115,17 +138,27 @@ def test_assemble_frame_cf_matches_jax_on_same_accumulators():
     np.testing.assert_array_equal(pout.gbuffer.obj_id.numpy(), np.asarray(jout.gbuffer.obj_id))
 
 
-def test_render_accum_cpu_runs_plain_version_without_launch():
-    _, _, pf, pc = _setup("config2_obb_mirror")
-    before = mk.render_accum.launches
+@pytest.mark.parametrize("name", ["config2_obb_mirror", "glass_ball"])
+def test_render_accum_cpu_runs_plain_version_without_launch(name):
+    _, _, pf, pc = _setup(name)
+    before = (mk.render_accum.launches, mk.render_accum_mesh.launches)
     out = mk.render_accum(pf, pc._replace(height=8, width=8))
-    assert out.shape == (R.NUM_CH, 8, 8) and mk.render_accum.launches == before
+    assert out.shape == (R.NUM_CH, 8, 8)
+    assert (mk.render_accum.launches, mk.render_accum_mesh.launches) == before
 
 
-@pytest.mark.parametrize("name", ["demo", "config1_hard_shadows"])
+def test_k1_plain_mesh_scenes_hit_the_meshes():
+    """Each mesh scene's frame shows its instances (object id 3*65536+i)."""
+    for name, count in (("glass_ball", 1), ("opaque_ball", 1), ("nine_balls", 9)):
+        ids = np.unique(_frames(name)[1].gbuffer.obj_id.numpy())
+        assert {3 * 65536 + i for i in range(count)} <= set(ids.tolist()), (name, ids)
+
+
+@pytest.mark.parametrize("name", ["demo", "config1_hard_shadows", "nine_balls"])
 def test_pack_scene_layout(name):
-    """The float table K1 reads: rows of 5/7/16/16/12 floats, 32 params,
-    then the blue-noise tile; scene scalars in the int table."""
+    """The float table K1 reads: rows of 5/7/16/16/12 floats (one material
+    row per primitive slot and mesh instance), 32 params, then the
+    blue-noise tile; scene scalars in the int table."""
     _, _, pf, _ = _setup(name)
     ftab, itab = mk.pack_scene(pf)
     s, p, b, l = pf.sphere_capacity, pf.plane_capacity, pf.box_capacity, pf.light_capacity
@@ -142,3 +175,10 @@ def test_pack_scene_layout(name):
     # every later table the kernel reads
     with pytest.raises(ValueError, match="material rows"):
         mk.pack_scene(pf._replace(mat_color=pf.mat_color[:-1]))
+    if pf.mesh is not None:
+        assert m == s + p + b + pf.mesh.num_inst
+        node_box, node_link, inst_tbl = mk.pack_mesh(pf.mesh)
+        assert node_box.shape == (pf.mesh.num_nodes, 8) and node_link.dtype == torch.int32
+        np.testing.assert_array_equal(node_box[:, 3:6].numpy(), pf.mesh.bbox_max.numpy())
+        np.testing.assert_array_equal(node_link[:, 1].numpy(), pf.mesh.miss_next.numpy())
+        np.testing.assert_array_equal(inst_tbl[:, 4:7].numpy(), pf.mesh.inst_beer.numpy())

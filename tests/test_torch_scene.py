@@ -8,6 +8,7 @@ import torch
 
 import _torch_scenes as S
 from raytracevs_tpu import constants as JC
+from raytracevs_tpu.io import mesh_cache as JMC
 from raytracevs_tpu.scene import data as JD
 from raytracevs_tpu.scene.flatten import flatten_scene as j_flatten
 from raytracevs_tpu.scene.flatten import make_config as j_make_config
@@ -15,12 +16,29 @@ from raytracevs_tpu.scene.sanitize import sanitize_scene as j_sanitize
 from raytracevs_tpu.utils import checksum as j_checksum
 from raytracevs_tpu_torch import constants as PC
 from raytracevs_tpu_torch.bridge import flat_from_numpy
+from raytracevs_tpu_torch.io import mesh_cache as PMC
+from raytracevs_tpu_torch.ops import bvh as PB
 from raytracevs_tpu_torch.scene import data as PD
 from raytracevs_tpu_torch.scene.flatten import FlatScene, flatten_scene, make_config, to_device
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 from raytracevs_tpu_torch.utils import checksum as p_checksum
 
 SCENES = ("demo",) + S.GOLDEN
+# scenes with meshes: (builder, mesh service contents)
+MESH_SCENES = {
+    "glass_ball": (lambda D: S.glass_ball_scene(D), {"GlassBall": (9, 9, 0.7)}),
+    "opaque_ball": (lambda D: S.glass_ball_scene(D, opaque=True), {"GlassBall": (9, 9, 0.7)}),
+    "nine_balls": (S.nine_ball_scene, {"Ball": (6, 8, 0.3)}),
+    "mesh_demo": (S.mesh_demo_scene, S.MESH_DEMO_SMALL),
+}
+
+
+def _mesh_pair(name, **kw):
+    """(JAX FlatScene, port FlatScene) of a mesh scene, flattened alike."""
+    build, meshes = MESH_SCENES[name]
+    jf = j_flatten(j_sanitize(build(JD)), mesh_service=S.mesh_service(JMC, meshes), **kw)
+    pf = flatten_scene(sanitize_scene(build(PD)), mesh_service=S.mesh_service(PMC, meshes), **kw)
+    return jf, pf
 
 
 def _pair(name, frame_aspect=16 / 9):
@@ -30,14 +48,21 @@ def _pair(name, frame_aspect=16 / 9):
 
 
 def _assert_leaves_equal(port_flat, jax_flat):
+    """Every FlatScene leaf equal, and every fine-tree leaf of the mesh."""
     jl = S.jax_leaves(jax_flat)
-    assert jl.pop("mesh") is None
     assert list(jl) == list(FlatScene._fields)
-    for name, pv in zip(FlatScene._fields, port_flat):
+    jmesh = jl.pop("mesh")
+    for name, pv in zip(FlatScene._fields[:-1], port_flat):
         jv = jl[name]
         assert pv.dtype == jv.dtype, name
         assert pv.shape == jv.shape, name
         np.testing.assert_array_equal(pv, jv, err_msg=name)
+    assert (port_flat.mesh is None) == (jmesh is None)
+    if jmesh is not None:
+        for name in PB.FINE_FIELDS:
+            pv, jv = getattr(port_flat.mesh, name), jmesh[name]
+            assert pv.dtype == jv.dtype and pv.shape == jv.shape, name
+            np.testing.assert_array_equal(pv, jv, err_msg=f"mesh.{name}")
 
 
 def test_constants_match():
@@ -54,6 +79,28 @@ def test_flatten_matches_jax_leaf_by_leaf(name):
     jf = j_flatten(j_sanitize(js), frame_index=7, aspect=2.0, prev_view_proj=prev)
     pf = flatten_scene(sanitize_scene(ps), frame_index=7, aspect=2.0, prev_view_proj=prev)
     _assert_leaves_equal(pf, jf)
+
+
+@pytest.mark.parametrize("name", list(MESH_SCENES))
+def test_flatten_with_meshes_matches_jax_leaf_by_leaf(name):
+    """Instance material rows at S+P+B+i, the instance forest's fine tree
+    (BVH build, retransform, chaining) and the instance tables exact."""
+    jf, pf = _mesh_pair(name, frame_index=5, aspect=1.5)
+    assert pf.mesh is not None
+    _assert_leaves_equal(pf, jf)
+    n_inst = pf.mesh.num_inst
+    assert pf.mat_color.shape[0] == (pf.sphere_capacity + pf.plane_capacity + pf.box_capacity
+                                     + n_inst)
+
+
+def test_flatten_skips_instances_without_a_mesh():
+    """A mesh the service does not have drops its instance, as in the JAX
+    package; no service drops every instance."""
+    s = S.mesh_demo_scene(PD)
+    s.objects[-1].mesh_name = "Missing"
+    pf = flatten_scene(sanitize_scene(s), mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL))
+    assert pf.mesh.num_inst == 1
+    assert flatten_scene(sanitize_scene(s)).mesh is None
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -100,35 +147,67 @@ def test_flat_from_numpy_matches_port_flatten(name):
     jf = j_flatten(j_sanitize(js), frame_index=2)
     bridged = flat_from_numpy(S.jax_leaves(jf))
     own = flatten_scene(sanitize_scene(ps), frame_index=2)
-    for name_, a, b in zip(FlatScene._fields, bridged, own):
+    assert bridged.mesh is None and own.mesh is None
+    for name_, a, b in zip(FlatScene._fields[:-1], bridged, own):
         assert a.dtype == b.dtype, name_
         np.testing.assert_array_equal(a, b, err_msg=name_)
 
 
+@pytest.mark.parametrize("name", ["glass_ball", "nine_balls"])
+def test_flat_from_numpy_takes_jax_mesh_leaves(name):
+    """The bridge takes the JAX MeshArrays' fine-tree leaves and leaves its
+    fat-leaf mk_* leaves behind."""
+    jf, pf = _mesh_pair(name, frame_index=2)
+    leaves = S.jax_leaves(jf)
+    assert any(k.startswith("mk_") for k in leaves["mesh"])
+    bridged = flat_from_numpy(leaves)
+    assert bridged.mesh._fields == PB.MeshArrays._fields and bridged.mesh.plane is None
+    _assert_leaves_equal(bridged, jf)
+
+
 def test_flat_from_numpy_rejects_mesh_and_missing_leaves():
+    """A mesh leaf that is not a dict of the fine-tree leaves, or a missing
+    scene leaf, raises."""
     leaves = S.jax_leaves(j_flatten(j_sanitize(S.demo_scene(JD))))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):
         flat_from_numpy(dict(leaves, mesh=np.zeros(3)))
+    with pytest.raises(ValueError, match="mesh"):
+        flat_from_numpy(dict(leaves, mesh={"v0": np.zeros((1, 3), np.float32)}))
     leaves.pop("cam_pos")
     with pytest.raises(ValueError):
         flat_from_numpy(leaves)
 
 
 def test_to_device_keeps_values():
-    pf = flatten_scene(sanitize_scene(S.demo_scene(PD)), frame_index=2**32 - 1)
+    _, pf = _mesh_pair("glass_ball", frame_index=2**32 - 1)
     t = to_device(pf, "cpu")
-    for name, a, b in zip(FlatScene._fields, pf, t):
+    for name, a, b in zip(FlatScene._fields[:-1], pf, t):
         assert torch.is_tensor(b), name
         assert tuple(b.shape) == np.asarray(a).shape, name
         np.testing.assert_array_equal(np.asarray(a).astype(b.numpy().dtype), b.numpy(), err_msg=name)
     assert t.frame_index.dtype == torch.int64 and int(t.frame_index) == 2**32 - 1
+    for name in PB.FINE_FIELDS:
+        a, b = getattr(pf.mesh, name), getattr(t.mesh, name)
+        assert b.dtype == torch.from_numpy(a).dtype, name
+        np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
+    # the derived tables: 12 floats a triangle, and the shadow factor
+    # exp(-absorption * 1 * shadow_absorption_scale) of the absorbing ball
+    assert t.mesh.plane.shape == (pf.mesh.num_tris, 12)
+    want = np.exp(-pf.mesh.inst_absorption.astype(np.float64) * float(pf.shadow_absorption_scale))
+    np.testing.assert_allclose(t.mesh.inst_beer.numpy(), want, rtol=1e-6)
+    assert to_device(flatten_scene(sanitize_scene(S.demo_scene(PD))), "cpu").mesh is None
 
 
 def test_mesh_instance_raises_in_flatten_and_make_config_rejects_caustics():
+    """A mesh without triangles raises in the BVH build, as in the JAX
+    package; caustics are not ported."""
     s = S.demo_scene(PD)
-    s.objects.append(PD.MeshObjectData(mesh_name="WineGlass"))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        flatten_scene(s)
+    s.objects.append(PD.MeshObjectData(mesh_name="Empty"))
+    empty = PMC.MeshCacheService(".")
+    empty.register("Empty", PMC.CachedMesh("Empty", np.zeros(8, np.float32),
+                                           np.zeros(0, np.uint32), np.zeros(3), np.zeros(3)))
+    with pytest.raises(ValueError, match="empty triangle list"):
+        flatten_scene(s, mesh_service=empty)
     c = S.demo_scene(PD)
     with pytest.raises(NotImplementedError, match="caustics"):
         make_config(c, 8, 8, enable_caustics=True)
