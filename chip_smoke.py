@@ -1,19 +1,23 @@
 """Smoke run of raytracevs_tpu_torch on one CUDA card.
 
-Drives the port's two main paths: Engine(1920, 1080, device="cuda") renders
-three frames of the analytic demo scene, then Engine(1920, 1080,
-device="cuda", mesh_service=...) three frames of the mesh demo scene (the
-demo scene plus a 199,712-triangle opaque sphere and a 36,864-triangle
-absorbing glass ball), spp 2, 6 bounces, denoiser on, the camera orbiting 2
-degrees a frame. Before that it builds the CUDA kernels from csrc/ and the
-host BVH builder from csrc/host/, holds each kernel against its plain
-PyTorch version on the card at 1920x1080 (K2-K4 on the G-buffer of a
-rendered frame; K1-mesh also on nine mesh instances at 480x270), and times
-both; after each path it checks the frames and that every kernel of the
-path launched; then it compares small frames with the CPU's plain pipeline
-and times each stage of a 1080p frame of both scenes. It prints a JSON line
-of the kernels, the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}.
+Drives the port's three main paths: Engine(1920, 1080) renders three frames
+of the analytic demo scene; Engine(1920, 1080, mesh_service=...) three
+frames of the mesh demo scene (the demo scene plus a 199,712-triangle
+opaque sphere and a 36,864-triangle absorbing glass ball); and three frames
+of the demo scene with photon-mapped caustics on (16,384 photons). All at
+spp 2, 6 bounces, denoiser on, the camera orbiting 2 degrees a frame.
+Before that it builds the CUDA kernels from csrc/ and the host BVH builder
+from csrc/host/, holds each kernel against its plain PyTorch version on the
+card at the main paths' shapes (K2-K4 on the G-buffer of a rendered frame;
+K1-mesh also on nine mesh instances at 480x270; the photon trace K5 at
+16,384 and 131,072 photons and on the mesh demo scene's tables; the photon
+gather K6 at 1920x1080 with both maps), times both and computes each
+kernel's bound (the larger of its bytes over the memory rate and its
+operations over the float32 rate); after each path it checks the frames
+and that every kernel of the path launched; then it compares small frames
+with the CPU's plain pipeline and times each stage of a 1080p frame of the
+three scenes. It prints a JSON line of the kernels, the card's name and
+power limit, and as its last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
 
@@ -41,7 +45,29 @@ KERNELS = [
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:657"),
     ("render_accum_mesh", "raytracevs_tpu_torch/csrc/megakernel.cu",
      "raytracevs_tpu/ops/pallas/megakernel.py:3155"),
+    ("photon_trace", "raytracevs_tpu_torch/csrc/photon.cu",
+     "raytracevs_tpu/ops/pallas/photon_trace.py:58"),
+    ("photon_gather", "raytracevs_tpu_torch/csrc/photon.cu",
+     "raytracevs_tpu/ops/pallas/photon_gather.py:151"),
 ]
+# The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
+# memory bytes/s and float32 operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Float operations of one intersection test of csrc/closest.cuh
+# (isect_sphere, isect_plane, isect_box), counted by hand from the source;
+# the bounds of K1 and K5 count these tests only (every traced ray against
+# every primitive slot), not the shading, nor the mesh walks of K1-mesh.
+SPHERE_OPS, PLANE_OPS, BOX_OPS = 36, 29, 84
+# per photon bounce besides the closest hit (K5's Russian roulette, Fresnel
+# or metal lobe), and per photon scanned by the gather (K6), by hand
+PHOTON_BOUNCE_OPS, GATHER_PHOTON_OPS = 60, 30
+# per pixel of K2 (two bilinear fetches of 16 and 7 channels, the blends),
+# K3 (anti-firefly, then 3 passes of 8 taps) and K4 (25 taps), by hand
+REPROJECT_OPS, ATROUS_OPS, SHADOW_OPS = 370, 930, 606
+# the bands of tests/test_megakernel.py:190-197 for the photon store fields
+# (position, direction, colour, power): atol, and rtol 1e-3
+STORE_ATOL = (5e-3, 1e-4, 1e-5, 1e-4)
 FULL_W, FULL_H = 1920, 1080
 FRAMES = 3
 LOOK_AT = np.array([0.0, 0.8, 0.6])
@@ -89,6 +115,7 @@ def demo_scene(D, frame):
 
 
 OVERRIDES = {"max_soft_samples": 4}
+CAUSTICS = dict(OVERRIDES, enable_caustics=True)
 
 
 def uv_sphere(rings, segs, radius):
@@ -195,10 +222,32 @@ def timed_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time for moving `nbytes`
+    and doing `ops` float32 operations, whichever takes longer."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def closest_ops(sc):
+    """Operations of one closest-hit test against every primitive slot."""
+    return sc.sphere_capacity * SPHERE_OPS + sc.plane_capacity * PLANE_OPS + \
+        sc.box_capacity * BOX_OPS
+
+
+def kernel_row(err, ms, plain_ms, nbytes, ops):
+    b_ms, b_by = bound(nbytes, ops)
+    print(f"  bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations)",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
 def check_k1(name, MK, R, sc, cfg):
     """K1 (or K1-mesh) against its plain version on the card: per-pixel ray
     counts and object ids equal, colour 2e-4 on >= 99% of pixels. Returns
-    (max |d|, kernel ms of the compared launch, plain ms of its run)."""
+    (max |d|, kernel ms of the compared launch, plain ms of its run, rays)."""
     got, k_ms = timed_ms(lambda: MK.render_accum(sc, cfg))
     want, p_ms = timed_ms(lambda: R.render_accum(sc, cfg))
     rays_k, rays_p = int(got[R.CH_RAYS].double().sum()), int(want[R.CH_RAYS].double().sum())
@@ -217,15 +266,132 @@ def check_k1(name, MK, R, sc, cfg):
                              "(rays exact, obj_id exact, colour 2e-4 on >= 99%)")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite accumulator planes")
-    return err, k_ms, p_ms
+    return err, k_ms, p_ms, rays_k
 
 
-def stage_times(P, D, MK, K, PD, frames, build, meshes=None):
+def check_k5(label, PP, PK, sc, n):
+    """K5 against its plain bounce loop on n photons of scene `sc`: store
+    masks equal photon for photon, each store field bit-equal or within
+    STORE_ATOL. Returns the kernel_row (times: the wrapper as the main path
+    calls it, its scene packing included, mean of 20; the plain loop, mean
+    of 3)."""
+    em = PP._emit_photons(sc, n)
+    idx = torch.arange(n, dtype=torch.int32, device=sc.cam_pos.device)
+    got = PK.trace_photons(sc, *em, idx)
+    want = PP._trace_photons(sc, *em, idx)
+    torch.cuda.synchronize()
+    m = want[4]
+    masks = torch.equal(got[4], m)
+    same = [torch.equal(got[c], want[c]) for c in range(4)]
+    errs = [float((got[c][m] - want[c][m]).abs().max()) if bool(m.any()) else 0.0
+            for c in range(4)]
+    within = all(bool(((got[c][m] - want[c][m]).abs() <= atol + 1e-3 * want[c][m].abs()).all())
+                 for c, atol in enumerate(STORE_ATOL))
+    print(f"phase 4 K5 {label}, {n} photons: stored kernel {int(got[4].sum())} plain "
+          f"{int(m.sum())}, masks equal {masks}, fields bit-equal {same}, max |d| {errs}",
+          flush=True)
+    if not (masks and within and int(m.sum()) > 0):
+        raise AssertionError(f"K5 disagrees with its plain bounce loop ({label}, {n} photons)")
+    ms = gpu_ms(lambda: PK.trace_photons(sc, *em, idx), 20)
+    plain_ms = gpu_ms(lambda: PP._trace_photons(sc, *em, idx), 3)
+    # bounces the kernel traces: the photons alive entering each bounce
+    s, bounces = PP._initial_state(*em), 0
+    for depth in range(4):
+        bounces += int(s.alive.sum())
+        s = PP._bounce(sc._replace(mesh=None), s, idx, depth)
+    # the primitive tables every closest hit reads, the material rows of the
+    # valid primitives (the only ones a photon can hit), 45 bytes a photon
+    # in and 41 out
+    valid = int(sc.sph_valid.sum()) + int(sc.pln_valid.sum()) + int(sc.box_valid.sum())
+    nbytes = 4 * (5 * sc.sphere_capacity + 7 * sc.plane_capacity + 16 * sc.box_capacity
+                  + 16 * valid) + n * (45 + 41)
+    print(f"  photon_trace: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, {bounces} bounces",
+          flush=True)
+    return kernel_row(max(errs), ms, plain_ms, nbytes,
+                      bounces * (closest_ops(sc) + PHOTON_BOUNCE_OPS))
+
+
+def check_k6(label, PP, PK, R, pmap, acc, spp):
+    """K6 against its plain version on accumulator planes `acc`: |d| <=
+    1e-5 * max(1, |plain|). Returns the kernel_row (kernel mean of 20,
+    plain one run) and the delta."""
+    got = PK.gather(pmap, acc, spp)
+    want, plain_ms = timed_ms(lambda: PP.caustics_delta(pmap, acc, spp))
+    d = (got - want).abs()
+    err = float(d.max())
+    ok = bool((d <= 1e-5 * want.abs().clamp(min=1.0)).all())
+    lit = float((want.abs().amax(0) > 0).float().mean())
+    print(f"phase 4 K6 {label} {acc.shape[2]}x{acc.shape[1]}, {int(pmap.count)} stored photons: "
+          f"max |d| {err:.3g} (within 1e-5 relative: {ok}), caustic on {lit:.5f} of pixels, "
+          f"max {float(want.max()):.4g}", flush=True)
+    if not ok or lit == 0.0:
+        raise AssertionError(f"K6 disagrees with its plain version ({label})")
+    ms = gpu_ms(lambda: PK.gather(pmap, acc, spp), 20)
+    nbytes, visits = gather_work(PP, R, pmap, acc)
+    print(f"  photon_gather: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, {visits} photon "
+          f"visits", flush=True)
+    return kernel_row(err, ms, plain_ms, nbytes, visits * GATHER_PHOTON_OPS), want
+
+
+def gather_work(PP, R, pmap, acc):
+    """(bytes, photon visits) that K6 needs on these inputs, each input read
+    once: the hit plane at every pixel, metallic where there is a hit,
+    transmission where the hit is not metal, position and normal at the
+    eligible pixels, the 3 output planes; the cell ranges of the hash slots
+    its walks reach, and of the photons they scan, the valid flag, then
+    position and direction of the valid ones, colour and power of the
+    accepted ones. The walks are ops/photon.py::gather's steps, cut by the
+    32-accept early-out; a visit is one valid photon tested by one pixel."""
+    hit = acc[R.CH_PRIM_HIT] > 0.5
+    diffuse = hit & (acc[R.CH_METALLIC] < 0.5)
+    elig = (diffuse & (acc[R.CH_TRANSMISSION] <= 0.01)).reshape(-1)
+    px = hit.numel()
+    plane_floats = px + int(hit.sum()) + int(diffuse.sum()) + 6 * int(elig.sum()) + 3 * px
+    pos = acc[R.CH_POS:R.CH_POS + 3].reshape(3, -1).T[elig]
+    base = torch.floor(pos / torch.clamp(pmap.radius * 2.0, min=1e-4)).to(torch.int32)
+    slots = torch.stack([PP.hash_cell(base[:, 0] + x, base[:, 1] + y, base[:, 2] + z)
+                         for x, y, z in PP.CELL_OFFSETS], dim=1).long()
+    n_cells, n = len(PP.CELL_OFFSETS), pmap.position.shape[0]
+    zi = torch.zeros((pos.shape[0],), dtype=torch.int32, device=pos.device)
+    s = dict(cell=zi, off=zi, gathered=zi, caustic=torch.zeros_like(pos),
+             weight=torch.zeros_like(zi, dtype=torch.float32), pos=pos,
+             nrm=acc[R.CH_NORMAL:R.CH_NORMAL + 3].reshape(3, -1).T[elig],
+             starts=pmap.cell_start[slots], counts=pmap.cell_count[slots])
+    cells_read = torch.zeros(pmap.cell_start.shape, dtype=torch.bool, device=pos.device)
+    scanned, valid_read, accepted = (torch.zeros((n,), dtype=torch.bool, device=pos.device)
+                                     for _ in range(3))
+    visits = 0
+    while s["cell"].numel() > 0:
+        in_range = s["cell"] < n_cells
+        ci = torch.clamp(s["cell"], 0, n_cells - 1).long()[:, None]
+        cells_read[torch.gather(slots, 1, ci)[:, 0][in_range & (s["off"] == 0)]] = True
+        cnt = torch.clamp(torch.gather(s["counts"], 1, ci)[:, 0], max=64)
+        have = in_range & (s["off"] < cnt)
+        pi = torch.clamp(torch.gather(s["starts"], 1, ci)[:, 0] + s["off"], 0, n - 1).long()
+        pval = have & pmap.valid[pi] & (pi < pmap.count)
+        scanned[pi[have]] = True
+        valid_read[pi[pval]] = True
+        visits += int(pval.sum())
+        gathered = s["gathered"]
+        s = PP._gather_step(pmap, s, pmap.radius * pmap.radius)
+        accepted[pi[s["gathered"] > gathered]] = True
+        live = s["cell"] < n_cells
+        s = {k: v[live] for k, v in s.items()}
+        slots = slots[live]
+    nbytes = (4 * plane_floats + 8 * int(cells_read.sum()) + int(scanned.sum())
+              + 24 * int(valid_read.sum()) + 16 * int(accepted.sum()) + 12)
+    return nbytes, visits
+
+
+def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES):
     """Host ms of each stage of Engine.render's 1080p frame (runtime/engine.py::
-    render_frame and post/denoise.py::denoise_frame_cf, stage by stage), the
-    device synchronised before and after each, over `frames` orbiting frames
-    of build(D, frame). With meshes, update_scene includes the BVH work:
-    the SAH build on frame 0, a retransform after it."""
+    render_frame, ops/render_cf.py::apply_caustics_cf and post/denoise.py::
+    denoise_frame_cf, stage by stage), the device synchronised before and
+    after each, over `frames` orbiting frames of build(D, frame). With
+    meshes, update_scene includes the BVH work: the SAH build on frame 0, a
+    retransform after it."""
+    from raytracevs_tpu_torch.ops import photon as PP
+    from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
     from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf
     from raytracevs_tpu_torch.post import composite, tonemap
 
@@ -244,11 +410,23 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None):
 
     for f in range(frames):
         stage("update_scene: sanitize, flatten, to_device (host)",
-              lambda: eng.update_scene(build(D, f), **OVERRIDES))
+              lambda: eng.update_scene(build(D, f), **overrides))
         sc, cfg = eng._scene_t, eng._cfg
         acc = stage("K1 render_accum (incl. table packing)", lambda: MK.render_accum(sc, cfg))
+        planes = accum_dict(acc)
+        if cfg.num_photons:
+            n = cfg.num_photons
+            em = stage("photon emission (plain torch)", lambda: PP._emit_photons(sc, n))
+            idx = torch.arange(n, dtype=torch.int32, device=eng.device)
+            stores = stage("K5 photon_trace (incl. table packing)",
+                           lambda: PK.trace_photons(sc, *em, idx))
+            pmap = stage("build_photon_hash (torch sort, searchsorted)",
+                         lambda: PP.build_photon_hash(*stores))
+            delta = stage("K6 photon_gather", lambda: PK.gather(pmap, acc, cfg.samples_per_pixel))
+            planes = stage("caustics fold-in (plain torch)", lambda: dict(
+                planes, color=planes["color"] + delta, diffuse=planes["diffuse"] + delta))
         out = stage("assemble_frame_cf (plain torch)",
-                    lambda: assemble_frame_cf(sc, cfg, accum_dict(acc)))
+                    lambda: assemble_frame_cf(sc, cfg, planes))
         gb = out.gbuffer
         sqrt_rough = gb.normal_roughness[3]
         curr = stage("reblur_prepass (plain torch)", lambda: PD.reblur_prepass(
@@ -279,17 +457,19 @@ def print_stages(label, stages):
           f"{sum(float(np.median(ms[1:])) for ms in stages.values()):.3f} ms", flush=True)
 
 
-def run_engine(P, D, label, build, counters, meshes=None):
-    """Three orbiting 1080p frames through the Engine, every launch count set
-    to 0 just before and read just after; checks the frames."""
+def run_engine(P, D, label, build, counters, meshes=None, overrides=OVERRIDES):
+    """Three orbiting 1080p frames through the Engine (on the card, its
+    default), every launch count set to 0 just before and read just after;
+    checks the frames. Returns (launches, the Engine)."""
     for c in counters.values():
         c.launches = 0
-    eng = P.Engine(FULL_W, FULL_H, device="cuda",
-                   mesh_service=None if meshes is None else mesh_service(meshes))
+    eng = P.Engine(FULL_W, FULL_H, mesh_service=None if meshes is None else mesh_service(meshes))
+    if eng.device.type != "cuda":
+        raise AssertionError(f"Engine(w, h) runs on {eng.device}, not the card")
     imgs = []
     for f in range(FRAMES):
         t0 = time.perf_counter()
-        eng.update_scene(build(D, f), **OVERRIDES)
+        eng.update_scene(build(D, f), **overrides)
         upd = (time.perf_counter() - t0) * 1e3
         imgs.append(eng.render())
         print(f"phase 5 {label} frame {f}: {eng.last_render_ms:.2f} ms, {eng.last_rays} rays, "
@@ -305,19 +485,21 @@ def run_engine(P, D, label, build, counters, meshes=None):
         raise AssertionError("non-finite denoiser history")
     if not bool(torch.isfinite(eng._last_hdr_t).all()):
         raise AssertionError("non-finite HDR frame")
-    return launches
+    return launches, eng
 
 
-def compare_small(P, D, label, build, frames, meshes=None):
-    """A 96x54 frame through the CUDA Engine and the CPU's plain pipeline:
-    ray counts equal, RGBA |d| <= 1 on >= 99.5% of pixels."""
+def compare_small(P, D, label, build, frames, meshes=None, overrides=OVERRIDES):
+    """96x54 frames through the CUDA Engine and the CPU's plain pipeline:
+    ray counts equal, RGBA |d| <= 1 on >= 99.5% of pixels. Returns each
+    frame's linear HDR colour [3,H,W] on the host, (CUDA, CPU) a frame."""
     w, h = 96, 54
     ms = None if meshes is None else mesh_service(meshes)
     gpu_e = P.Engine(w, h, device="cuda", mesh_service=ms)
     cpu_e = P.Engine(w, h, device="cpu", mesh_service=ms)
+    hdrs = []
     for f in range(frames):
         for e in (gpu_e, cpu_e):
-            e.update_scene(build(D, f), **OVERRIDES)
+            e.update_scene(build(D, f), **overrides)
         a, b = gpu_e.render(), cpu_e.render()
         dd = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
         print(f"phase 6 {label} {w}x{h} frame {f}: rays cuda {gpu_e.last_rays} cpu "
@@ -325,6 +507,14 @@ def compare_small(P, D, label, build, frames, meshes=None):
               f"(cpu frame {cpu_e.last_render_ms:.0f} ms)", flush=True)
         if gpu_e.last_rays != cpu_e.last_rays or (dd <= 1).mean() < 0.995:
             raise AssertionError("CUDA frame differs from the CPU plain frame beyond the band")
+        hdrs.append((gpu_e._last_hdr_t.cpu(), cpu_e._last_hdr_t))
+    return hdrs
+
+
+def caustic_share(hdr, plain_hdr):
+    """Share of pixels where frame `hdr` differs from `plain_hdr`, the same
+    frame rendered without caustics: the pixels its caustic lights."""
+    return float(((hdr - plain_hdr).abs().amax(0) > 0).float().mean())
 
 
 def main():
@@ -365,17 +555,22 @@ def main():
           f"{native.library_path()}", flush=True)
 
     # phase 4: every kernel against its plain version on the card, at the
-    # main path's size
+    # main paths' sizes
+    from raytracevs_tpu_torch.ops import photon as PP
+    from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
+
     results = {}
     dev = torch.device("cuda")
     scene = demo_scene(D, 0)
     sc = P.to_device(P.flatten_scene(P.sanitize_scene(scene), aspect=FULL_W / FULL_H), dev)
     cfg = P.make_config(scene, FULL_W, FULL_H, **OVERRIDES)
-    k1_err, _, _ = check_k1("phase 4 K1", MK, R, sc, cfg)
+    k1_err, _, _, rays = check_k1("phase 4 K1", MK, R, sc, cfg)
     k1_ms = gpu_ms(lambda: MK.render_accum(sc, cfg), 3)
     k1_plain_ms = gpu_ms(lambda: R.render_accum(sc, cfg), 1)
-    results["render_accum"] = (k1_err, k1_ms, k1_plain_ms)
     print(f"  render_accum: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms", flush=True)
+    out_bytes = R.NUM_CH * FULL_H * FULL_W * 4
+    results["render_accum"] = kernel_row(k1_err, k1_ms, k1_plain_ms, out_bytes,
+                                         rays * closest_ops(sc))
 
     # K2-K4 on the G-buffers of two orbiting 1080p frames
     g = []
@@ -405,16 +600,29 @@ def main():
           f"K4 {k4_err:.3g}; history kept on {frames_kept:.3f} of pixels", flush=True)
     if max(k2_err, k3_err, k4_err) > 1e-5:
         raise AssertionError("K2-K4 disagree with their plain versions beyond atol 1e-5")
-    for name, err, kern, plain in (
-            ("reproject_accumulate", k2_err, lambda: K.reproject_accumulate(*k2_args),
-             lambda: PD.temporal_accumulate(*k2_args)),
-            ("atrous", k3_err, lambda: K.atrous(*k3_args), lambda: PD.atrous(*k3_args)),
-            ("shadow_denoise", k4_err, lambda: K.shadow_denoise(*k4_args),
-             lambda: PD.shadow_denoise(*k4_args))):
-        results[name] = (err, gpu_ms(kern, 20), gpu_ms(plain, 5))
-        print(f"  {name}: kernel {results[name][1]:.4f} ms, plain {results[name][2]:.4f} ms",
-              flush=True)
+    px = FULL_W * FULL_H
+    for name, err, kern, plain, args, out_planes, ops in (
+            ("reproject_accumulate", k2_err, K.reproject_accumulate, PD.temporal_accumulate,
+             k2_args, 16, REPROJECT_OPS),
+            ("atrous", k3_err, K.atrous, PD.atrous, k3_args, 6, ATROUS_OPS),
+            ("shadow_denoise", k4_err, K.shadow_denoise, PD.shadow_denoise, k4_args, 2,
+             SHADOW_OPS)):
+        ms = gpu_ms(lambda: kern(*args), 20)
+        plain_ms = gpu_ms(lambda: plain(*args), 5)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        nbytes = sum(a.nbytes for a in args) + out_planes * px * 4
+        results[name] = kernel_row(err, ms, plain_ms, nbytes, px * ops)
     del g, state, gb, curr, k2_args, new_state, normal, guide, k3_args, k4_args
+
+    # K5 on the demo scene at its budget and at the reference's safe cap;
+    # K6 at 1080p on the primary planes of a caustics demo frame, both maps
+    ccfg = P.make_config(scene, FULL_W, FULL_H, **CAUSTICS)
+    rows = [check_k5("demo scene", PP, PK, sc, n) for n in (ccfg.num_photons, 131072)]
+    acc = MK.render_accum(sc, ccfg)
+    gathers = [check_k6(f"demo scene, {n}-photon map", PP, PK, R, PP.emit_and_trace(sc, n), acc,
+                        ccfg.samples_per_pixel)[0] for n in (ccfg.num_photons, 131072)]
+    results["photon_gather"] = dict(gathers[0], max_abs_err=max(r["max_abs_err"] for r in gathers))
+    del acc
 
     # K1-mesh on the mesh demo scene at 1080p, and on nine instances
     meshes, blas_cache = mesh_service(MESH_DEMO), P.BLASCache()
@@ -434,46 +642,93 @@ def main():
           f"{(t2 - t1) * 1e3:.1f} ms, to_device with the plane table "
           f"{(time.perf_counter() - t2) * 1e3:.1f} ms", flush=True)
     mcfg = P.make_config(mscene, FULL_W, FULL_H, **OVERRIDES)
-    mk_err, _, mk_plain_ms = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg)
+    mk_err, _, mk_plain_ms, mrays = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg)
     mk_ms = gpu_ms(lambda: MK.render_accum(msc, mcfg), 3)
-    results["render_accum_mesh"] = (mk_err, mk_ms, mk_plain_ms)
     print(f"  render_accum_mesh: kernel {mk_ms:.3f} ms (mean of 3), plain {mk_plain_ms:.3f} ms "
           f"(one run)", flush=True)
     nscene = nine_ball_scene(D)
     nsc = P.to_device(P.flatten_scene(P.sanitize_scene(nscene), aspect=480 / 270,
                                       mesh_service=mesh_service({"Ball": (24, 32, 0.3)})), dev)
-    n_err, _, _ = check_k1("phase 4 K1-mesh, nine instances,", MK, R, nsc,
-                           P.make_config(nscene, 480, 270))
-    results["render_accum_mesh"] = (max(mk_err, n_err),) + results["render_accum_mesh"][1:]
+    n_err, _, _, _ = check_k1("phase 4 K1-mesh, nine instances,", MK, R, nsc,
+                              P.make_config(nscene, 480, 270))
+    results["render_accum_mesh"] = kernel_row(max(mk_err, n_err), mk_ms, mk_plain_ms, out_bytes,
+                                              mrays * closest_ops(msc))
+    # K5 on the mesh demo scene's tables: the instance material rows stay,
+    # and the light table follows them
+    rows.append(check_k5("mesh demo scene", PP, PK, msc, ccfg.num_photons))
+    results["photon_trace"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
     del msc, nsc
 
     # phase 5: the main paths, through the Engine
     counters = {"render_accum": MK.render_accum, "reproject_accumulate": K.reproject_accumulate,
                 "atrous": K.atrous, "shadow_denoise": K.shadow_denoise,
-                "render_accum_mesh": MK.render_accum_mesh}
-    launches = run_engine(P, D, "analytic", demo_scene, counters)
+                "render_accum_mesh": MK.render_accum_mesh,
+                "photon_trace": PK.trace_photons, "photon_gather": PK.gather}
+    launches, aeng = run_engine(P, D, "analytic", demo_scene, counters)
     for name in ("render_accum", "reproject_accumulate", "atrous", "shadow_denoise"):
         if launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {launches[name]} times in {FRAMES} frames")
-    mesh_launches = run_engine(P, D, "mesh", mesh_demo_scene, counters, MESH_DEMO)
+    mesh_launches, _ = run_engine(P, D, "mesh", mesh_demo_scene, counters, MESH_DEMO)
     for name in ("render_accum_mesh", "reproject_accumulate", "atrous", "shadow_denoise"):
         if mesh_launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {mesh_launches[name]} times in {FRAMES} "
                                  "mesh frames")
     launches["render_accum_mesh"] = mesh_launches["render_accum_mesh"]
+    caustics_launches, ceng = run_engine(P, D, "caustics", demo_scene, counters,
+                                         overrides=CAUSTICS)
+    for name in ("render_accum", "reproject_accumulate", "atrous", "shadow_denoise",
+                 "photon_trace", "photon_gather"):
+        if caustics_launches[name] < FRAMES:
+            raise AssertionError(f"{name} launched {caustics_launches[name]} times in {FRAMES} "
+                                 "caustics frames")
+    for name in ("photon_trace", "photon_gather"):
+        launches[name] = caustics_launches[name]
+    # the caustic in the Engine's own last frame: its HDR against the analytic
+    # run's last frame (the same camera and frame index, so the same K1
+    # planes), and against that frame rebuilt from the planes and a photon
+    # pass, after the counts were read
+    hdr, ahdr = ceng._last_hdr_t, aeng._last_hdr_t
+    lit = caustic_share(hdr, ahdr)
+    ccfg = ceng._cfg
+    csc = ceng._scene_t._replace(frame_index=torch.tensor(FRAMES - 1, dtype=torch.int64,
+                                                          device=dev))
+    acc = MK.render_accum(csc, ccfg)
+    pmap = PP.emit_and_trace(csc, ccfg.num_photons)
+    color = acc[R.CH_COLOR:R.CH_COLOR + 3]
+    inv = 1.0 / ccfg.samples_per_pixel
+    plain = color * inv
+    want = (color + PK.gather(pmap, acc, ccfg.samples_per_pixel)) * inv
+    errs = [float((a - b).abs().max()) for a, b in ((hdr, want), (ahdr, plain))]
+    print(f"phase 5 caustics: {ccfg.num_photons} photons, {int(pmap.count)} stored; the last "
+          f"frame's caustic lights {lit:.5f} of its pixels, adds up to "
+          f"{float((hdr - ahdr).max()):.4g} HDR; max |d| against the rebuilt frame {errs[0]:.3g}, "
+          f"the analytic frame against its planes {errs[1]:.3g}", flush=True)
+    if lit == 0.0 or not bool(torch.isfinite(hdr).all()):
+        raise AssertionError("the Engine's caustics frames carry no caustic")
+    if not all(bool(((a - b).abs() <= 1e-6 * b.abs().clamp(min=1.0)).all())
+               for a, b in ((hdr, want), (ahdr, plain))):
+        raise AssertionError("the Engine's last frames differ from their planes and photon pass")
+    del csc, ceng, aeng, pmap, acc, hdr, ahdr, want, plain
 
     # phase 6: frames against the plain pipeline on a small input
-    compare_small(P, D, "analytic", demo_scene, 2)
+    analytic = compare_small(P, D, "analytic", demo_scene, 2)
     compare_small(P, D, "mesh", mesh_demo_scene, 1, MESH_DEMO)
+    caustics = compare_small(P, D, "caustics", demo_scene, 1, overrides=CAUSTICS)
+    for name, hdr, plain in zip(("cuda", "cpu"), caustics[0], analytic[0]):
+        lit = caustic_share(hdr, plain)
+        print(f"phase 6 caustics 96x54 frame 0, {name}: the caustic lights {lit:.5f} of the "
+              "pixels", flush=True)
+        if lit == 0.0:
+            raise AssertionError(f"the 96x54 caustics frame ({name}) carries no caustic")
 
     # phase 7: where the time of a 1080p frame goes
     print_stages("analytic", stage_times(P, D, MK, K, PD, 5, demo_scene))
     print_stages("mesh", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO))
+    print_stages("caustics", stage_times(P, D, MK, K, PD, 5, demo_scene, overrides=CAUSTICS))
 
     line = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], "max_abs_err": results[name][0],
-         "ms": results[name][1], "plain_ms": results[name][2]}
+        dict({"name": name, "route": "cuda", "source": src, "replaces": rep,
+              "launches": launches[name]}, **results[name])
         for name, src, rep in KERNELS]}
     print(json.dumps(line))
     print(smi)

@@ -2,9 +2,10 @@
 
 It renders scenes of analytic primitives (spheres, planes, OBBs) and
 triangle meshes with the default frame: path tracing through the render
-megakernel, the REBLUR-style denoiser, composite and tone map. On a CUDA
-device the frame runs through four hand-written Hopper kernels (csrc/); on
-the CPU through their plain PyTorch versions. The host BVH builder
+megakernel, photon-mapped caustics when a scene turns them on, the
+REBLUR-style denoiser, composite and tone map. On a CUDA device (the
+Engine's default) the frame runs through hand-written Hopper kernels
+(csrc/); on the CPU through their plain PyTorch versions. The host BVH builder
 (csrc/host/) is compiled by g++ at first use. It imports PyTorch and numpy,
 never JAX.
 """

@@ -47,6 +47,13 @@ SIGNATURES = {
     "rtvs_atrous_pass": (_P,) * 5 + (_I,) * 3 + (_P,),
     # shadow2, obj_id, view_z, normal3, out2, H, W, stream
     "rtvs_shadow_denoise": (_P,) * 5 + (_I,) * 2 + (_P,),
+    # ftab, S, P, B, M, L, n, origin, direction, color, power, alive, idx,
+    # store_pos, store_dir, store_color, store_power, store_mask, stream
+    "rtvs_photon_trace": (_P,) + (_I,) * 6 + (_P,) * 11 + (_P,),
+    # W, H, pos, nrm, hit, metal, trans, ph_pos, ph_dir, ph_col, ph_pow,
+    # ph_valid, n, cell_start, cell_count, count, radius, intensity, spp,
+    # out, stream
+    "rtvs_photon_gather": (_I, _I) + (_P,) * 10 + (_I,) + (_P,) * 5 + (_F, _P, _P),
 }
 
 

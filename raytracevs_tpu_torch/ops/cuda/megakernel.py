@@ -95,8 +95,8 @@ def _check(scene, cfg, name):
     for n, leaf in leaves:
         if leaf.device != dev:
             raise ValueError(f"{name}: scene.{n} on {leaf.device}, expected {dev}")
-    if cfg.num_photons or cfg.photon_debug_mode:
-        raise NotImplementedError("caustics and photon debug modes: not ported yet")
+    if cfg.photon_debug_mode:  # num_photons is not read: the caustics pass follows K1
+        raise NotImplementedError("photon debug modes: not ported yet")
     if not (1 <= cfg.max_soft_samples <= 16):
         raise ValueError(f"max_soft_samples {cfg.max_soft_samples} outside 1..16")
     flags = (int(cfg.has_lights) | int(cfg.any_glass) << 1 | int(cfg.any_metal) << 2

@@ -202,12 +202,28 @@ def assemble_frame_cf(scene, cfg, acc: dict) -> FrameOutputCF:
     )
 
 
+def apply_caustics_cf(scene, cfg, acc: torch.Tensor, planes: dict) -> dict:
+    """The photon pass of a frame with caustics (num_photons > 0): emit and
+    trace the photons (K5), build the hash, gather at the eligible primary
+    hits of the accumulator planes `acc` (K6) and add the caustic to the
+    colour and diffuse planes of `planes` (accum_dict(acc); RayGen.hlsl:
+    505-533). The photon map is rebuilt every frame."""
+    if cfg.num_photons <= 0:
+        return planes
+    from . import photon
+    from .cuda import photon_kernels
+
+    pmap = photon.emit_and_trace(scene, cfg.num_photons)
+    delta = photon_kernels.gather(pmap, acc, cfg.samples_per_pixel)
+    return dict(planes, color=planes["color"] + delta, diffuse=planes["diffuse"] + delta)
+
+
 def render_rows_cf(scene, cfg) -> FrameOutputCF:
-    """Render the frame through kernel K1 (or its plain version on the CPU)
-    and assemble the channel-first frame. Caustics are not part of this port."""
+    """Render the frame through kernel K1 (or its plain version on the CPU),
+    add the caustics when they are on (K5, K6) and assemble the
+    channel-first frame."""
     from .cuda import megakernel
 
-    if cfg.num_photons > 0:
-        raise NotImplementedError("caustics: not ported yet")
     acc = megakernel.render_accum(scene, cfg)
-    return assemble_frame_cf(scene, cfg, accum_dict(acc))
+    planes = apply_caustics_cf(scene, cfg, acc, accum_dict(acc))
+    return assemble_frame_cf(scene, cfg, planes)

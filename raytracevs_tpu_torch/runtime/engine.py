@@ -2,9 +2,11 @@
 frames out (the EngineWrapper surface, src/RayTraceVS.Interop/
 EngineWrapper.h:18-58), restated from raytracevs_tpu/runtime/engine.py.
 
-The device alone picks the backend: on "cuda" every stage of the frame runs
-on the card and the four kernels launch (render K1, reprojection K2, a-trous
-K3, shadow filter K4); on "cpu" the same pipeline runs their plain PyTorch
+The device alone picks the backend. The default, "cuda", runs every stage
+of the frame on the card through the kernels (render K1, reprojection K2,
+a-trous K3, shadow filter K4, and with caustics on the photon trace K5 and
+the photon gather K6); it raises when PyTorch sees no CUDA device. On
+"cpu", asked for by name, the same pipeline runs their plain PyTorch
 versions.
 
 Triangle meshes come from a mesh service (io/mesh_cache.MeshCacheService):
@@ -13,7 +15,7 @@ mesh's BVH once (the Engine's BLASCache) and retransforming it when an
 instance moves.
 
 Example:
-    engine = Engine(1920, 1080, device="cuda", mesh_service=meshes)
+    engine = Engine(1920, 1080, mesh_service=meshes)   # on the card
     engine.update_scene(scene_data)      # evaluated SceneData
     img = engine.render()                # np.uint8 [H, W, 4]
 """
@@ -58,14 +60,15 @@ def render_frame(scene, cfg: RenderConfig, denoise_state):
 class Engine:
     """Render engine with the EngineWrapper-compatible surface."""
 
-    def __init__(self, width: int, height: int, device="cpu", mesh_service=None):
+    def __init__(self, width: int, height: int, device="cuda", mesh_service=None):
         self.width = int(width)
         self.height = int(height)
         self.mesh_service = mesh_service
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
-                raise RuntimeError("Engine(device='cuda'): torch.cuda.is_available() is False")
+                raise RuntimeError(f"Engine(device={device!r}): torch.cuda.is_available() is "
+                                   "False; pass device='cpu' for the plain PyTorch pipeline")
         elif self.device.type != "cpu":
             raise ValueError(f"Engine: unsupported device {self.device}")
         self._flat: Optional[FlatScene] = None  # numpy tables

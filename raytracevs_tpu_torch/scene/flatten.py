@@ -129,7 +129,7 @@ class RenderConfig(NamedTuple):
     enable_denoiser: bool = False
     photon_debug_mode: int = 0
     photon_debug_scale: float = 1.0
-    num_photons: int = 0  # caustics; the port renders only 0
+    num_photons: int = 0  # caustics: the photon budget, 0 when off
     has_lights: bool = True
     any_glass: bool = True
     any_metal: bool = True
@@ -395,8 +395,9 @@ def to_device(flat: FlatScene, device) -> FlatScene:
 
 def make_config(scene: SceneData, width: int, height: int, **overrides) -> RenderConfig:
     """Static render configuration for a scene (raytracevs_tpu make_config
-    semantics). Caustics and the photon debug modes are not part of this
-    port yet: a scene or override that enables them raises."""
+    semantics). Caustics (the scene's enable_caustics, or the override of
+    that name) set num_photons to the photon budget; the photon debug modes
+    are not part of this port yet and raise."""
     spp, max_bounces = effective_budget(
         scene.settings.samples_per_pixel, scene.settings.max_bounces
     )
@@ -409,8 +410,11 @@ def make_config(scene: SceneData, width: int, height: int, **overrides) -> Rende
         m.transmission > 0.01 and float(np.max(np.asarray(m.absorption)[:3])) > 1e-6
         for m in mats
     )
+    num_photons = 0
     if bool(overrides.pop("enable_caustics", scene.settings.enable_caustics)):
-        raise NotImplementedError("caustics: not ported yet")
+        from ..ops.photon import photon_budget
+
+        num_photons = photon_budget(scene)
     if int(overrides.get("photon_debug_mode", scene.settings.photon_debug_mode)):
         raise NotImplementedError("photon debug modes: not ported yet")
     cfg = dict(
@@ -422,7 +426,7 @@ def make_config(scene: SceneData, width: int, height: int, **overrides) -> Rende
         enable_denoiser=bool(scene.settings.enable_denoiser),
         photon_debug_mode=int(scene.settings.photon_debug_mode),
         photon_debug_scale=float(scene.settings.photon_debug_scale),
-        num_photons=0,
+        num_photons=num_photons,
         has_lights=len(scene.lights) > 0,
         any_glass=any_glass,
         any_metal=any_metal,

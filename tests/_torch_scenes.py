@@ -17,14 +17,15 @@ DEMO_LOOK_AT = np.array([0.0, 0.8, 0.6])
 DEMO_EYE = np.array([0.0, 1.9, -4.4])
 
 
-def orbit_eye(frame: int, degrees_per_frame: float = 2.0) -> np.ndarray:
-    """The demo camera position after `frame` steps of a y-axis orbit
-    around DEMO_LOOK_AT."""
+def orbit_eye(frame: int, degrees_per_frame: float = 2.0, eye=DEMO_EYE,
+              look_at=DEMO_LOOK_AT) -> np.ndarray:
+    """The camera position after `frame` steps of a y-axis orbit of `eye`
+    around `look_at` (the demo camera by default)."""
     a = math.radians(degrees_per_frame * frame)
-    rel = DEMO_EYE - DEMO_LOOK_AT
+    rel = eye - look_at
     x = rel[0] * math.cos(a) + rel[2] * math.sin(a)
     z = -rel[0] * math.sin(a) + rel[2] * math.cos(a)
-    return DEMO_LOOK_AT + np.array([x, rel[1], z])
+    return look_at + np.array([x, rel[1], z])
 
 
 def demo_scene(D, frame: int = 0):
@@ -67,7 +68,7 @@ def demo_scene(D, frame: int = 0):
 
 def golden_scene(D, name: str):
     """The analytic golden configs of tests/test_golden.py::_engine_for
-    (1, 2, 3 and 6). Returns (SceneData, config overrides)."""
+    (1, 2, 3, 5 and 6). Returns (SceneData, config overrides)."""
     s = D.SceneData()
     s.camera.position = np.array([0.0, 2.0, -5.0])
     s.camera.look_at = np.array([0.0, 1.0, 0.0])
@@ -111,11 +112,34 @@ def golden_scene(D, name: str):
             D.LightData(type=D.LightType.AMBIENT, color=np.array([0.15, 0.15, 0.15, 1.0])),
         ]
         overrides["max_soft_samples"] = 8
+    elif name == "config5_caustics_denoise":
+        # a glass sphere focusing a point light onto the floor: caustics on
+        s.objects += [D.SphereData(position=np.array([0.0, 1.2, 0.0]), radius=0.8,
+                                   material=D.MaterialData(transmission=0.9, ior=1.5,
+                                                           roughness=0.0)),
+                      D.PlaneData()]
+        s.lights += [D.LightData(type=D.LightType.POINT, position=np.array([0.0, 6.0, 0.0]),
+                                 intensity=20.0)]
+        s.settings.enable_caustics = True
+        s.settings.enable_denoiser = True
+        s.settings.tone_map_operator = 1
+        s.camera.aperture_size = 0.05
+        s.camera.focus_distance = 5.0
     else:
         raise ValueError(name)
     return s, overrides
 
 
+def caustics_golden_scene(D, frame: int = 0):
+    """Golden config 5 (caustics on, denoiser on, ACES, depth of field),
+    its camera orbiting 2 degrees a frame around its look-at point."""
+    s, _ = golden_scene(D, "config5_caustics_denoise")
+    s.camera.position = orbit_eye(frame, eye=np.array([0.0, 2.0, -5.0]),
+                                  look_at=np.array([0.0, 1.0, 0.0]))
+    return s
+
+
+# the analytic golden configs without caustics (config 5 has them)
 GOLDEN = ("config1_hard_shadows", "config2_obb_mirror", "config3_glass_soft",
           "config6_soft_shadows")
 

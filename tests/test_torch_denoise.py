@@ -133,7 +133,7 @@ def test_reblur_prepass_and_blur_radius_match_oracle():
 @pytest.fixture(scope="module")
 def orbit_gbuffers():
     """G-buffers of three orbiting demo frames, rendered by the port."""
-    eng = Engine(32, 24)
+    eng = Engine(32, 24, device="cpu")
     out = []
     for f in range(3):
         eng.update_scene(S.demo_scene(PDATA, f), **S.DEMO_OVERRIDES)

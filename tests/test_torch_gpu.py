@@ -1,12 +1,13 @@
-"""The port's CUDA kernels K1 (analytic and mesh) and K2-K4 vs their plain
-PyTorch versions, on the card. Every test needs a CUDA device and skips
+"""The port's CUDA kernels K1 (analytic and mesh), K2-K4 and the photon
+kernels K5-K6 vs their plain PyTorch versions, on the card. Every test needs a CUDA device and skips
 without one. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Bands: K1 ray count and object ids exact, HDR colour atol 2e-4 on >= 99%
 of pixels; K2-K4 atol 1e-5 (the kernels round like the plain ops; they
-are built with --fmad=false)."""
+are built with --fmad=false); K5 store masks equal, store fields within
+tests/test_megakernel.py:190-197's bands; K6 |d| <= 1e-5 * max(1, |plain|)."""
 import numpy as np
 import pytest
 import torch
@@ -14,9 +15,11 @@ import torch
 import _torch_scenes as S
 from raytracevs_tpu_torch import Engine
 from raytracevs_tpu_torch.io import mesh_cache as PMC
+from raytracevs_tpu_torch.ops import photon as PP
 from raytracevs_tpu_torch.ops import render as R
 from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
 from raytracevs_tpu_torch.ops.cuda import megakernel as MK
+from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
 from raytracevs_tpu_torch.post import denoise as PD_
 from raytracevs_tpu_torch.scene import data as D
 from raytracevs_tpu_torch.scene.flatten import flatten_scene, make_config, to_device
@@ -162,6 +165,79 @@ def test_mesh_engine_cuda_matches_cpu_and_launches_every_kernel():
     assert [y - x for x, y in zip(counts, after)] == [0, 2, 2, 6, 2]
 
 
+PHOTON_SCENES = {
+    "demo": (lambda: S.demo_scene(D), None),
+    "config5": (lambda: S.caustics_golden_scene(D), None),
+    "mesh_demo": (lambda: S.mesh_demo_scene(D), S.MESH_DEMO_SMALL),
+}
+
+
+def _photon_scene(name):
+    build, meshes = PHOTON_SCENES[name]
+    ms = None if meshes is None else S.mesh_service(PMC, meshes)
+    scene = build()
+    return scene, to_device(flatten_scene(sanitize_scene(scene), aspect=72 / 40,
+                                          mesh_service=ms), "cuda")
+
+
+@pytest.mark.parametrize("name", list(PHOTON_SCENES))
+def test_k5_cuda_matches_plain(name):
+    """K5 on the packed tables (a mesh scene keeps its instance material
+    rows, which the light table follows) against the plain bounce loop."""
+    _need_cuda()
+    scene, sc = _photon_scene(name)
+    n = 4 * PP.photon_budget(sanitize_scene(scene))
+    em = PP._emit_photons(sc, n)
+    idx = torch.arange(n, dtype=torch.int32, device="cuda")
+    before = PK.trace_photons.launches
+    got = PK.trace_photons(sc, *em, idx)
+    assert PK.trace_photons.launches == before + 1
+    want = PP._trace_photons(sc, *em, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got[4], want[4]) and int(want[4].sum()) > 10
+    m = want[4]
+    for c, atol in enumerate((5e-3, 1e-4, 1e-5, 1e-4)):
+        torch.testing.assert_close(got[c][m], want[c][m], atol=atol, rtol=1e-3)
+
+
+@pytest.mark.parametrize("name", ["demo", "config5"])
+def test_k6_cuda_matches_plain(name):
+    """K6 on K1's accumulator planes of a caustics frame, with the frame's
+    map and one of 8x the budget (the 32-photon cap binds at the focus)."""
+    _need_cuda()
+    scene, sc = _photon_scene(name)
+    w, h = 72, 40
+    cfg = make_config(scene, w, h, enable_caustics=True)
+    acc = MK.render_accum(sc, cfg)
+    for n in (cfg.num_photons, 8 * cfg.num_photons):
+        pmap = PP.emit_and_trace(sc, n)
+        before = PK.gather.launches
+        got = PK.gather(pmap, acc, cfg.samples_per_pixel)
+        assert PK.gather.launches == before + 1
+        want = PP.caustics_delta(pmap, acc, cfg.samples_per_pixel)
+        torch.cuda.synchronize()
+        assert bool((want != 0).any())
+        assert bool(((got - want).abs() <= 1e-5 * want.abs().clamp(min=1.0)).all()), \
+            float((got - want).abs().max())
+
+
+def test_caustics_engine_cuda_matches_cpu_and_launches_every_kernel():
+    _need_cuda()
+    w, h = 64, 36
+    gpu, cpu = Engine(w, h, device="cuda"), Engine(w, h, device="cpu")
+    kernels = [MK.render_accum, PK.trace_photons, PK.gather, K.reproject_accumulate,
+               K.atrous, K.shadow_denoise]
+    counts = [k.launches for k in kernels]
+    for f in range(2):
+        for e in (gpu, cpu):
+            e.update_scene(S.caustics_golden_scene(D, f))
+        a, b = gpu.render(), cpu.render()
+        assert gpu.last_rays == cpu.last_rays
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
+        assert (d <= 1).mean() >= 0.995
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 2, 2, 6, 2]
+
+
 def test_wrappers_reject_bad_inputs():
     _need_cuda()
     x = _inputs(16, 16, 4)
@@ -171,3 +247,10 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="dtype"):
         K.shadow_denoise(x["shadow"], x["obj_id"].to(torch.int64), x["view_z"],
                          PD_.decode_oct_cf(x["nr"]))
+    _, sc = _photon_scene("demo")
+    em = PP._emit_photons(sc, 256)
+    with pytest.raises(ValueError, match="dtype"):
+        PK.trace_photons(sc, *em, torch.arange(256, device="cuda"))
+    pmap = PP.emit_and_trace(sc, 256)
+    with pytest.raises(ValueError, match="shape"):
+        PK.gather(pmap, torch.zeros((8, 16, 16), device="cuda"), 2)

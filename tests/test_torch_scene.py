@@ -103,7 +103,7 @@ def test_flatten_skips_instances_without_a_mesh():
     assert flatten_scene(sanitize_scene(s)).mesh is None
 
 
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", SCENES + ("config5_caustics_denoise",))
 def test_make_config_matches_jax(name):
     js, ps, jo, po = _pair(name)
     assert make_config(ps, 64, 32, **po)._asdict() == j_make_config(js, 64, 32, **jo)._asdict()
@@ -200,7 +200,8 @@ def test_to_device_keeps_values():
 
 def test_mesh_instance_raises_in_flatten_and_make_config_rejects_caustics():
     """A mesh without triangles raises in the BVH build, as in the JAX
-    package; caustics are not ported."""
+    package; caustics are ported: make_config takes the JAX package's
+    photon budget (the photon debug modes still raise)."""
     s = S.demo_scene(PD)
     s.objects.append(PD.MeshObjectData(mesh_name="Empty"))
     empty = PMC.MeshCacheService(".")
@@ -209,5 +210,9 @@ def test_mesh_instance_raises_in_flatten_and_make_config_rejects_caustics():
     with pytest.raises(ValueError, match="empty triangle list"):
         flatten_scene(s, mesh_service=empty)
     c = S.demo_scene(PD)
-    with pytest.raises(NotImplementedError, match="caustics"):
+    want = j_make_config(j_sanitize(S.demo_scene(JD)), 8, 8, enable_caustics=True).num_photons
+    assert make_config(c, 8, 8, enable_caustics=True).num_photons == want == 16384
+    assert make_config(c, 8, 8).num_photons == 0
+    c.settings.photon_debug_mode = 1
+    with pytest.raises(NotImplementedError, match="photon debug"):
         make_config(c, 8, 8, enable_caustics=True)
