@@ -1,22 +1,26 @@
 """Smoke run of raytracevs_tpu_torch on one CUDA card.
 
-Drives the port's three main paths: Engine(1920, 1080) renders three frames
+Drives the port's four main paths: Engine(1920, 1080) renders three frames
 of the analytic demo scene; Engine(1920, 1080, mesh_service=...) three
 frames of the mesh demo scene (the demo scene plus a 199,712-triangle
-opaque sphere and a 36,864-triangle absorbing glass ball); and three frames
-of the demo scene with photon-mapped caustics on (16,384 photons). All at
-spp 2, 6 bounces, denoiser on, the camera orbiting 2 degrees a frame.
-Before that it builds the CUDA kernels from csrc/ and the host BVH builder
-from csrc/host/, holds each kernel against its plain PyTorch version on the
-card at the main paths' shapes (K2-K4 on the G-buffer of a rendered frame;
-K1-mesh also on nine mesh instances at 480x270; the photon trace K5 at
-16,384 and 131,072 photons and on the mesh demo scene's tables; the photon
-gather K6 at 1920x1080 with both maps), times both and computes each
-kernel's bound (the larger of its bytes over the memory rate and its
-operations over the float32 rate); after each path it checks the frames
-and that every kernel of the path launched; then it compares small frames
-with the CPU's plain pipeline and times each stage of a 1080p frame of the
-three scenes. It prints a JSON line of the kernels, the card's name and
+opaque sphere and a 36,864-triangle absorbing glass ball); three frames of
+the demo scene with photon-mapped caustics on (16,384 photons), all at spp
+2; and Engine(1920, 1080, two_phase=True, mesh_service=...) three frames of
+the mesh demo scene at spp 1 through the two-phase renderer (K7, the
+coherence sort, K8). All at 6 bounces, denoiser on, the camera orbiting 2
+degrees a frame. Before that it builds the CUDA kernels from csrc/ and the
+host BVH builder from csrc/host/, holds each kernel against its plain
+PyTorch version on the card at the main paths' shapes (K2-K4 on the
+G-buffer of a rendered frame; K1-mesh also on nine mesh instances at
+480x270; the photon trace K5 at 16,384 and 131,072 photons and on the mesh
+demo scene's tables; the photon gather K6 at 1920x1080 with both maps; K7
+and K8 at 1920x1080 and spp 1 on the mesh demo scene and the demo scene,
+and together against K1-mesh and K1 there), times both and
+computes each kernel's bound (the larger of its bytes over the memory rate
+and its operations over the float32 rate); after each path it checks the
+frames and that every kernel of the path launched; then it compares small
+frames with the CPU's plain pipeline and times each stage of a 1080p frame
+of the scenes. It prints a JSON line of the kernels, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
@@ -49,6 +53,10 @@ KERNELS = [
      "raytracevs_tpu/ops/pallas/photon_trace.py:58"),
     ("photon_gather", "raytracevs_tpu_torch/csrc/photon.cu",
      "raytracevs_tpu/ops/pallas/photon_gather.py:151"),
+    ("render_phase_a", "raytracevs_tpu_torch/csrc/megakernel.cu",
+     "raytracevs_tpu/ops/pallas/megakernel.py:2443"),
+    ("render_phase_b", "raytracevs_tpu_torch/csrc/megakernel.cu",
+     "raytracevs_tpu/ops/pallas/megakernel.py:2569"),
 ]
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory bytes/s and float32 operations/s outside the tensor cores.
@@ -116,6 +124,7 @@ def demo_scene(D, frame):
 
 OVERRIDES = {"max_soft_samples": 4}
 CAUSTICS = dict(OVERRIDES, enable_caustics=True)
+SPP1 = dict(OVERRIDES, samples_per_pixel=1)  # the two-phase renderer's
 
 
 def uv_sphere(rings, segs, radius):
@@ -244,12 +253,10 @@ def kernel_row(err, ms, plain_ms, nbytes, ops):
                 library_ms=None)
 
 
-def check_k1(name, MK, R, sc, cfg):
-    """K1 (or K1-mesh) against its plain version on the card: per-pixel ray
-    counts and object ids equal, colour 2e-4 on >= 99% of pixels. Returns
-    (max |d|, kernel ms of the compared launch, plain ms of its run, rays)."""
-    got, k_ms = timed_ms(lambda: MK.render_accum(sc, cfg))
-    want, p_ms = timed_ms(lambda: R.render_accum(sc, cfg))
+def assert_like_plain(name, R, cfg, got, want, note=""):
+    """Accumulator planes of a render kernel against its plain version's:
+    per-pixel ray counts and object ids equal, colour 2e-4 on >= 99% of
+    pixels, every plane finite. Returns the colour's max |d|."""
     rays_k, rays_p = int(got[R.CH_RAYS].double().sum()), int(want[R.CH_RAYS].double().sum())
     same_rays = torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
     same_ids = torch.equal(got[R.CH_OBJ_ID], want[R.CH_OBJ_ID])
@@ -259,14 +266,93 @@ def check_k1(name, MK, R, sc, cfg):
     bad = int((d > 2e-4).sum())
     print(f"{name} {cfg.width}x{cfg.height}: rays kernel {rays_k} plain {rays_p} per-pixel "
           f"equal {same_rays}, obj_id equal {same_ids}, colour |d|<=2e-4 on {frac:.5f} of "
-          f"pixels ({bad} above), max |d| {err:.3g}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms",
-          flush=True)
+          f"pixels ({bad} above), max |d| {err:.3g}{note}", flush=True)
     if not (same_rays and same_ids and frac >= 0.99):
         raise AssertionError(f"{name} disagrees with its plain version beyond the band "
                              "(rays exact, obj_id exact, colour 2e-4 on >= 99%)")
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{name}: non-finite accumulator planes")
-    return err, k_ms, p_ms, rays_k
+    return err
+
+
+def check_k1(name, MK, R, sc, cfg):
+    """K1 (or K1-mesh) against its plain version on the card: per-pixel ray
+    counts and object ids equal, colour 2e-4 on >= 99% of pixels. Returns
+    (max |d|, kernel ms of the compared launch, plain ms of its run, rays)."""
+    got, k_ms = timed_ms(lambda: MK.render_accum(sc, cfg))
+    want, p_ms = timed_ms(lambda: R.render_accum(sc, cfg))
+    err = assert_like_plain(name, R, cfg, got, want,
+                            f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+    return err, k_ms, p_ms, int(got[R.CH_RAYS].double().sum())
+
+
+def check_phases(label, MK, R, TP, sc, cfg):
+    """K7 against plain phase A, and K8 against plain phase B on the same
+    phase-A planes and their whole sorted order, both in K1's band; K7's
+    spawn planes and K8's bounce plane bit-equal. Returns (K7 max |d|, K8
+    max |d|, plain A ms, plain B ms), the plain times of one run each."""
+    got_a = MK.render_phase_a(sc, cfg)
+    want_a, pa_ms = timed_ms(lambda: R.render_accum_phase_a(sc, cfg))
+    err_a = assert_like_plain(f"phase 4 K7 {label}", R, cfg, got_a, want_a,
+                              f"; plain {pa_ms:.3f} ms")
+    if not torch.equal(got_a[R.CH_SPAWN_VALID:], want_a[R.CH_SPAWN_VALID:]):
+        raise AssertionError(f"K7 {label}: the spawned continuations differ from plain phase A's")
+    order, count = TP.coherence_order(want_a)
+    got_b = MK.render_phase_b(sc, cfg, order, count, want_a[:R.NUM_CH].clone())
+    want_b, pb_ms = timed_ms(lambda: R.render_accum_phase_b(
+        sc, cfg, order[:int(count)], want_a[:R.NUM_CH].clone()))
+    err_b = assert_like_plain(f"phase 4 K8 {label}", R, cfg, got_b, want_b,
+                              f"; {int(count)} pixels resumed; plain {pb_ms:.3f} ms")
+    if not torch.equal(got_b[R.CH_BOUNCE], want_b[R.CH_BOUNCE]):
+        raise AssertionError(f"K8 {label}: bounce planes differ from plain phase B's")
+    return err_a, err_b, pa_ms, pb_ms
+
+
+def check_two_phase_vs_k1(label, MK, R, TP, sc, cfg, aperture):
+    """K7 + sort + K8 (render_accum_two_phase) against K1 (K1-mesh) at spp
+    1: per-pixel rays, bounce and every record plane bit-equal, colour
+    within 2e-5 * max(1, |K1|) (phase A's term plus phase B's sum is K1's
+    running sum in another order). Returns (the two-phase planes, phase A's
+    rays, the pixels phase B resumed)."""
+    k1 = MK.render_accum(sc, cfg)
+    two = TP.render_accum_two_phase(sc, cfg, aperture)
+    a = MK.render_phase_a(sc, cfg)
+    rays_a = int(a[R.CH_RAYS].double().sum())
+    resumed = int(a[R.CH_SPAWN_VALID].sum())
+    records = list(range(R.CH_PRIMARY, R.CH_HITDIST + 1)) + list(range(R.CH_PRIM_HIT, R.NUM_CH))
+    same = [torch.equal(two[c], k1[c]) for c in (R.CH_RAYS, R.CH_BOUNCE)]
+    same.append(torch.equal(two[records], k1[records]))
+    d = (two[0:3] - k1[0:3]).abs()
+    rel = float((d / k1[0:3].abs().clamp(min=1.0)).max())
+    print(f"phase 4 K7+K8 vs K1 {label} {cfg.width}x{cfg.height} spp 1: {resumed} pixels "
+          f"resumed; rays {int(two[R.CH_RAYS].double().sum())} (phase A {rays_a}); rays, bounce, "
+          f"records bit-equal {same}; colour max |d| {float(d.max()):.3g}, relative {rel:.3g}",
+          flush=True)
+    if not (all(same) and rel <= 2e-5):
+        raise AssertionError(f"the two phases disagree with K1 ({label})")
+    return two, rays_a, resumed
+
+
+def time_two_phase(label, MK, R, TP, sc, cfg, aperture):
+    """ms of K7, the key and sort, K8 (each on its own, tables packed once
+    beforehand), the whole two-phase render, and K1 before and after it,
+    each the mean of 3 runs after a warm-up (CUDA events)."""
+    tables = MK.pack_tables(sc)
+    a = MK.render_phase_a(sc, cfg, tables)
+    order, count = TP.coherence_order(a)
+    acc = a[:R.NUM_CH].clone()
+    t = {"k1": gpu_ms(lambda: MK.render_accum(sc, cfg), 3)}
+    t["k7"] = gpu_ms(lambda: MK.render_phase_a(sc, cfg, tables), 3)
+    t["sort"] = gpu_ms(lambda: TP.coherence_order(a), 3)
+    t["k8"] = gpu_ms(lambda: MK.render_phase_b(sc, cfg, order, count, acc, tables), 3)
+    t["two_phase"] = gpu_ms(lambda: TP.render_accum_two_phase(sc, cfg, aperture), 3)
+    t["k1_again"] = gpu_ms(lambda: MK.render_accum(sc, cfg), 3)
+    t["sum"] = t["k7"] + t["sort"] + t["k8"]
+    print(f"phase 4 time {label} {cfg.width}x{cfg.height} spp 1: K7 {t['k7']:.4f} ms, key + "
+          f"sort {t['sort']:.4f} ms, K8 {t['k8']:.4f} ms, sum {t['sum']:.4f} ms; "
+          f"render_accum_two_phase (packing included) {t['two_phase']:.4f} ms; K1 (packing "
+          f"included) {t['k1']:.4f} ms before, {t['k1_again']:.4f} ms after", flush=True)
+    return t
 
 
 def check_k5(label, PP, PK, sc, n):
@@ -383,20 +469,25 @@ def gather_work(PP, R, pmap, acc):
     return nbytes, visits
 
 
-def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES):
+def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES,
+                two_phase=False):
     """Host ms of each stage of Engine.render's 1080p frame (runtime/engine.py::
     render_frame, ops/render_cf.py::apply_caustics_cf and post/denoise.py::
     denoise_frame_cf, stage by stage), the device synchronised before and
     after each, over `frames` orbiting frames of build(D, frame). With
     meshes, update_scene includes the BVH work: the SAH build on frame 0, a
-    retransform after it."""
+    retransform after it. With two_phase, the render is
+    ops/twophase.py::render_accum_two_phase's steps."""
     from raytracevs_tpu_torch.ops import photon as PP
+    from raytracevs_tpu_torch.ops import render as R
+    from raytracevs_tpu_torch.ops import twophase as TP
     from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
     from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf
     from raytracevs_tpu_torch.post import composite, tonemap
 
     eng = P.Engine(FULL_W, FULL_H, device="cuda",
-                   mesh_service=None if meshes is None else mesh_service(meshes))
+                   mesh_service=None if meshes is None else mesh_service(meshes),
+                   two_phase=two_phase)
     state = PD.init_state_cf(FULL_H, FULL_W, eng.device)
     times = {}
 
@@ -412,7 +503,15 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
         stage("update_scene: sanitize, flatten, to_device (host)",
               lambda: eng.update_scene(build(D, f), **overrides))
         sc, cfg = eng._scene_t, eng._cfg
-        acc = stage("K1 render_accum (incl. table packing)", lambda: MK.render_accum(sc, cfg))
+        if two_phase:
+            tables = stage("pack_tables (plain torch)", lambda: MK.pack_tables(sc))
+            a = stage("K7 render_phase_a", lambda: MK.render_phase_a(sc, cfg, tables))
+            order, count = stage("coherence key + torch.sort", lambda: TP.coherence_order(a))
+            acc = stage("K8 render_phase_b", lambda: MK.render_phase_b(
+                sc, cfg, order, count, a[:R.NUM_CH], tables))
+        else:
+            acc = stage("K1 render_accum (incl. table packing)",
+                        lambda: MK.render_accum(sc, cfg))
         planes = accum_dict(acc)
         if cfg.num_photons:
             n = cfg.num_photons
@@ -457,13 +556,14 @@ def print_stages(label, stages):
           f"{sum(float(np.median(ms[1:])) for ms in stages.values()):.3f} ms", flush=True)
 
 
-def run_engine(P, D, label, build, counters, meshes=None, overrides=OVERRIDES):
+def run_engine(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, two_phase=False):
     """Three orbiting 1080p frames through the Engine (on the card, its
     default), every launch count set to 0 just before and read just after;
     checks the frames. Returns (launches, the Engine)."""
     for c in counters.values():
         c.launches = 0
-    eng = P.Engine(FULL_W, FULL_H, mesh_service=None if meshes is None else mesh_service(meshes))
+    eng = P.Engine(FULL_W, FULL_H, mesh_service=None if meshes is None else mesh_service(meshes),
+                   two_phase=two_phase)
     if eng.device.type != "cuda":
         raise AssertionError(f"Engine(w, h) runs on {eng.device}, not the card")
     imgs = []
@@ -488,14 +588,15 @@ def run_engine(P, D, label, build, counters, meshes=None, overrides=OVERRIDES):
     return launches, eng
 
 
-def compare_small(P, D, label, build, frames, meshes=None, overrides=OVERRIDES):
+def compare_small(P, D, label, build, frames, meshes=None, overrides=OVERRIDES,
+                  two_phase=False):
     """96x54 frames through the CUDA Engine and the CPU's plain pipeline:
     ray counts equal, RGBA |d| <= 1 on >= 99.5% of pixels. Returns each
     frame's linear HDR colour [3,H,W] on the host, (CUDA, CPU) a frame."""
     w, h = 96, 54
     ms = None if meshes is None else mesh_service(meshes)
-    gpu_e = P.Engine(w, h, device="cuda", mesh_service=ms)
-    cpu_e = P.Engine(w, h, device="cpu", mesh_service=ms)
+    gpu_e = P.Engine(w, h, device="cuda", mesh_service=ms, two_phase=two_phase)
+    cpu_e = P.Engine(w, h, device="cpu", mesh_service=ms, two_phase=two_phase)
     hdrs = []
     for f in range(frames):
         for e in (gpu_e, cpu_e):
@@ -562,7 +663,8 @@ def main():
     results = {}
     dev = torch.device("cuda")
     scene = demo_scene(D, 0)
-    sc = P.to_device(P.flatten_scene(P.sanitize_scene(scene), aspect=FULL_W / FULL_H), dev)
+    flat = P.flatten_scene(P.sanitize_scene(scene), aspect=FULL_W / FULL_H)
+    sc = P.to_device(flat, dev)
     cfg = P.make_config(scene, FULL_W, FULL_H, **OVERRIDES)
     k1_err, _, _, rays = check_k1("phase 4 K1", MK, R, sc, cfg)
     k1_ms = gpu_ms(lambda: MK.render_accum(sc, cfg), 3)
@@ -657,13 +759,47 @@ def main():
     # and the light table follows them
     rows.append(check_k5("mesh demo scene", PP, PK, msc, ccfg.num_photons))
     results["photon_trace"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
-    del msc, nsc
+
+    # K7 and K8 against their plain versions at 1080p, spp 1: on the mesh
+    # demo scene (the two-phase main path) and on the demo scene; the two
+    # phases against K1-mesh and K1; their times. The kernels' rows are the
+    # mesh demo scene's; the demo scene's bounds are printed only.
+    from raytracevs_tpu_torch.ops import twophase as TP
+
+    mcfg1 = P.make_config(mscene, FULL_W, FULL_H, **SPP1)
+    ma_err, mb_err, pa_ms, pb_ms = check_phases("mesh demo scene", MK, R, TP, msc, mcfg1)
+    cfg1 = P.make_config(scene, FULL_W, FULL_H, **SPP1)
+    a_err, b_err, _, _ = check_phases("demo scene", MK, R, TP, sc, cfg1)
+    mtwo, mrays_a, mresumed = check_two_phase_vs_k1("mesh demo scene", MK, R, TP, msc, mcfg1,
+                                                    float(mflat.aperture_size))
+    two, rays_a, resumed = check_two_phase_vs_k1("demo scene", MK, R, TP, sc, cfg1,
+                                                 float(flat.aperture_size))
+    t = time_two_phase("mesh demo scene", MK, R, TP, msc, mcfg1, float(mflat.aperture_size))
+    time_two_phase("demo scene", MK, R, TP, sc, cfg1, float(flat.aperture_size))
+    # bounds: K7 writes 39 planes and traces phase A's rays; K8 reads its
+    # pixel id and read-modify-writes 5 floats a resumed pixel, and traces
+    # the rest of the rays (its re-traced primaries not counted); the mesh
+    # walks are not counted, as in K1-mesh's
+    rays_b = int(mtwo[R.CH_RAYS].double().sum()) - mrays_a
+    results["render_phase_a"] = kernel_row(max(a_err, ma_err), t["k7"], pa_ms,
+                                           R.NUM_CH_A * px * 4, mrays_a * closest_ops(msc))
+    results["render_phase_b"] = kernel_row(max(b_err, mb_err), t["k8"], pb_ms,
+                                           4 + 44 * mresumed, rays_b * closest_ops(msc))
+    for name, nbytes, ops in (
+            ("K7", R.NUM_CH_A * px * 4, rays_a * closest_ops(sc)),
+            ("K8", 4 + 44 * resumed, (int(two[R.CH_RAYS].double().sum()) - rays_a)
+             * closest_ops(sc))):
+        b_ms, b_by = bound(nbytes, ops)
+        print(f"  {name} bound on the demo scene at 1080p: {b_ms:.4f} ms by {b_by} "
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations)", flush=True)
+    del msc, nsc, two, mtwo
 
     # phase 5: the main paths, through the Engine
     counters = {"render_accum": MK.render_accum, "reproject_accumulate": K.reproject_accumulate,
                 "atrous": K.atrous, "shadow_denoise": K.shadow_denoise,
                 "render_accum_mesh": MK.render_accum_mesh,
-                "photon_trace": PK.trace_photons, "photon_gather": PK.gather}
+                "photon_trace": PK.trace_photons, "photon_gather": PK.gather,
+                "render_phase_a": MK.render_phase_a, "render_phase_b": MK.render_phase_b}
     launches, aeng = run_engine(P, D, "analytic", demo_scene, counters)
     for name in ("render_accum", "reproject_accumulate", "atrous", "shadow_denoise"):
         if launches[name] < FRAMES:
@@ -709,11 +845,25 @@ def main():
                for a, b in ((hdr, want), (ahdr, plain))):
         raise AssertionError("the Engine's last frames differ from their planes and photon pass")
     del csc, ceng, aeng, pmap, acc, hdr, ahdr, want, plain
+    tp_launches, _ = run_engine(P, D, "two-phase mesh", mesh_demo_scene, counters, MESH_DEMO,
+                                overrides=SPP1, two_phase=True)
+    for name in ("render_phase_a", "render_phase_b", "reproject_accumulate", "atrous",
+                 "shadow_denoise"):
+        if tp_launches[name] < FRAMES:
+            raise AssertionError(f"{name} launched {tp_launches[name]} times in {FRAMES} "
+                                 "two-phase frames")
+    if tp_launches["render_accum"] or tp_launches["render_accum_mesh"]:
+        raise AssertionError("the two-phase frames launched K1")
+    for name in ("render_phase_a", "render_phase_b"):
+        launches[name] = tp_launches[name]
 
     # phase 6: frames against the plain pipeline on a small input
     analytic = compare_small(P, D, "analytic", demo_scene, 2)
     compare_small(P, D, "mesh", mesh_demo_scene, 1, MESH_DEMO)
     caustics = compare_small(P, D, "caustics", demo_scene, 1, overrides=CAUSTICS)
+    compare_small(P, D, "two-phase analytic", demo_scene, 1, overrides=SPP1, two_phase=True)
+    compare_small(P, D, "two-phase mesh", mesh_demo_scene, 1, MESH_DEMO, overrides=SPP1,
+                  two_phase=True)
     for name, hdr, plain in zip(("cuda", "cpu"), caustics[0], analytic[0]):
         lit = caustic_share(hdr, plain)
         print(f"phase 6 caustics 96x54 frame 0, {name}: the caustic lights {lit:.5f} of the "
@@ -725,6 +875,9 @@ def main():
     print_stages("analytic", stage_times(P, D, MK, K, PD, 5, demo_scene))
     print_stages("mesh", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO))
     print_stages("caustics", stage_times(P, D, MK, K, PD, 5, demo_scene, overrides=CAUSTICS))
+    print_stages("mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO, SPP1))
+    print_stages("two-phase mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene,
+                                                     MESH_DEMO, SPP1, two_phase=True))
 
     line = {"kernels": [
         dict({"name": name, "route": "cuda", "source": src, "replaces": rep,

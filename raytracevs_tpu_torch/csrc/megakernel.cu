@@ -40,6 +40,22 @@
 // ~11 MB of plane rows for 237k triangles stay in the 50 MB L2) and
 // divergence between rays that walk a few nodes and rays that walk
 // hundreds. The analytic instantiation compiles without any of it.
+//
+// K7 and K8, the two-phase renderer (spp 1), replace make_kernel(phase_a=
+// True) and make_kernel_b of megakernel.py (render_accum_pallas_twophase),
+// each instantiated without and with meshes. K1, K7 and K8 run the same
+// per-iteration body (dfs_iteration: shade, records, continuation, stack).
+// K7 is K1's kernel stopped after one iteration: the primary ray shaded,
+// its records, and the continuation it spawned in 7 more planes. Between
+// the two, torch sorts the continuations by direction octant and origin
+// Morton code (ops/twophase.py). K8 runs one thread per sorted lane, so a
+// warp holds rays that leave in the same octant from nearby points:
+// sorting targets the divergence of the walks, which is what a warp of K1
+// pays for a glass pixel's secondary rays. K8 re-derives iteration 0
+// without lighting (the children only), resumes the DFS from iteration 1
+// and adds the subtree into its own pixel's planes. What bounds K7 and K8
+// is what bounds K1; K8 adds the re-traced primary ray of every resumed
+// pixel and scattered read-modify-writes of 5 floats a pixel.
 
 #include "common.cuh"
 #include "closest.cuh"
@@ -389,7 +405,12 @@ struct Shaded {
   int thick_tag;  // refract child's pending mesh thickness: (instance + 1) << 8
 };
 
-template <bool HAS_MESH>
+// SHADE=false computes the children alone: no lighting, colour, records or
+// shadow rays (phase B's re-derivation of iteration 0, megakernel.py::
+// _children_only_k; ops/wavefront.py::children_only). The children are
+// the same bit for bit: the hit, material, RNG and spawn arithmetic is
+// shared.
+template <bool HAS_MESH, bool SHADE = true>
 __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint32_t py,
                                 uint32_t sample, const Ray& ray, Shaded& out) {
   int skip_t = (ray.rflags & RAYFLAG_SKIP_SELF) ? ray.stype : INVALID;
@@ -418,18 +439,20 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
   out.hit_index = h.index;
   out.thick_tag = 0;
   if (!h.hit) {
-    V3 sky = sky_color(ray.d);
-    V3 col = scale(sky, ray.boost);
-    if (!finite3(col)) col = mul(tp, sky);
-    if (fused) col = mul(col, beer);
-    out.color = col;
-    out.diffuse = scale(sky, ray.boost);
-    out.specular = v3(0.0f, 0.0f, 0.0f);
-    out.hit_distance = F(10000.0);
-    out.svis = 1.0f;
-    out.spen = 0.0f;
-    out.sdist = FP16_MAX;
-    out.obj_id = -1;
+    if constexpr (SHADE) {
+      V3 sky = sky_color(ray.d);
+      V3 col = scale(sky, ray.boost);
+      if (!finite3(col)) col = mul(tp, sky);
+      if (fused) col = mul(col, beer);
+      out.color = col;
+      out.diffuse = scale(sky, ray.boost);
+      out.specular = v3(0.0f, 0.0f, 0.0f);
+      out.hit_distance = F(10000.0);
+      out.svis = 1.0f;
+      out.spen = 0.0f;
+      out.sdist = FP16_MAX;
+      out.obj_id = -1;
+    }
     return;
   }
   V3 pos = add(ray.o, scale(ray.d, h.t));
@@ -478,170 +501,171 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     transmission = 0.0f;
     ior = F(1.5);
   }
-  V3 view = neg(ray.d);
   bool is_glass = transmission > F(0.01);
 
   float f0_from_ior = (ior - 1.0f) / (ior + 1.0f);
   f0_from_ior = f0_from_ior * f0_from_ior;
   float spec_blend = clampn(specular, 0.0f, 1.0f);
   float f0_glass = f0_from_ior + (spec_blend - f0_from_ior) * spec_blend;
-  V3 highlight = v3(0.0f, 0.0f, 0.0f);
-  if (is_glass && c.any_glass && c.has_lights) {
-    // glass: specular highlights only (RayGen.hlsl:283-334)
-    for (int li = 0; li < c.L; ++li) {
-      const float* lt = sc.lts + LT_W * li;
-      int type = (int)__ldg(lt);
-      bool lv = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
-      LightGeom g = light_geom(sc, pos, nrm, type, ld3(lt + 1));
-      if (!(lv && type != LIGHT_AMBIENT && g.ndotl > 0.0f)) continue;
-      V3 half = normalize(add(g.l, view));
-      float shininess = maxn(F(512.0) * (1.0f - roughness), F(64.0));
-      float spec = powf(maxn(dot(nrm, half), 0.0f), shininess);
-      float sf = fresnel_schlick(maxn(dot(half, view), 0.0f), f0_glass);
-      float k = __ldg(lt + 7) * spec * sf * g.atten;
-      highlight = add(highlight, v3(__ldg(lt + 4) * k, __ldg(lt + 5) * k, __ldg(lt + 6) * k));
-    }
-    highlight = scale(highlight, spec_blend * (1.0f - roughness));
-    if (!(specular > F(0.01))) highlight = v3(0.0f, 0.0f, 0.0f);
-  }
-
-  // non-glass: PBR direct lighting (RayGen.hlsl:336-539)
   V3 f0 = v3(F(0.04) + (albedo.x - F(0.04)) * metallic, F(0.04) + (albedo.y - F(0.04)) * metallic,
              F(0.04) + (albedo.z - F(0.04)) * metallic);
-  V3 dc = scale(albedo, 1.0f - metallic);
   uint32_t sample_rng = sample + (uint32_t)ray.depth * 4096u;
-  V3 ambient = v3(0.0f, 0.0f, 0.0f), ddiff = ambient, dspec = ambient;
-  float best_vis = 1.0f, best_pen = 0.0f, best_dist = FP16_MAX;
   int rays = 0;
-  if (!is_glass && c.has_lights) {
-    uint32_t seed = rng_init(px, py, sc.frame, sample_rng, SALT_SHADOW);
-    int max_shadow = min(sc.max_shadow_lights, 2);
-    if (max_shadow == 0) max_shadow = 2;
-    int t0i = 0, t1i = 0, count = 0;
-    float t0c = -1.0f, t1c = -1.0f;
-    int lcap8 = min(c.L, 8);
-    for (int li = 0; li < lcap8; ++li) {
-      const float* lt = sc.lts + LT_W * li;
-      bool in_range = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
-      bool skip = (int)__ldg(lt) == LIGHT_AMBIENT || !in_range;
-      float contrib = estimate_light(sc, pos, nrm, li);
-      bool beats0 = !skip && contrib > t0c;
-      bool beats1 = !skip && !beats0 && contrib > t1c && max_shadow > 1;
-      if (beats0) { t1i = t0i; t1c = t0c; t0i = li; t0c = contrib; }
-      else if (beats1) { t1i = li; t1c = contrib; }
-      if (beats0 || beats1) count = min(count + 1, max_shadow);
-    }
-    bool sel0 = count > 0 && t0c > 0.0f;
-    bool sel1 = count > 1 && t1c > 0.0f;
-    int a_idx = (sel0 && sel1) ? min(t0i, t1i) : (sel0 ? t0i : t1i);
-    int b_idx = (sel0 && sel1) ? max(t0i, t1i) : a_idx;
-    bool a_sel = sel0 || sel1, b_sel = sel0 && sel1;
-    Shadow res[2];
-#pragma unroll
-    for (int w = 0; w < 2; ++w) {
-      int idx = w == 0 ? a_idx : b_idx;
-      bool selm = w == 0 ? a_sel : b_sel;
-      const float* lt = sc.lts + LT_W * idx;
-      int type = (int)__ldg(lt);
-      V3 lpos = ld3(lt + 1);
-      LightGeom g = light_geom(sc, pos, nrm, type, lpos);
-      int samples = shadow_samples(__ldg(lt + 9), t0i, t0c, t1i, t1c, idx);
-      bool active = selm && g.ndotl > 0.0f;
-      res[w] = soft_shadow<HAS_MESH>(c, sc, pos, nrm, active, type, lpos, __ldg(lt + 8),
-                                     (float)samples,
-                           seed);
-      if (active) rays += res[w].rays;
-    }
-    float best_w = -1.0f;
-    float strength = par(sc, P_SHADOW_STRENGTH);
-    for (int li = 0; li < c.L; ++li) {
-      const float* lt = sc.lts + LT_W * li;
-      int type = (int)__ldg(lt);
-      bool lv = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
-      LightGeom g = light_geom(sc, pos, nrm, type, ld3(lt + 1));
-      bool is_amb = type == LIGHT_AMBIENT;
-      V3 lcol = ld3(lt + 4);
-      float lint = __ldg(lt + 7);
-      if (lv && is_amb) {
-        V3 lc = scale(lcol, lint);
-        V3 base = v3(dc.x + (albedo.x * F(0.3) - dc.x) * metallic,
-                     dc.y + (albedo.y * F(0.3) - dc.y) * metallic,
-                     dc.z + (albedo.z * F(0.3) - dc.z) * metallic);
-        ambient = add(ambient, mul(lc, base));
+  if constexpr (SHADE) {
+    V3 view = neg(ray.d);
+    V3 highlight = v3(0.0f, 0.0f, 0.0f);
+    if (is_glass && c.any_glass && c.has_lights) {
+      // glass: specular highlights only (RayGen.hlsl:283-334)
+      for (int li = 0; li < c.L; ++li) {
+        const float* lt = sc.lts + LT_W * li;
+        int type = (int)__ldg(lt);
+        bool lv = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
+        LightGeom g = light_geom(sc, pos, nrm, type, ld3(lt + 1));
+        if (!(lv && type != LIGHT_AMBIENT && g.ndotl > 0.0f)) continue;
+        V3 half = normalize(add(g.l, view));
+        float shininess = maxn(F(512.0) * (1.0f - roughness), F(64.0));
+        float spec = powf(maxn(dot(nrm, half), 0.0f), shininess);
+        float sf = fresnel_schlick(maxn(dot(half, view), 0.0f), f0_glass);
+        float k = __ldg(lt + 7) * spec * sf * g.atten;
+        highlight = add(highlight, v3(__ldg(lt + 4) * k, __ldg(lt + 5) * k, __ldg(lt + 6) * k));
       }
-      bool lit = lv && !is_amb && g.ndotl > 0.0f;
-      if (!lit) continue;
-      bool use_a = a_idx == li && a_sel, use_b = b_idx == li && b_sel;
-      const Shadow& rs = res[use_a ? 0 : 1];
-      bool use = use_a || use_b;
-      float vis = use ? rs.vis : 1.0f;
-      V3 scol = use ? rs.color : v3(1.0f, 1.0f, 1.0f);
-      float w = g.ndotl * g.atten * lint;
-      if (ray.depth == 0 && w > best_w) {
-        best_w = w;
-        best_vis = vis;
-        best_pen = use ? rs.pen : 0.0f;
-        best_dist = use ? rs.occ : FP16_MAX;
-      }
-      float adj_vis = 1.0f - clampn((1.0f - vis) * strength, 0.0f, 1.0f);
-      float k = lint * g.atten * adj_vis;
-      V3 radiance = v3(lcol.x * k * scol.x, lcol.y * k * scol.y, lcol.z * k * scol.z);
-      V3 db, sb;
-      brdf_terms(nrm, view, g.l, g.ndotl, f0, roughness, metallic, dc, db, sb);
-      ddiff = add(ddiff, scale(mul(db, radiance), g.ndotl));
-      dspec = add(dspec, scale(mul(sb, radiance), g.ndotl));
+      highlight = scale(highlight, spec_blend * (1.0f - roughness));
+      if (!(specular > F(0.01))) highlight = v3(0.0f, 0.0f, 0.0f);
     }
-  } else if (!is_glass && ray.depth == 0) {
-    // no-light fallback (RayGen.hlsl:452-501): legacy point light + flat
-    // ambient, only at depth 0
-    V3 to_l = sub(v3(3.0f, 5.0f, -3.0f), pos);
-    float fb_dist = length(to_l);
-    V3 fb_l = divs(to_l, maxn(fb_dist, F(1e-12)));
-    float fb_atten = attenuation(sc, fb_dist);
-    float fb_ndotl = maxn(dot(nrm, fb_l), 0.0f);
-    float fb_vis, fb_occ;
-    V3 fb_scol;
-    trace_shadow<HAS_MESH>(c, sc, add(pos, scale(nrm, F(0.001))), fb_l, fb_dist, fb_vis, fb_scol,
-                           fb_occ);
-    rays += 1;
-    float fb_amount = clampn((1.0f - fb_vis) * par(sc, P_SHADOW_STRENGTH), 0.0f, 1.0f);
-    float k = F(1.5) * fb_atten * (1.0f - fb_amount);
-    V3 fb_rad = v3(k * fb_scol.x, k * fb_scol.y, k * fb_scol.z);
-    if (fb_ndotl > 0.0f) {
-      V3 db, sb;
-      brdf_terms(nrm, view, fb_l, fb_ndotl, f0, roughness, metallic, dc, db, sb);
-      ddiff = scale(mul(db, fb_rad), fb_ndotl);
-      dspec = scale(mul(sb, fb_rad), fb_ndotl);
-    }
-    ambient = scale(v3(dc.x + (albedo.x * F(0.3) - dc.x) * metallic,
-                       dc.y + (albedo.y * F(0.3) - dc.y) * metallic,
-                       dc.z + (albedo.z * F(0.3) - dc.z) * metallic),
-                    F(0.2));
-    best_vis = fb_vis;
-    best_dist = fb_vis < F(0.99) ? fb_occ : FP16_MAX;
-  }
 
-  float reflection_weight = metallic * (1.0f - roughness * 0.5f);
-  float direct_weight = 1.0f - reflection_weight * 0.5f;
-  V3 diff_lit = add(ambient, scale(ddiff, direct_weight));
-  V3 col = is_glass ? add(highlight, emission)
-                    : clamp3(add(add(diff_lit, dspec), emission), 0.0f, INFINITY);
-  if (!finite3(col)) col = mul(tp, sky_color(ray.d));  // NaN/Inf guard (RayGen.hlsl:250-260)
-  if (fused) col = mul(col, beer);
-  out.color = col;
-  out.diffuse = is_glass ? v3(0.0f, 0.0f, 0.0f) : add(diff_lit, emission);
-  out.specular = is_glass ? highlight : dspec;
-  out.hit_distance = h.t;
-  out.svis = is_glass ? 1.0f : best_vis;
-  out.spen = is_glass ? 0.0f : best_pen;
-  out.sdist = is_glass ? FP16_MAX : best_dist;
+    // non-glass: PBR direct lighting (RayGen.hlsl:336-539)
+    V3 dc = scale(albedo, 1.0f - metallic);
+    V3 ambient = v3(0.0f, 0.0f, 0.0f), ddiff = ambient, dspec = ambient;
+    float best_vis = 1.0f, best_pen = 0.0f, best_dist = FP16_MAX;
+    if (!is_glass && c.has_lights) {
+      uint32_t seed = rng_init(px, py, sc.frame, sample_rng, SALT_SHADOW);
+      int max_shadow = min(sc.max_shadow_lights, 2);
+      if (max_shadow == 0) max_shadow = 2;
+      int t0i = 0, t1i = 0, count = 0;
+      float t0c = -1.0f, t1c = -1.0f;
+      int lcap8 = min(c.L, 8);
+      for (int li = 0; li < lcap8; ++li) {
+        const float* lt = sc.lts + LT_W * li;
+        bool in_range = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
+        bool skip = (int)__ldg(lt) == LIGHT_AMBIENT || !in_range;
+        float contrib = estimate_light(sc, pos, nrm, li);
+        bool beats0 = !skip && contrib > t0c;
+        bool beats1 = !skip && !beats0 && contrib > t1c && max_shadow > 1;
+        if (beats0) { t1i = t0i; t1c = t0c; t0i = li; t0c = contrib; }
+        else if (beats1) { t1i = li; t1c = contrib; }
+        if (beats0 || beats1) count = min(count + 1, max_shadow);
+      }
+      bool sel0 = count > 0 && t0c > 0.0f;
+      bool sel1 = count > 1 && t1c > 0.0f;
+      int a_idx = (sel0 && sel1) ? min(t0i, t1i) : (sel0 ? t0i : t1i);
+      int b_idx = (sel0 && sel1) ? max(t0i, t1i) : a_idx;
+      bool a_sel = sel0 || sel1, b_sel = sel0 && sel1;
+      Shadow res[2];
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        int idx = w == 0 ? a_idx : b_idx;
+        bool selm = w == 0 ? a_sel : b_sel;
+        const float* lt = sc.lts + LT_W * idx;
+        int type = (int)__ldg(lt);
+        V3 lpos = ld3(lt + 1);
+        LightGeom g = light_geom(sc, pos, nrm, type, lpos);
+        int samples = shadow_samples(__ldg(lt + 9), t0i, t0c, t1i, t1c, idx);
+        bool active = selm && g.ndotl > 0.0f;
+        res[w] = soft_shadow<HAS_MESH>(c, sc, pos, nrm, active, type, lpos, __ldg(lt + 8),
+                                       (float)samples, seed);
+        if (active) rays += res[w].rays;
+      }
+      float best_w = -1.0f;
+      float strength = par(sc, P_SHADOW_STRENGTH);
+      for (int li = 0; li < c.L; ++li) {
+        const float* lt = sc.lts + LT_W * li;
+        int type = (int)__ldg(lt);
+        bool lv = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
+        LightGeom g = light_geom(sc, pos, nrm, type, ld3(lt + 1));
+        bool is_amb = type == LIGHT_AMBIENT;
+        V3 lcol = ld3(lt + 4);
+        float lint = __ldg(lt + 7);
+        if (lv && is_amb) {
+          V3 lc = scale(lcol, lint);
+          V3 base = v3(dc.x + (albedo.x * F(0.3) - dc.x) * metallic,
+                       dc.y + (albedo.y * F(0.3) - dc.y) * metallic,
+                       dc.z + (albedo.z * F(0.3) - dc.z) * metallic);
+          ambient = add(ambient, mul(lc, base));
+        }
+        bool lit = lv && !is_amb && g.ndotl > 0.0f;
+        if (!lit) continue;
+        bool use_a = a_idx == li && a_sel, use_b = b_idx == li && b_sel;
+        const Shadow& rs = res[use_a ? 0 : 1];
+        bool use = use_a || use_b;
+        float vis = use ? rs.vis : 1.0f;
+        V3 scol = use ? rs.color : v3(1.0f, 1.0f, 1.0f);
+        float w = g.ndotl * g.atten * lint;
+        if (ray.depth == 0 && w > best_w) {
+          best_w = w;
+          best_vis = vis;
+          best_pen = use ? rs.pen : 0.0f;
+          best_dist = use ? rs.occ : FP16_MAX;
+        }
+        float adj_vis = 1.0f - clampn((1.0f - vis) * strength, 0.0f, 1.0f);
+        float k = lint * g.atten * adj_vis;
+        V3 radiance = v3(lcol.x * k * scol.x, lcol.y * k * scol.y, lcol.z * k * scol.z);
+        V3 db, sb;
+        brdf_terms(nrm, view, g.l, g.ndotl, f0, roughness, metallic, dc, db, sb);
+        ddiff = add(ddiff, scale(mul(db, radiance), g.ndotl));
+        dspec = add(dspec, scale(mul(sb, radiance), g.ndotl));
+      }
+    } else if (!is_glass && ray.depth == 0) {
+      // no-light fallback (RayGen.hlsl:452-501): legacy point light + flat
+      // ambient, only at depth 0
+      V3 to_l = sub(v3(3.0f, 5.0f, -3.0f), pos);
+      float fb_dist = length(to_l);
+      V3 fb_l = divs(to_l, maxn(fb_dist, F(1e-12)));
+      float fb_atten = attenuation(sc, fb_dist);
+      float fb_ndotl = maxn(dot(nrm, fb_l), 0.0f);
+      float fb_vis, fb_occ;
+      V3 fb_scol;
+      trace_shadow<HAS_MESH>(c, sc, add(pos, scale(nrm, F(0.001))), fb_l, fb_dist, fb_vis,
+                             fb_scol, fb_occ);
+      rays += 1;
+      float fb_amount = clampn((1.0f - fb_vis) * par(sc, P_SHADOW_STRENGTH), 0.0f, 1.0f);
+      float k = F(1.5) * fb_atten * (1.0f - fb_amount);
+      V3 fb_rad = v3(k * fb_scol.x, k * fb_scol.y, k * fb_scol.z);
+      if (fb_ndotl > 0.0f) {
+        V3 db, sb;
+        brdf_terms(nrm, view, fb_l, fb_ndotl, f0, roughness, metallic, dc, db, sb);
+        ddiff = scale(mul(db, fb_rad), fb_ndotl);
+        dspec = scale(mul(sb, fb_rad), fb_ndotl);
+      }
+      ambient = scale(v3(dc.x + (albedo.x * F(0.3) - dc.x) * metallic,
+                         dc.y + (albedo.y * F(0.3) - dc.y) * metallic,
+                         dc.z + (albedo.z * F(0.3) - dc.z) * metallic),
+                      F(0.2));
+      best_vis = fb_vis;
+      best_dist = fb_vis < F(0.99) ? fb_occ : FP16_MAX;
+    }
+
+    float reflection_weight = metallic * (1.0f - roughness * 0.5f);
+    float direct_weight = 1.0f - reflection_weight * 0.5f;
+    V3 diff_lit = add(ambient, scale(ddiff, direct_weight));
+    V3 col = is_glass ? add(highlight, emission)
+                      : clamp3(add(add(diff_lit, dspec), emission), 0.0f, INFINITY);
+    if (!finite3(col)) col = mul(tp, sky_color(ray.d));  // NaN/Inf guard (RayGen.hlsl:250-260)
+    if (fused) col = mul(col, beer);
+    out.color = col;
+    out.diffuse = is_glass ? v3(0.0f, 0.0f, 0.0f) : add(diff_lit, emission);
+    out.specular = is_glass ? highlight : dspec;
+    out.hit_distance = h.t;
+    out.svis = is_glass ? 1.0f : best_vis;
+    out.spen = is_glass ? 0.0f : best_pen;
+    out.sdist = is_glass ? FP16_MAX : best_dist;
+    out.albedo = albedo;
+    out.roughness = roughness;
+    out.metallic = metallic;
+    out.transmission = transmission;
+    out.obj_id = h.type * 65536 + h.index;
+  }
   out.normal = nrm;
-  out.albedo = albedo;
   out.pos = pos;
-  out.roughness = roughness;
-  out.metallic = metallic;
-  out.transmission = transmission;
-  out.obj_id = h.type * 65536 + h.index;
   out.entering = front;
 
   // ---- children (RayGen.hlsl:591-847) ----
@@ -713,7 +737,224 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
   out.rays = rays;
 }
 
+// ---- the DFS, shared by K1, K7 and K8 ---------------------------------------
+// A pixel's depth-0 records across its samples (RayGen.hlsl:560-589)
+struct Records {
+  V3 diffuse, specular;
+  float hitdist, svis, spen, sdist;
+  bool prim_hit;
+  V3 pnormal, palbedo, ppos;
+  float prough, pmetal, ptrans;
+  int pobj;
+};
+
+__device__ __forceinline__ void init_records(Records& r) {
+  r.diffuse = r.specular = v3(0.0f, 0.0f, 0.0f);
+  r.hitdist = 0.0f;
+  r.svis = 1.0f;
+  r.spen = 0.0f;
+  r.sdist = FP16_MAX;
+  r.prim_hit = false;
+  r.pnormal = v3(0.0f, 1.0f, 0.0f);
+  r.palbedo = r.ppos = v3(0.0f, 0.0f, 0.0f);
+  r.prough = 1.0f;
+  r.pmetal = r.ptrans = 0.0f;
+  r.pobj = -1;
+}
+
+// One sample's DFS state besides its stack: the current WorkItem, whether
+// there is one, the stack's entry count, and the sample's running sums.
+struct Path {
+  Ray cur;
+  bool valid;
+  int count;
+  V3 color, primary;
+  int bounce, rays;
+};
+// the 8-deep LIFO of deferred siblings, in local memory
+typedef float StackF[STACK_DEPTH][10];
+typedef int StackI[STACK_DEPTH][5];
+
+// sample s's primary ray (RayGen.hlsl:107-172): blue-noise AA + thin-lens
+// DoF, offsets 0.5 at spp 1; a fresh path
+__device__ __forceinline__ void start_path(const Cfg& c, const Scene& sc, uint32_t px,
+                                           uint32_t py, int s, Path& p) {
+  V3 cam_pos = par3(sc, P_CAMPOS), fwd = par3(sc, P_FWD), right = par3(sc, P_RIGHT),
+     up = par3(sc, P_UP);
+  float tanfov = par(sc, P_TANFOV), aperture = par(sc, P_APERTURE);
+  uint32_t bx = (px + sc.frame * 3u + (uint32_t)s * 11u) & 15u;
+  uint32_t by = (py + sc.frame * 5u + (uint32_t)s * 7u) & 15u;
+  const float* bn = sc.bn + (by * 16u + bx) * 4u;
+  float offx = c.spp > 1 ? __ldg(bn) : 0.5f;
+  float offy = c.spp > 1 ? __ldg(bn + 1) : 0.5f;
+  float ndc_x = ((float)px + offx) / (float)c.width * 2.0f - 1.0f;
+  float ndc_y = -(((float)py + offy) / (float)c.height * 2.0f - 1.0f);
+  float kx = ndc_x * tanfov * c.aspect, ky = ndc_y * tanfov;
+  V3 d = normalize(v3(fwd.x + right.x * kx + up.x * ky, fwd.y + right.y * kx + up.y * ky,
+                      fwd.z + right.z * kx + up.z * ky));
+  V3 o = cam_pos;
+  if (aperture > F(0.001)) {
+    V3 focus = add(cam_pos, scale(d, par(sc, P_FOCUS)));
+    float r = sqrtf(__ldg(bn + 2));
+    float theta = __ldg(bn + 3) * F(6.28318530718);
+    float disk_x = r * cosf(theta) * aperture, disk_y = r * sinf(theta) * aperture;
+    o = add(add(cam_pos, scale(right, disk_x)), scale(up, disk_y));
+    d = normalize(sub(focus, o));
+  }
+  p.cur.o = o;
+  p.cur.d = d;
+  p.cur.tp = v3(1.0f, 1.0f, 1.0f);
+  p.cur.boost = 1.0f;
+  p.cur.depth = p.cur.flags = p.cur.rflags = p.cur.sidx = 0;
+  p.cur.stype = INVALID;
+  p.valid = true;
+  p.count = 0;
+  p.color = p.primary = v3(0.0f, 0.0f, 0.0f);
+  p.bounce = p.rays = 0;
+}
+
+// the continuation of a traced WorkItem (RayGen.hlsl:697-846): refract >
+// unpushed reflect > metal; the reflect child is pushed when refract
+// continues, against the full STACK_DEPTH capacity. Returns whether there
+// is one (in `next`).
+__device__ __forceinline__ bool spawn(const Shaded& sh, Path& p, StackF& sf, StackI& si,
+                                      Ray& next) {
+  int next_depth = p.cur.depth + 1;
+  int spec_flags = p.cur.flags | PATH_FLAG_SPECULAR;
+  bool push_reflect = sh.glass_spawn && p.count < STACK_DEPTH;
+  bool refract_ok =
+      sh.glass_spawn && !sh.tir && p.count + (push_reflect ? 1 : 0) < STACK_DEPTH;
+  Ray refl;
+  refl.o = add(sh.pos, scale(sh.normal, F(0.002)));
+  refl.d = sh.reflect_dir;
+  refl.tp = sh.reflect_tp;
+  refl.boost = F(1.2);
+  refl.depth = next_depth;
+  refl.flags = spec_flags;
+  refl.rflags = RAYFLAG_SKIP_SELF;
+  refl.stype = sh.hit_type;
+  refl.sidx = sh.hit_index;
+  if (push_reflect && refract_ok) {
+    float* f = sf[p.count];
+    f[0] = refl.o.x; f[1] = refl.o.y; f[2] = refl.o.z;
+    f[3] = refl.d.x; f[4] = refl.d.y; f[5] = refl.d.z;
+    f[6] = refl.tp.x; f[7] = refl.tp.y; f[8] = refl.tp.z;
+    f[9] = refl.boost;
+    int* iv = si[p.count];
+    iv[0] = refl.depth; iv[1] = refl.flags; iv[2] = refl.rflags;
+    iv[3] = refl.stype; iv[4] = refl.sidx;
+    p.count += 1;
+  }
+  if (refract_ok) {
+    next.o = add(sh.pos, scale(sh.refract_dir, F(0.002)));
+    next.d = sh.refract_dir;
+    next.tp = sh.refract_tp;
+    next.boost = F(1.2);
+    next.depth = next_depth;
+    next.flags = sh.entering ? (spec_flags | PATH_FLAG_INSIDE)
+                             : (spec_flags & ~PATH_FLAG_INSIDE);
+    next.rflags = sh.thick_tag;
+    next.stype = INVALID;
+    next.sidx = 0;
+    return true;
+  }
+  if (push_reflect) {
+    next = refl;
+    return true;
+  }
+  if (sh.metal_spawn) {
+    bool inside = (spec_flags & PATH_FLAG_INSIDE) != 0;
+    next.o = add(sh.pos, scale(sh.normal, F(0.002)));
+    next.d = sh.metal_dir;
+    next.tp = sh.metal_tp;
+    next.boost = F(1.1);
+    next.depth = next_depth;
+    next.flags = spec_flags;
+    next.rflags = inside ? 0 : RAYFLAG_SKIP_SELF;
+    next.stype = inside ? INVALID : sh.hit_type;
+    next.sidx = inside ? 0 : sh.hit_index;
+    return true;
+  }
+  return false;
+}
+
+// the next WorkItem: the continuation, else the deferred sibling popped,
+// else none
+__device__ __forceinline__ void next_item(Path& p, bool has_cont, const Ray& next,
+                                          const StackF& sf, const StackI& si) {
+  if (has_cont) {
+    p.cur = next;
+    p.valid = true;
+  } else if (p.count > 0) {
+    p.count -= 1;
+    const float* f = sf[p.count];
+    const int* iv = si[p.count];
+    p.cur.o = v3(f[0], f[1], f[2]);
+    p.cur.d = v3(f[3], f[4], f[5]);
+    p.cur.tp = v3(f[6], f[7], f[8]);
+    p.cur.boost = f[9];
+    p.cur.depth = iv[0]; p.cur.flags = iv[1]; p.cur.rflags = iv[2];
+    p.cur.stype = iv[3]; p.cur.sidx = iv[4];
+    p.valid = true;
+  } else {
+    p.valid = false;
+  }
+}
+
+// one DFS iteration of sample s (RayGen.hlsl:174-846): the current WorkItem
+// capped at the depth limit, killed by its throughput, or traced and
+// shaded; its depth-0 records; the next WorkItem
 template <bool HAS_MESH>
+__device__ __forceinline__ void dfs_iteration(const Cfg& c, const Scene& sc, uint32_t px,
+                                              uint32_t py, int s, Path& p, StackF& sf,
+                                              StackI& si, Records& rec) {
+  if (p.valid) p.bounce = max(p.bounce, p.cur.depth + 1);
+  bool has_cont = false;
+  Ray next;
+  if (p.valid && p.cur.depth >= c.max_bounces) {
+    // depth cap -> sky fallback without boost (RayGen.hlsl:184-193)
+    V3 cap = mul(p.cur.tp, sky_color(p.cur.d));
+    p.color = add(p.color, cap);
+    if (p.cur.depth == 0) p.primary = add(p.primary, cap);
+  } else if (p.valid && !(maxn(maxn(p.cur.tp.x, p.cur.tp.y), p.cur.tp.z) < F(0.01) &&
+                          (p.cur.flags & PATH_FLAG_SPECULAR) == 0)) {
+    Shaded sh;
+    shade_and_spawn<HAS_MESH>(c, sc, px, py, (uint32_t)s, p.cur, sh);
+    p.rays += 1 + sh.rays;
+    V3 contrib = mul(p.cur.tp, sh.color);
+    p.color = add(p.color, contrib);
+    if (p.cur.depth == 0) {
+      p.primary = add(p.primary, contrib);
+      // depth-0 records (RayGen.hlsl:560-589): each sample records once;
+      // SIGMA takes the first sample's, the primary record the first hit
+      rec.diffuse = add(rec.diffuse, sh.diffuse);
+      rec.specular = add(rec.specular, sh.specular);
+      rec.hitdist = rec.hitdist + sh.hit_distance;
+      if (s == 0) {
+        rec.svis = sh.svis;
+        rec.spen = sh.spen;
+        rec.sdist = sh.sdist;
+      }
+      if (sh.hit && !rec.prim_hit) {
+        rec.prim_hit = true;
+        rec.pnormal = sh.normal;
+        rec.prough = sh.roughness;
+        rec.palbedo = sh.albedo;
+        rec.pmetal = sh.metallic;
+        rec.ptrans = sh.transmission;
+        rec.ppos = sh.pos;
+        rec.pobj = sh.obj_id;
+      }
+    }
+    has_cont = spawn(sh, p, sf, si, next);
+  }
+  next_item(p, has_cont, next, sf, si);
+}
+
+// ---- K1 and K7: one thread per pixel ----------------------------------------
+// PHASE_A (K7, spp 1): exactly one iteration, then the continuation it
+// spawned in 7 more planes (megakernel.py:2557-2564).
+template <bool HAS_MESH, bool PHASE_A>
 __global__ void __launch_bounds__(256)
     render_accum_kernel(Cfg c, Scene sc, const int* __restrict__ itab, float* __restrict__ out) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -725,192 +966,131 @@ __global__ void __launch_bounds__(256)
   sc.frame = (uint32_t)__ldg(itab + 2);
   uint32_t px = (uint32_t)x, py = (uint32_t)y;
 
-  V3 color = v3(0.0f, 0.0f, 0.0f), primary = color, diffuse = color, specular = color;
-  float hitdist = 0.0f, bounce_f = 0.0f, rays_f = 0.0f;
-  float svis = 1.0f, spen = 0.0f, sdist = FP16_MAX;
-  bool prim_hit = false;
-  V3 pnormal = v3(0.0f, 1.0f, 0.0f), palbedo = v3(0.0f, 0.0f, 0.0f), ppos = palbedo;
-  float prough = 1.0f, pmetal = 0.0f, ptrans = 0.0f;
-  int pobj = -1;
-
-  V3 cam_pos = par3(sc, P_CAMPOS), fwd = par3(sc, P_FWD), right = par3(sc, P_RIGHT),
-     up = par3(sc, P_UP);
-  float tanfov = par(sc, P_TANFOV), aperture = par(sc, P_APERTURE);
-
-  float sf[STACK_DEPTH][10];
-  int si[STACK_DEPTH][5];
-
+  V3 color = v3(0.0f, 0.0f, 0.0f), primary = color;
+  float bounce_f = 0.0f, rays_f = 0.0f;
+  Records rec;
+  init_records(rec);
+  Path p;
+  StackF sf;
+  StackI si;
+  int max_iters = PHASE_A ? 1 : c.max_iters;
   for (int s = 0; s < c.spp; ++s) {
-    // primary ray (RayGen.hlsl:107-172): blue-noise AA + thin-lens DoF
-    uint32_t bx = (px + sc.frame * 3u + (uint32_t)s * 11u) & 15u;
-    uint32_t by = (py + sc.frame * 5u + (uint32_t)s * 7u) & 15u;
-    const float* bn = sc.bn + (by * 16u + bx) * 4u;
-    float offx = c.spp > 1 ? __ldg(bn) : 0.5f;
-    float offy = c.spp > 1 ? __ldg(bn + 1) : 0.5f;
-    float ndc_x = ((float)px + offx) / (float)c.width * 2.0f - 1.0f;
-    float ndc_y = -(((float)py + offy) / (float)c.height * 2.0f - 1.0f);
-    float kx = ndc_x * tanfov * c.aspect, ky = ndc_y * tanfov;
-    V3 d = normalize(v3(fwd.x + right.x * kx + up.x * ky, fwd.y + right.y * kx + up.y * ky,
-                        fwd.z + right.z * kx + up.z * ky));
-    V3 o = cam_pos;
-    if (aperture > F(0.001)) {
-      V3 focus = add(cam_pos, scale(d, par(sc, P_FOCUS)));
-      float r = sqrtf(__ldg(bn + 2));
-      float theta = __ldg(bn + 3) * F(6.28318530718);
-      float disk_x = r * cosf(theta) * aperture, disk_y = r * sinf(theta) * aperture;
-      o = add(add(cam_pos, scale(right, disk_x)), scale(up, disk_y));
-      d = normalize(sub(focus, o));
-    }
-    Ray cur;
-    cur.o = o;
-    cur.d = d;
-    cur.tp = v3(1.0f, 1.0f, 1.0f);
-    cur.boost = 1.0f;
-    cur.depth = cur.flags = cur.rflags = cur.sidx = 0;
-    cur.stype = INVALID;
-    bool valid = true;
-    int count = 0;
-
-    V3 s_color = v3(0.0f, 0.0f, 0.0f), s_primary = s_color;
-    int s_bounce = 0, s_rays = 0;
-    for (int it = 0; it < c.max_iters && (valid || count > 0); ++it) {
-      if (valid) s_bounce = max(s_bounce, cur.depth + 1);
-      bool has_cont = false;
-      Ray next;
-      if (valid && cur.depth >= c.max_bounces) {
-        // depth cap -> sky fallback without boost (RayGen.hlsl:184-193)
-        V3 cap = mul(cur.tp, sky_color(cur.d));
-        s_color = add(s_color, cap);
-        if (cur.depth == 0) s_primary = add(s_primary, cap);
-      } else if (valid && !(maxn(maxn(cur.tp.x, cur.tp.y), cur.tp.z) < F(0.01) &&
-                            (cur.flags & PATH_FLAG_SPECULAR) == 0)) {
-        Shaded sh;
-        shade_and_spawn<HAS_MESH>(c, sc, px, py, (uint32_t)s, cur, sh);
-        s_rays += 1 + sh.rays;
-        V3 contrib = mul(cur.tp, sh.color);
-        s_color = add(s_color, contrib);
-        if (cur.depth == 0) {
-          s_primary = add(s_primary, contrib);
-          // depth-0 records (RayGen.hlsl:560-589): each sample records once;
-          // SIGMA takes the first sample's, the primary record the first hit
-          diffuse = add(diffuse, sh.diffuse);
-          specular = add(specular, sh.specular);
-          hitdist = hitdist + sh.hit_distance;
-          if (s == 0) {
-            svis = sh.svis;
-            spen = sh.spen;
-            sdist = sh.sdist;
-          }
-          if (sh.hit && !prim_hit) {
-            prim_hit = true;
-            pnormal = sh.normal;
-            prough = sh.roughness;
-            palbedo = sh.albedo;
-            pmetal = sh.metallic;
-            ptrans = sh.transmission;
-            ppos = sh.pos;
-            pobj = sh.obj_id;
-          }
-        }
-        // continuation (RayGen.hlsl:697-846): refract > unpushed reflect > metal > pop
-        int next_depth = cur.depth + 1;
-        int spec_flags = cur.flags | PATH_FLAG_SPECULAR;
-        bool push_reflect = sh.glass_spawn && count < STACK_DEPTH;
-        bool refract_ok =
-            sh.glass_spawn && !sh.tir && count + (push_reflect ? 1 : 0) < STACK_DEPTH;
-        Ray refl;
-        refl.o = add(sh.pos, scale(sh.normal, F(0.002)));
-        refl.d = sh.reflect_dir;
-        refl.tp = sh.reflect_tp;
-        refl.boost = F(1.2);
-        refl.depth = next_depth;
-        refl.flags = spec_flags;
-        refl.rflags = RAYFLAG_SKIP_SELF;
-        refl.stype = sh.hit_type;
-        refl.sidx = sh.hit_index;
-        if (push_reflect && refract_ok) {
-          float* f = sf[count];
-          f[0] = refl.o.x; f[1] = refl.o.y; f[2] = refl.o.z;
-          f[3] = refl.d.x; f[4] = refl.d.y; f[5] = refl.d.z;
-          f[6] = refl.tp.x; f[7] = refl.tp.y; f[8] = refl.tp.z;
-          f[9] = refl.boost;
-          int* iv = si[count];
-          iv[0] = refl.depth; iv[1] = refl.flags; iv[2] = refl.rflags;
-          iv[3] = refl.stype; iv[4] = refl.sidx;
-          count += 1;
-        }
-        if (refract_ok) {
-          next.o = add(sh.pos, scale(sh.refract_dir, F(0.002)));
-          next.d = sh.refract_dir;
-          next.tp = sh.refract_tp;
-          next.boost = F(1.2);
-          next.depth = next_depth;
-          next.flags = sh.entering ? (spec_flags | PATH_FLAG_INSIDE)
-                                   : (spec_flags & ~PATH_FLAG_INSIDE);
-          next.rflags = sh.thick_tag;
-          next.stype = INVALID;
-          next.sidx = 0;
-          has_cont = true;
-        } else if (push_reflect) {
-          next = refl;
-          has_cont = true;
-        } else if (sh.metal_spawn) {
-          bool inside = (spec_flags & PATH_FLAG_INSIDE) != 0;
-          next.o = add(sh.pos, scale(sh.normal, F(0.002)));
-          next.d = sh.metal_dir;
-          next.tp = sh.metal_tp;
-          next.boost = F(1.1);
-          next.depth = next_depth;
-          next.flags = spec_flags;
-          next.rflags = inside ? 0 : RAYFLAG_SKIP_SELF;
-          next.stype = inside ? INVALID : sh.hit_type;
-          next.sidx = inside ? 0 : sh.hit_index;
-          has_cont = true;
-        }
-      }
-      if (has_cont) {
-        cur = next;
-        valid = true;
-      } else if (count > 0) {
-        // terminal lanes pop the deferred sibling
-        count -= 1;
-        const float* f = sf[count];
-        const int* iv = si[count];
-        cur.o = v3(f[0], f[1], f[2]);
-        cur.d = v3(f[3], f[4], f[5]);
-        cur.tp = v3(f[6], f[7], f[8]);
-        cur.boost = f[9];
-        cur.depth = iv[0]; cur.flags = iv[1]; cur.rflags = iv[2];
-        cur.stype = iv[3]; cur.sidx = iv[4];
-        valid = true;
-      } else {
-        valid = false;
-      }
-    }
-    color = add(color, s_color);
-    primary = add(primary, s_primary);
-    bounce_f = bounce_f + (float)s_bounce;
-    rays_f = rays_f + (float)s_rays;
+    start_path(c, sc, px, py, s, p);
+    for (int it = 0; it < max_iters && (p.valid || p.count > 0); ++it)
+      dfs_iteration<HAS_MESH>(c, sc, px, py, s, p, sf, si, rec);
+    color = add(color, p.color);
+    primary = add(primary, p.primary);
+    bounce_f = bounce_f + (float)p.bounce;
+    rays_f = rays_f + (float)p.rays;
   }
 
   size_t plane = (size_t)c.height * c.width;
   float* o = out + (size_t)y * c.width + x;
   float vals[32] = {color.x, color.y, color.z, primary.x, primary.y, primary.z,
-                    diffuse.x, diffuse.y, diffuse.z, specular.x, specular.y, specular.z,
-                    hitdist, bounce_f, rays_f, prim_hit ? 1.0f : 0.0f,
-                    pnormal.x, pnormal.y, pnormal.z, prough,
-                    palbedo.x, palbedo.y, palbedo.z, pmetal, ptrans,
-                    ppos.x, ppos.y, ppos.z, svis, spen, sdist, (float)pobj};
+                    rec.diffuse.x, rec.diffuse.y, rec.diffuse.z,
+                    rec.specular.x, rec.specular.y, rec.specular.z,
+                    rec.hitdist, bounce_f, rays_f, rec.prim_hit ? 1.0f : 0.0f,
+                    rec.pnormal.x, rec.pnormal.y, rec.pnormal.z, rec.prough,
+                    rec.palbedo.x, rec.palbedo.y, rec.palbedo.z, rec.pmetal, rec.ptrans,
+                    rec.ppos.x, rec.ppos.y, rec.ppos.z, rec.svis, rec.spen, rec.sdist,
+                    (float)rec.pobj};
 #pragma unroll
   for (int ch = 0; ch < 32; ++ch) o[ch * plane] = vals[ch];
+  if constexpr (PHASE_A) {
+    // no continuation: origin 0 and direction +z, as the plain version's
+    V3 so = p.valid ? p.cur.o : v3(0.0f, 0.0f, 0.0f);
+    V3 sd = p.valid ? p.cur.d : v3(0.0f, 0.0f, 1.0f);
+    float spawn[7] = {p.valid ? 1.0f : 0.0f, so.x, so.y, so.z, sd.x, sd.y, sd.z};
+#pragma unroll
+    for (int ch = 0; ch < 7; ++ch) o[(32 + ch) * plane] = spawn[ch];
+  }
+}
+
+// ---- K8: one thread per sorted continuation ---------------------------------
+// Lane i resumes pixel order[i] for i < *count (the count stays on the
+// device). It re-derives the pixel's iteration-0 state without lighting
+// (the same primary ray, children, continuation and stack as K7's one
+// iteration), runs the DFS from iteration 1, and folds the subtree into
+// the pixel's accumulator planes: colour +=, rays +=, bounce = max. Pixel
+// ids are unique, so the read-modify-write needs no atomics.
+template <bool HAS_MESH>
+__global__ void __launch_bounds__(256)
+    render_phase_b_kernel(Cfg c, Scene sc, const int* __restrict__ itab,
+                          const int* __restrict__ order, const int* __restrict__ count,
+                          int lanes, float* __restrict__ acc) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes || lane >= __ldg(count)) return;
+  int pix = __ldg(order + lane);
+  sc.num_lights = __ldg(itab);
+  sc.max_shadow_lights = __ldg(itab + 1);
+  sc.frame = (uint32_t)__ldg(itab + 2);
+  uint32_t px = (uint32_t)(pix % c.width), py = (uint32_t)(pix / c.width);
+
+  Records rec;  // the subtree is at depth >= 1: it records nothing
+  init_records(rec);
+  Path p;
+  StackF sf;
+  StackI si;
+  start_path(c, sc, px, py, 0, p);
+  Shaded sh;
+  shade_and_spawn<HAS_MESH, false>(c, sc, px, py, 0u, p.cur, sh);
+  Ray next;
+  bool has_cont = spawn(sh, p, sf, si, next);
+  next_item(p, has_cont, next, sf, si);
+  for (int it = 1; it < c.max_iters && (p.valid || p.count > 0); ++it)
+    dfs_iteration<HAS_MESH>(c, sc, px, py, 0, p, sf, si, rec);
+
+  size_t plane = (size_t)c.height * c.width;
+  float* a = acc + pix;
+  a[0] = a[0] + p.color.x;
+  a[plane] = a[plane] + p.color.y;
+  a[2 * plane] = a[2 * plane] + p.color.z;
+  a[13 * plane] = maxn(a[13 * plane], (float)p.bounce);
+  a[14 * plane] = a[14 * plane] + (float)p.rays;
+}
+
+template <bool HAS_MESH, bool PHASE_A>
+int launch_accum(const Cfg& c, const Scene& sc, const int* itab, float* out, void* stream) {
+  dim3 block(16, 16);
+  dim3 grid((c.width + 15) / 16, (c.height + 15) / 16);
+  render_accum_kernel<HAS_MESH, PHASE_A><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab,
+                                                                                   out);
+  return (int)cudaGetLastError();
 }
 
 template <bool HAS_MESH>
-int launch(const Cfg& c, const Scene& sc, const int* itab, float* out, void* stream) {
-  dim3 block(16, 16);
-  dim3 grid((c.width + 15) / 16, (c.height + 15) / 16);
-  render_accum_kernel<HAS_MESH><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab, out);
+int launch_phase_b(const Cfg& c, const Scene& sc, const int* itab, const int* order,
+                   const int* count, int lanes, float* acc, void* stream) {
+  if (lanes <= 0) return 0;
+  render_phase_b_kernel<HAS_MESH><<<(lanes + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      c, sc, itab, order, count, lanes, acc);
   return (int)cudaGetLastError();
+}
+
+// The scene of a mesh entry point: ftab's tables and the mesh tables of
+// ops/cuda/megakernel.py::pack_mesh (node_box [Nn,8], node_link [Nn,4]
+// int32, plane [T,12], n0/n1/n2/e1/e2 [T,3], inst [T] int32, inst_tbl
+// [I,8]), the material table holding S+P+B+I rows.
+Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float* node_box,
+                      const int* node_link, const float* plane, const float* n0,
+                      const float* n1, const float* n2, const float* e1, const float* e2,
+                      const int* inst, const float* inst_tbl, int num_nodes, int num_tris,
+                      int num_inst) {
+  Scene sc = make_scene(ftab, S, P, B, S + P + B + num_inst > 0 ? S + P + B + num_inst : 1, L);
+  sc.mesh.node_box = reinterpret_cast<const float4*>(node_box);
+  sc.mesh.node_link = reinterpret_cast<const int4*>(node_link);
+  sc.mesh.plane = reinterpret_cast<const float4*>(plane);
+  sc.mesh.n0 = n0;
+  sc.mesh.n1 = n1;
+  sc.mesh.n2 = n2;
+  sc.mesh.e1 = e1;
+  sc.mesh.e2 = e2;
+  sc.mesh.inst = inst;
+  sc.mesh.inst_tbl = inst_tbl;
+  sc.mesh.num_nodes = num_nodes;
+  sc.mesh.num_tris = num_tris;
+  sc.mesh.num_inst = num_inst;
+  return sc;
 }
 
 }  // namespace
@@ -926,13 +1106,11 @@ extern "C" int rtvs_render_accum(const float* ftab, const int* itab, float* out,
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
   Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
-  return launch<false>(c, sc, itab, out, stream);
+  return launch_accum<false, false>(c, sc, itab, out, stream);
 }
 
 // K1-mesh: as rtvs_render_accum, with I mesh instances (material rows
-// S+P+B+i) and the mesh tables of ops/cuda/megakernel.py::pack_mesh:
-// node_box [Nn,8], node_link [Nn,4] int32, plane [T,12], n0/n1/n2/e1/e2
-// [T,3], inst [T] int32, inst_tbl [I,8].
+// S+P+B+i) and the mesh tables of make_mesh_scene.
 extern "C" int rtvs_render_accum_mesh(const float* ftab, const int* itab, float* out, int width,
                                       int height, int S, int P, int B, int L, int spp,
                                       int max_bounces, int max_iters, int max_soft, int flags,
@@ -943,19 +1121,73 @@ extern "C" int rtvs_render_accum_mesh(const float* ftab, const int* itab, float*
                                       int num_tris, int num_inst, void* stream) {
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
-  Scene sc = make_scene(ftab, S, P, B, S + P + B + num_inst > 0 ? S + P + B + num_inst : 1, L);
-  sc.mesh.node_box = reinterpret_cast<const float4*>(node_box);
-  sc.mesh.node_link = reinterpret_cast<const int4*>(node_link);
-  sc.mesh.plane = reinterpret_cast<const float4*>(plane);
-  sc.mesh.n0 = n0;
-  sc.mesh.n1 = n1;
-  sc.mesh.n2 = n2;
-  sc.mesh.e1 = e1;
-  sc.mesh.e2 = e2;
-  sc.mesh.inst = inst;
-  sc.mesh.inst_tbl = inst_tbl;
-  sc.mesh.num_nodes = num_nodes;
-  sc.mesh.num_tris = num_tris;
-  sc.mesh.num_inst = num_inst;
-  return launch<true>(c, sc, itab, out, stream);
+  Scene sc = make_mesh_scene(ftab, S, P, B, L, node_box, node_link, plane, n0, n1, n2, e1, e2,
+                             inst, inst_tbl, num_nodes, num_tris, num_inst);
+  return launch_accum<true, false>(c, sc, itab, out, stream);
+}
+
+// K7: as rtvs_render_accum with spp 1 (anything else is refused), out
+// [39, height, width]: the 32 planes of one iteration, then the spawned
+// continuation (valid, origin xyz, direction xyz).
+extern "C" int rtvs_render_phase_a(const float* ftab, const int* itab, float* out, int width,
+                                   int height, int S, int P, int B, int L, int spp,
+                                   int max_bounces, int max_iters, int max_soft, int flags,
+                                   float aspect, void* stream) {
+  if (spp != 1) return (int)cudaErrorInvalidValue;
+  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
+                   aspect);
+  Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
+  return launch_accum<false, true>(c, sc, itab, out, stream);
+}
+
+// K7 with meshes: the arguments of rtvs_render_accum_mesh, out as K7's.
+extern "C" int rtvs_render_phase_a_mesh(const float* ftab, const int* itab, float* out,
+                                        int width, int height, int S, int P, int B, int L,
+                                        int spp, int max_bounces, int max_iters, int max_soft,
+                                        int flags, float aspect, const float* node_box,
+                                        const int* node_link, const float* plane,
+                                        const float* n0, const float* n1, const float* n2,
+                                        const float* e1, const float* e2, const int* inst,
+                                        const float* inst_tbl, int num_nodes, int num_tris,
+                                        int num_inst, void* stream) {
+  if (spp != 1) return (int)cudaErrorInvalidValue;
+  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
+                   aspect);
+  Scene sc = make_mesh_scene(ftab, S, P, B, L, node_box, node_link, plane, n0, n1, n2, e1, e2,
+                             inst, inst_tbl, num_nodes, num_tris, num_inst);
+  return launch_accum<true, true>(c, sc, itab, out, stream);
+}
+
+// K8: order [lanes] int32 pixel ids, count [1] int32 (lanes past it exit),
+// acc [32, height, width] (K7's first 32 planes), updated in place; the
+// rest as rtvs_render_accum, spp 1.
+extern "C" int rtvs_render_phase_b(const float* ftab, const int* itab, const int* order,
+                                   const int* count, float* acc, int lanes, int width,
+                                   int height, int S, int P, int B, int L, int spp,
+                                   int max_bounces, int max_iters, int max_soft, int flags,
+                                   float aspect, void* stream) {
+  if (spp != 1) return (int)cudaErrorInvalidValue;
+  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
+                   aspect);
+  Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
+  return launch_phase_b<false>(c, sc, itab, order, count, lanes, acc, stream);
+}
+
+// K8 with meshes: rtvs_render_phase_b's arguments, then the mesh tables.
+extern "C" int rtvs_render_phase_b_mesh(const float* ftab, const int* itab, const int* order,
+                                        const int* count, float* acc, int lanes, int width,
+                                        int height, int S, int P, int B, int L, int spp,
+                                        int max_bounces, int max_iters, int max_soft, int flags,
+                                        float aspect, const float* node_box,
+                                        const int* node_link, const float* plane,
+                                        const float* n0, const float* n1, const float* n2,
+                                        const float* e1, const float* e2, const int* inst,
+                                        const float* inst_tbl, int num_nodes, int num_tris,
+                                        int num_inst, void* stream) {
+  if (spp != 1) return (int)cudaErrorInvalidValue;
+  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
+                   aspect);
+  Scene sc = make_mesh_scene(ftab, S, P, B, L, node_box, node_link, plane, n0, n1, n2, e1, e2,
+                             inst, inst_tbl, num_nodes, num_tris, num_inst);
+  return launch_phase_b<true>(c, sc, itab, order, count, lanes, acc, stream);
 }

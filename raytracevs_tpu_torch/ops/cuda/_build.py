@@ -1,7 +1,8 @@
 """Build the CUDA kernels of csrc/ into one shared library and load it.
 
-The sources are compiled by nvcc for sm_90a into a plain-C shared library,
-loaded with ctypes (no PyTorch headers, so a build takes seconds). The
+The sources are compiled by nvcc for sm_90a, one nvcc per .cu file, all
+started together, and linked into a plain-C shared library, loaded with
+ctypes (no PyTorch headers, so a build takes seconds). The
 library lands in raytracevs_tpu_torch/_build/, named by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. The build runs at the first kernel launch of a process, never at
@@ -25,9 +26,10 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 # plain PyTorch version (separate mul and add kernels) does on the card.
 # -Xptxas -v: registers, spills and local memory per kernel, kept in the log.
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points: (argtypes), all return int
@@ -39,6 +41,14 @@ SIGNATURES = {
     # ... as rtvs_render_accum up to aspect, then node_box, node_link, plane,
     # n0, n1, n2, e1, e2, inst, inst_tbl, num_nodes, num_tris, num_inst, stream
     "rtvs_render_accum_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + (_P,) * 10 + (_I,) * 3 + (_P,),
+    # K7: as rtvs_render_accum / rtvs_render_accum_mesh (out [39, H, W])
+    "rtvs_render_phase_a": (_P, _P, _P) + (_I,) * 11 + (_F, _P),
+    "rtvs_render_phase_a_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + (_P,) * 10 + (_I,) * 3
+    + (_P,),
+    # K8: ftab, itab, order, count, acc, lanes, then as rtvs_render_accum
+    # from width (and the mesh tables of rtvs_render_accum_mesh)
+    "rtvs_render_phase_b": (_P,) * 5 + (_I,) * 12 + (_F, _P),
+    "rtvs_render_phase_b_mesh": (_P,) * 5 + (_I,) * 12 + (_F,) + (_P,) * 10 + (_I,) * 3 + (_P,),
     # state, curr, motion, motion_spec, view_z, roughness, out, H, W, stream
     "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 2 + (_P,),
     # img6, out6, H, W, stream
@@ -77,7 +87,7 @@ def _sources():
 
 def library_path() -> str:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -90,19 +100,34 @@ def build_log_path() -> str:
 
 
 def build(path: str) -> None:
-    """Compile every csrc/*.cu into `path` (atomically: a temp file, then rename)."""
+    """Compile every csrc/*.cu, each in its own nvcc started at once, and
+    link the objects into `path` (atomically: a temp file, then rename)."""
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     cus = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [f"{tmp}.{os.path.basename(cu)}.o" for cu in cus]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, cu] for cu, o in zip(cus, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]  # waits for each
+    runs = [(c, p.returncode, out, err) for c, p, (out, err) in zip(cmds, procs, outs)]
+    if all(rc == 0 for _, rc, _, _ in runs):
+        cmd = [nvcc, *LINK_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        runs.append((cmd, proc.returncode, proc.stdout, proc.stderr))
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
     log = path[:-3] + ".log"
     with open(log, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode} (log {log}):\n"
-                           + proc.stderr[-4000:])
+        for cmd, _, out, err in runs:
+            f.write(" ".join(cmd) + "\n" + out + err)
+    failed = [(cmd, rc, err) for cmd, rc, _, err in runs if rc != 0]
+    if failed:
+        cmd, rc, err = failed[0]
+        raise RuntimeError(f"nvcc failed with exit code {rc} (log {log}): {' '.join(cmd)}\n"
+                           + err[-4000:])
     os.replace(tmp, path)
 
 

@@ -1,19 +1,21 @@
-"""Wrapper of kernel K1 (csrc/megakernel.cu), the render megakernel.
+"""Wrappers of the render kernels of csrc/megakernel.cu: K1, the render
+megakernel, and the two-phase renderer's K7 (phase A) and K8 (phase B).
 
 ``render_accum(scene, cfg)`` returns the [32, H, W] accumulator planes of
 the frame. On CPU tensors it runs the plain version
 (ops/render.py::render_accum); on CUDA tensors it launches the kernel or
 raises: the analytic instantiation for a scene without meshes, and K1-mesh
 (``render_accum_mesh``, entry rtvs_render_accum_mesh) for a scene with a
-mesh leaf. ``render_accum.launches`` and ``render_accum_mesh.launches``
-count the launches of each.
+mesh leaf. ``render_phase_a`` and ``render_phase_b`` do the same for K7
+and K8 (ops/render.py::render_accum_phase_a/_b; entries
+rtvs_render_phase_a/_b and their _mesh forms). Each wrapper's
+``.launches`` counts its launches.
 """
 from __future__ import annotations
 
 import torch
 
-from ..render import NUM_CH
-from ..render import render_accum as render_accum_plain
+from .. import render as R
 from . import _build
 
 _F32 = torch.float32
@@ -85,6 +87,13 @@ def pack_mesh(mesh):
     return node_box.contiguous(), node_link.contiguous(), inst_tbl.contiguous()
 
 
+def pack_tables(scene):
+    """Everything the render kernels read of a scene, packed once:
+    (ftab, itab) of pack_scene and pack_mesh's tables (None without a mesh)."""
+    ftab, itab = pack_scene(scene)
+    return ftab, itab, None if scene.mesh is None else pack_mesh(scene.mesh)
+
+
 def _check(scene, cfg, name):
     dev = scene.cam_pos.device
     if dev.type != "cuda":
@@ -95,73 +104,120 @@ def _check(scene, cfg, name):
     for n, leaf in leaves:
         if leaf.device != dev:
             raise ValueError(f"{name}: scene.{n} on {leaf.device}, expected {dev}")
+    if scene.mesh is not None:
+        mesh = scene.mesh
+        for n in ("plane", "n0", "n1", "n2", "edge1", "edge2", "inst"):
+            if not getattr(mesh, n).is_contiguous():
+                raise ValueError(f"{name}: mesh.{n} is not contiguous")
+        if mesh.inst.dtype != torch.int32 or mesh.plane.dtype != _F32:
+            raise ValueError(f"{name}: mesh dtypes {mesh.inst.dtype}, {mesh.plane.dtype}")
     if cfg.photon_debug_mode:  # num_photons is not read: the caustics pass follows K1
         raise NotImplementedError("photon debug modes: not ported yet")
     if not (1 <= cfg.max_soft_samples <= 16):
         raise ValueError(f"max_soft_samples {cfg.max_soft_samples} outside 1..16")
-    flags = (int(cfg.has_lights) | int(cfg.any_glass) << 1 | int(cfg.any_metal) << 2
-             | int(cfg.any_absorption) << 3)
-    return dev, flags
+    return (int(cfg.has_lights) | int(cfg.any_glass) << 1 | int(cfg.any_metal) << 2
+            | int(cfg.any_absorption) << 3)
 
 
-def _common_args(scene, cfg, ftab, itab, out, flags):
-    return (ftab.data_ptr(), itab.data_ptr(), out.data_ptr(), cfg.width, cfg.height,
+def _launch(entry, scene, cfg, flags, tables, lead):
+    """Call the library's `entry` (its _mesh form for a scene with meshes)
+    on the current stream: the packed tables, the `lead` arguments, the
+    configuration, then the mesh tables."""
+    ftab, itab, mesh_tables = tables
+    args = [ftab.data_ptr(), itab.data_ptr(), *lead, cfg.width, cfg.height,
             scene.sphere_capacity, scene.plane_capacity, scene.box_capacity,
             scene.light_capacity, cfg.samples_per_pixel, cfg.max_bounces, cfg.max_queue_iters,
-            cfg.max_soft_samples, flags, float(cfg.aspect_ratio))
+            cfg.max_soft_samples, flags, float(cfg.aspect_ratio)]
+    if scene.mesh is not None:
+        entry += "_mesh"
+        mesh = scene.mesh
+        node_box, node_link, inst_tbl = mesh_tables
+        args += [node_box.data_ptr(), node_link.data_ptr(), mesh.plane.data_ptr(),
+                 mesh.n0.data_ptr(), mesh.n1.data_ptr(), mesh.n2.data_ptr(),
+                 mesh.edge1.data_ptr(), mesh.edge2.data_ptr(), mesh.inst.data_ptr(),
+                 inst_tbl.data_ptr(), mesh.num_nodes, mesh.num_tris, mesh.num_inst]
+    lib = _build.load_library()
+    dev = scene.cam_pos.device
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
 
 
 def render_accum(scene, cfg) -> torch.Tensor:
     """K1: the [NUM_CH, height, width] accumulator planes of the frame
     (K1-mesh when the scene has meshes)."""
-    dev = scene.cam_pos.device
-    if dev.type == "cpu":
-        return render_accum_plain(scene, cfg)
+    if scene.cam_pos.device.type == "cpu":
+        return R.render_accum(scene, cfg)
     if scene.mesh is not None:
         return render_accum_mesh(scene, cfg)
-    dev, flags = _check(scene, cfg, "render_accum")
-    ftab, itab = pack_scene(scene)
-    out = torch.empty((NUM_CH, cfg.height, cfg.width), dtype=_F32, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtvs_render_accum(*_common_args(scene, cfg, ftab, itab, out, flags), stream)
-    _build.check(err, "rtvs_render_accum")
+    flags = _check(scene, cfg, "render_accum")
+    out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
+    _launch("rtvs_render_accum", scene, cfg, flags, pack_tables(scene), [out.data_ptr()])
     render_accum.launches += 1
     return out
 
 
 def render_accum_mesh(scene, cfg) -> torch.Tensor:
     """K1-mesh: render_accum for a scene with triangle meshes."""
-    dev = scene.cam_pos.device
-    if dev.type == "cpu":
-        return render_accum_plain(scene, cfg)
+    if scene.cam_pos.device.type == "cpu":
+        return R.render_accum(scene, cfg)
     if scene.mesh is None:
         raise ValueError("render_accum_mesh: the scene has no mesh leaf")
-    dev, flags = _check(scene, cfg, "render_accum_mesh")
-    mesh = scene.mesh
-    for n in ("plane", "n0", "n1", "n2", "edge1", "edge2", "inst"):
-        leaf = getattr(mesh, n)
-        if not leaf.is_contiguous():
-            raise ValueError(f"render_accum_mesh: mesh.{n} is not contiguous")
-    if mesh.inst.dtype != torch.int32 or mesh.plane.dtype != _F32:
-        raise ValueError(f"render_accum_mesh: mesh dtypes {mesh.inst.dtype}, {mesh.plane.dtype}")
-    ftab, itab = pack_scene(scene)
-    node_box, node_link, inst_tbl = pack_mesh(mesh)
-    out = torch.empty((NUM_CH, cfg.height, cfg.width), dtype=_F32, device=dev)
-    lib = _build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rtvs_render_accum_mesh(
-            *_common_args(scene, cfg, ftab, itab, out, flags), node_box.data_ptr(),
-            node_link.data_ptr(), mesh.plane.data_ptr(), mesh.n0.data_ptr(), mesh.n1.data_ptr(),
-            mesh.n2.data_ptr(), mesh.edge1.data_ptr(), mesh.edge2.data_ptr(),
-            mesh.inst.data_ptr(), inst_tbl.data_ptr(), mesh.num_nodes, mesh.num_tris,
-            mesh.num_inst, stream)
-    _build.check(err, "rtvs_render_accum_mesh")
+    flags = _check(scene, cfg, "render_accum_mesh")
+    out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
+    _launch("rtvs_render_accum", scene, cfg, flags, pack_tables(scene), [out.data_ptr()])
     render_accum_mesh.launches += 1
     return out
 
 
+def render_phase_a(scene, cfg, tables=None) -> torch.Tensor:
+    """K7, phase A of the two-phase renderer (spp 1): the [NUM_CH_A,
+    height, width] planes of one DFS iteration per pixel and the
+    continuation it spawned. `tables`: pack_tables(scene), when the caller
+    packed them already."""
+    if scene.cam_pos.device.type == "cpu":
+        return R.render_accum_phase_a(scene, cfg)
+    if cfg.samples_per_pixel != 1:
+        raise ValueError(f"render_phase_a: samples_per_pixel {cfg.samples_per_pixel}, not 1")
+    flags = _check(scene, cfg, "render_phase_a")
+    out = torch.empty((R.NUM_CH_A, cfg.height, cfg.width), dtype=_F32,
+                      device=scene.cam_pos.device)
+    _launch("rtvs_render_phase_a", scene, cfg, flags,
+            pack_tables(scene) if tables is None else tables, [out.data_ptr()])
+    render_phase_a.launches += 1
+    return out
+
+
+def render_phase_b(scene, cfg, order, count, acc, tables=None) -> torch.Tensor:
+    """K8, phase B of the two-phase renderer (spp 1): resumes the first
+    `count` ([1] int32) pixels of `order` ([L] int32 pixel ids) and folds
+    each subtree into the phase-A planes `acc` ([NUM_CH, H, W] float32,
+    updated in place and returned). The count stays on the device: the
+    kernel reads it, so the launch needs no host sync."""
+    if scene.cam_pos.device.type == "cpu":
+        return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc)
+    if cfg.samples_per_pixel != 1:
+        raise ValueError(f"render_phase_b: samples_per_pixel {cfg.samples_per_pixel}, not 1")
+    flags = _check(scene, cfg, "render_phase_b")
+    dev = scene.cam_pos.device
+    for name, t, dtype, shape in (("order", order, torch.int32, (order.numel(),)),
+                                  ("count", count, torch.int32, (1,)),
+                                  ("acc", acc, _F32, (R.NUM_CH, cfg.height, cfg.width))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"render_phase_b: {name} {t.dtype} {tuple(t.shape)} on {t.device}, "
+                             f"expected {dtype} {shape} on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"render_phase_b: {name} is not contiguous")
+    if order.numel() > cfg.width * cfg.height:
+        raise ValueError(f"render_phase_b: {order.numel()} lanes for {cfg.width * cfg.height} pixels")
+    _launch("rtvs_render_phase_b", scene, cfg, flags,
+            pack_tables(scene) if tables is None else tables,
+            [order.data_ptr(), count.data_ptr(), acc.data_ptr(), order.numel()])
+    render_phase_b.launches += 1
+    return acc
+
+
 render_accum.launches = 0
 render_accum_mesh.launches = 0
+render_phase_a.launches = 0
+render_phase_b.launches = 0

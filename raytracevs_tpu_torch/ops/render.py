@@ -1,4 +1,5 @@
-"""Primary rays and the per-sample loop: the plain version of kernel K1.
+"""Primary rays and the per-sample loop: the plain version of kernel K1,
+and of the two-phase renderer's kernels K7 (phase A) and K8 (phase B).
 
 Restates raytracevs_tpu/ops/render.py (``primary_rays`` and the sample scan
 of ``render_rows``, RayGen.hlsl:48-172) and writes the megakernel's
@@ -31,6 +32,16 @@ CH_SHADOW_PEN = 29
 CH_SHADOW_DIST = 30
 CH_OBJ_ID = 31  # type*65536+index as f32 (exact below 2**24); -1 = sky
 NUM_CH = 32
+# Phase A of the two-phase renderer adds the continuation its one iteration
+# spawned (megakernel.py:139-142)
+CH_SPAWN_VALID = 32
+CH_SPAWN_O = 33  # 3
+CH_SPAWN_D = 36  # 3
+NUM_CH_A = 39
+# Phase B pads its lanes to a multiple of this, so PyTorch's CPU loops run
+# every lane in their vector body: a lane's arithmetic then does not depend
+# on where it sits (a scalar tail can round torch.pow differently)
+LANE_PAD = 64
 
 
 def primary_rays(scene, cfg, px, py, sample_index, tile) -> wavefront.RayState:
@@ -72,11 +83,10 @@ def primary_rays(scene, cfg, px, py, sample_index, tile) -> wavefront.RayState:
         throughput=torch.ones((n, 3), dtype=torch.float32, device=dev))
 
 
-def render_accum(scene, cfg) -> torch.Tensor:
-    """Render the frame: every sample's DFS, summed into the
-    [NUM_CH, height, width] float32 accumulator planes
-    (colour sums over samples, first-sample SIGMA shadow record, first-hit
-    primary record). Runs on the device of the scene tensors."""
+def _render_samples(scene, cfg, max_iters=None):
+    """Every sample's DFS (up to `max_iters` iterations each), summed into
+    the [NUM_CH, height, width] accumulator planes. Returns (planes, the
+    last sample's current rays where its DFS stopped)."""
     dev = scene.cam_pos.device
     w, h = cfg.width, cfg.height
     n = w * h
@@ -97,7 +107,7 @@ def render_accum(scene, cfg) -> torch.Tensor:
         primary = primary_rays(scene, cfg, px, py, s, tile)
         prev_hit = prim["prim_hit"] if prim is not None else torch.zeros(
             (n,), dtype=torch.bool, device=dev)
-        a = wavefront.run_sample(scene, cfg, px, py, s, primary, prev_hit)
+        a, cur = wavefront.run_sample(scene, cfg, px, py, s, primary, prev_hit, max_iters)
         for k in ("color", "primary", "diffuse", "specular", "hitdist"):
             out[k] = out[k] + a[k]
         out["bounce"] = out["bounce"] + a["bounce"].to(f32)
@@ -129,4 +139,68 @@ def render_accum(scene, cfg) -> torch.Tensor:
         plane(prim["shadow_vis"])[None], plane(prim["shadow_pen"])[None],
         plane(prim["shadow_dist"])[None], plane(prim["prim_obj_id"].to(f32))[None],
     ]
-    return torch.cat(chans, dim=0).contiguous()
+    return torch.cat(chans, dim=0).contiguous(), cur
+
+
+def render_accum(scene, cfg) -> torch.Tensor:
+    """Render the frame: every sample's DFS, summed into the
+    [NUM_CH, height, width] float32 accumulator planes
+    (colour sums over samples, first-sample SIGMA shadow record, first-hit
+    primary record). Runs on the device of the scene tensors."""
+    return _render_samples(scene, cfg)[0]
+
+
+def _require_spp1(cfg, name):
+    if cfg.samples_per_pixel != 1:
+        raise ValueError(f"{name}: the two-phase renderer needs samples_per_pixel == 1, "
+                         f"got {cfg.samples_per_pixel}")
+
+
+def render_accum_phase_a(scene, cfg) -> torch.Tensor:
+    """Phase A of the two-phase renderer, the plain version of kernel K7
+    (raytracevs_tpu/ops/pallas/megakernel.py::make_kernel(phase_a=True)),
+    spp 1: one DFS iteration per pixel (the primary ray traced and shaded,
+    its depth-0 records, its children). Returns [NUM_CH_A, height, width]:
+    the NUM_CH accumulator planes of that iteration, then the continuation
+    it spawned (valid, origin, direction; (0,0,0) and (0,0,1) where none)."""
+    _require_spp1(cfg, "render_accum_phase_a")
+    planes, cur = _render_samples(scene, cfg, max_iters=1)
+    h, w = cfg.height, cfg.width
+    spawn = torch.cat([cur.valid.to(torch.float32)[None], cur.origin.T, cur.direction.T])
+    return torch.cat([planes, spawn.reshape(7, h, w)], dim=0).contiguous()
+
+
+def render_accum_phase_b(scene, cfg, order, acc) -> torch.Tensor:
+    """Phase B of the two-phase renderer, the plain version of kernel K8
+    (megakernel.py::make_kernel_b), spp 1. Resumes each pixel listed in
+    `order` ([M] row-major pixel ids whose phase A spawned a continuation,
+    in any order): re-derives its iteration-0 state (the primary ray, its
+    children without lighting, the continuation and stack), runs the DFS
+    from iteration 1, and folds the subtree into the phase-A planes `acc`
+    ([NUM_CH, height, width], updated in place and returned): colour
+    added, rays added, bounce the maximum. Nothing else changes: the
+    records are depth-0 only and the primary ray is not counted again."""
+    _require_spp1(cfg, "render_accum_phase_b")
+    dev = scene.cam_pos.device
+    m = order.numel()
+    n = -(-m // LANE_PAD) * LANE_PAD
+    live = torch.arange(n, device=dev) < m
+    pix = torch.cat([order.to(torch.int64), torch.zeros((n - m,), dtype=torch.int64, device=dev)])
+    px = pix % cfg.width
+    py = pix // cfg.width
+    primary = primary_rays(scene, cfg, px, py, 0, sampling.blue_noise_tile(dev))
+    primary = primary._replace(valid=live)
+    # a fresh primary is never capped (max_bounces >= 1 where phase A
+    # spawned) nor killed (throughput 1)
+    ch = wavefront.children_only(scene, cfg, px, py, 0, primary, live)
+    cur, stack = wavefront.advance(primary, ch, live, wavefront.empty_stack(n, dev))
+    sub, _, _ = wavefront.dfs(scene, cfg, px, py, 0, cur, stack,
+                              wavefront.new_accumulators(n, dev),
+                              torch.zeros((n,), dtype=torch.bool, device=dev), 1,
+                              cfg.max_queue_iters)
+    flat = acc.view(NUM_CH, -1)
+    ids = pix[:m]
+    flat[CH_COLOR:CH_COLOR + 3, ids] = flat[CH_COLOR:CH_COLOR + 3, ids] + sub["color"][:m].T
+    flat[CH_RAYS, ids] = flat[CH_RAYS, ids] + sub["rays"][:m].to(torch.float32)
+    flat[CH_BOUNCE, ids] = torch.maximum(flat[CH_BOUNCE, ids], sub["bounce"][:m].to(torch.float32))
+    return acc

@@ -218,12 +218,19 @@ def apply_caustics_cf(scene, cfg, acc: torch.Tensor, planes: dict) -> dict:
     return dict(planes, color=planes["color"] + delta, diffuse=planes["diffuse"] + delta)
 
 
-def render_rows_cf(scene, cfg) -> FrameOutputCF:
+def render_rows_cf(scene, cfg, two_phase=False, aperture_size=None) -> FrameOutputCF:
     """Render the frame through kernel K1 (or its plain version on the CPU),
-    add the caustics when they are on (K5, K6) and assemble the
-    channel-first frame."""
-    from .cuda import megakernel
+    or with two_phase through the two-phase renderer (K7, the coherence
+    sort, K8: ops/twophase.py; spp 1, and `aperture_size`, the host
+    FlatScene's, at most 1e-3), add the caustics when they are on (K5, K6)
+    and assemble the channel-first frame."""
+    if two_phase:
+        from .twophase import render_accum_two_phase
 
-    acc = megakernel.render_accum(scene, cfg)
+        acc = render_accum_two_phase(scene, cfg, aperture_size)
+    else:
+        from .cuda import megakernel
+
+        acc = megakernel.render_accum(scene, cfg)
     planes = apply_caustics_cf(scene, cfg, acc, accum_dict(acc))
     return assemble_frame_cf(scene, cfg, planes)

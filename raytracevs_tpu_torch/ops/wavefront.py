@@ -118,16 +118,17 @@ def _brdf_terms(nrm, view, l_vec, ndotl, f0, roughness, metallic, diffuse_color)
     return diff_brdf, spec_brdf
 
 
-def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
-    """Trace + shade one WorkItem per lane (RayGen.hlsl:174-848).
-    Returns (color, records, children, extra_rays)."""
-    n = px.shape[0]
-    dev = px.device
-    f32 = torch.float32
-    zeros3 = torch.zeros((n, 3), dtype=f32, device=dev)
-    ones3 = torch.ones((n, 3), dtype=f32, device=dev)
-    tmin = torch.full((n,), C.RAY_TMIN, dtype=f32, device=dev)
-    tmax = torch.full((n,), C.RAY_TMAX, dtype=f32, device=dev)
+def _hit_context(scene, cfg, state: RayState, traced):
+    """The closest hit of each lane's ray and its material (RayGen.hlsl:
+    174-281, ClosestHit.hlsl:54-125): what the lighting and the children
+    of shade_and_spawn both read. Returns (state, hx, beer): the state with
+    a deferred mesh-glass Beer factor in its throughput, the hit context,
+    and that factor (None when the scene resolves no mesh thickness)."""
+    n = state.origin.shape[0]
+    dev = state.origin.device
+    ones3 = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    tmin = torch.full((n,), C.RAY_TMIN, dtype=torch.float32, device=dev)
+    tmax = torch.full((n,), C.RAY_TMAX, dtype=torch.float32, device=dev)
     skip_self = (state.ray_flags & C.RAYFLAG_SKIP_SELF) != 0
     skip_t = torch.where(skip_self, state.skip_type, _INVALID)
     skip_i = torch.where(skip_self, state.skip_index, 0)
@@ -156,12 +157,8 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     slot = hit.mat_slot
     albedo = scene.mat_color[slot][:, :3]
     metallic = scene.mat_metallic[slot]
-    roughness = scene.mat_roughness[slot]
     transmission = scene.mat_transmission[slot]
     ior = scene.mat_ior[slot]
-    specular = scene.mat_specular[slot]
-    emission = scene.mat_emission[slot]
-    absorption = scene.mat_absorption[slot]
     if scene.plane_capacity > 0:
         is_plane = hit.obj_type == C.OBJECT_TYPE_PLANE
         checker = shade.checker_albedo(albedo, pos, scene.cam_pos[None, :],
@@ -169,15 +166,150 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
         albedo = vec.where3(is_plane, checker, albedo)
         transmission = torch.where(is_plane, 0.0, transmission)
         ior = torch.where(is_plane, 1.5, ior)
+    specular = scene.mat_specular[slot]
+    f0_from_ior = torch.square((ior - 1.0) / (ior + 1.0))
+    spec_blend = torch.clamp(specular, 0.0, 1.0)
+    hx = {
+        "hit": hit, "hit_mask": hit_mask, "pos": pos, "nrm": nrm, "front_face": front_face,
+        "albedo": albedo, "metallic": metallic, "roughness": scene.mat_roughness[slot],
+        "transmission": transmission, "ior": ior, "specular": specular,
+        "emission": scene.mat_emission[slot], "absorption": scene.mat_absorption[slot],
+        "is_glass": transmission > 0.01, "spec_blend": spec_blend,
+        "f0_glass": f0_from_ior + (spec_blend - f0_from_ior) * spec_blend,
+        "f0": 0.04 + (albedo - 0.04) * metallic[:, None],
+    }
+    return state, hx, beer
 
+
+def _spawn_children(scene, cfg, px, py, sample_index, state: RayState, hx):
+    """Child rays of each lane's hit (RayGen.hlsl:591-847): glass reflect and
+    refract with the thickness ray of Beer-Lambert absorption, the metal
+    reflection. Returns (children, thickness rays traced per lane)."""
+    n = px.shape[0]
+    dev = px.device
+    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    ones3 = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    hit, hit_mask, pos, nrm = hx["hit"], hx["hit_mask"], hx["pos"], hx["nrm"]
+    albedo, metallic, roughness = hx["albedo"], hx["metallic"], hx["roughness"]
+    transmission, ior, is_glass = hx["transmission"], hx["ior"], hx["is_glass"]
+    sample_idx_rng = (sampling.u32(sample_index, dev) + state.depth * 4096) & _M32
+    rays = torch.zeros((n,), dtype=torch.int64, device=dev)
+    no = torch.zeros((n,), dtype=torch.bool, device=dev)
+    entering = hx["front_face"]
+    glass_spawn, tir = no, no
+    thick_tag = torch.zeros((n,), dtype=torch.int64, device=dev)
+    g_reflect = g_refract = reflect_tp = refract_tp = zeros3
+    refraction_absorb = ones3
+    if cfg.any_glass:
+        eta = torch.where(entering, 1.0 / ior, ior)
+        reflect_dir0 = vec.normalize(_reflect(state.direction, nrm))
+        refract_dir, tir = _refract(state.direction, nrm, eta)
+        refract_dir = vec.where3(tir, refract_dir, vec.normalize(refract_dir))
+        # roughness perturbation at depth 0 (RayGen.hlsl:613-623)
+        rng_reflect = sampling.rng_init(px, py, scene.frame_index, sample_idx_rng,
+                                        C.RNG_SALT_REFLECT)
+        _, pert_reflect = sampling.perturb_reflection(reflect_dir0, nrm, roughness, rng_reflect)
+        rng_refract = sampling.rng_init(px, py, scene.frame_index, sample_idx_rng,
+                                        C.RNG_SALT_REFRACT)
+        _, pert_refract = sampling.perturb_reflection(refract_dir, -nrm, roughness, rng_refract)
+        glass_perturb = (roughness > 0.01) & (state.depth == 0)
+        g_reflect = vec.where3(glass_perturb, pert_reflect, reflect_dir0)
+        g_refract = vec.where3(glass_perturb & ~tir, pert_refract, refract_dir)
+
+        cos_theta = torch.clamp(vec.dot(-state.direction, nrm), 0.0, 1.0)
+        fresnel = torch.where(tir, 1.0, shade.fresnel_schlick(cos_theta, hx["f0_glass"]))
+        reflect_tp = torch.clamp(fresnel, 0.0, 1.0)[:, None].expand(n, 3)
+        tint = vec.where3(entering, 1.0 + (albedo - 1.0) * C.GLASS_TINT_STRENGTH, ones3)
+        refract_tp = torch.clamp(
+            (1.0 - fresnel)[:, None] * torch.clamp(transmission, 0.0, 1.0)[:, None] * tint, 0.0, 1.0)
+        glass_spawn = hit_mask & is_glass
+        if cfg.any_absorption:
+            # thickness ray for Beer-Lambert absorption (RayGen.hlsl:646-678)
+            absorption = hx["absorption"]
+            th_origin = pos + g_refract * C.SELF_OFFSET
+            do_thickness = glass_spawn & ~tir
+            th_type = hit.obj_type
+            if scene.mesh is not None:
+                # mesh-glass lanes defer their thickness to the refract
+                # child's closest walk (_hit_context): the child carries the
+                # tag; the thickness ray still counts, as the reference
+                # traces it
+                absorbing = torch.any(absorption > 0.0, dim=-1)
+                is_mesh_th = th_type == C.OBJECT_TYPE_MESH
+                thick_tag = torch.where(do_thickness & is_mesh_th & absorbing,
+                                        (hit.obj_index + 1) << 8, 0)
+                th_type = torch.where(is_mesh_th, _INVALID, th_type)
+            th_hit, th_t = intersect.trace_thickness(scene, th_origin, g_refract, th_type,
+                                                     hit.obj_index)
+            rays = rays + do_thickness.to(torch.int64)
+            thickness = torch.where(do_thickness & th_hit, th_t, 0.0)
+            refraction_absorb = vec.where3(
+                ~tir & (thickness > 0.0),
+                torch.exp(-absorption * (thickness * C.GLASS_ABSORPTION_SCALE)[:, None]), ones3)
+
+    metal_spawn = no
+    metal_dir = metal_tp = zeros3
+    if cfg.any_metal:
+        # metal child (RayGen.hlsl:806-846)
+        is_metal = ~is_glass & (metallic > 0.1)
+        rng_metal = sampling.rng_init(px, py, scene.frame_index, sample_idx_rng,
+                                      C.RNG_SALT_REFLECT)
+        _, metal_dir = sampling.perturb_reflection(_reflect(state.direction, nrm), nrm,
+                                                   roughness, rng_metal)
+        ndotv_m = torch.clamp(vec.dot(nrm, -state.direction), 0.0, 1.0)
+        f_metal = shade.fresnel_schlick3(ndotv_m, hx["f0"])
+        reflect_scale = 1.0 - roughness * 0.5
+        boost = torch.where(state.depth > 0, C.METAL_SECONDARY_BOOST, 1.0)
+        metal_tp = f_metal * (reflect_scale * boost)[:, None] * state.throughput
+        metal_spawn = hit_mask & is_metal
+
+    children = {
+        "glass_spawn": glass_spawn,
+        "metal_spawn": metal_spawn,
+        "tir": tir,
+        "entering": entering,
+        "reflect_dir": g_reflect,
+        "refract_dir": g_refract,
+        "metal_dir": metal_dir,
+        "reflect_tp": reflect_tp * state.throughput,
+        "refract_tp": refract_tp * refraction_absorb * state.throughput,
+        "metal_tp": metal_tp,
+        "hit_pos": pos,
+        "normal": nrm,
+        "hit_obj_type": hit.obj_type,
+        "hit_obj_index": hit.obj_index,
+        "thick_tag": thick_tag,
+    }
+    return children, rays
+
+
+def children_only(scene, cfg, px, py, sample_index, state: RayState, traced):
+    """The children of one WorkItem per lane without its lighting, records
+    or shadow rays: the re-derivation of iteration 0 in phase B of the
+    two-phase renderer (raytracevs_tpu/ops/pallas/megakernel.py::
+    _children_only_k). The same hit, material, RNG and spawn arithmetic as
+    shade_and_spawn, so the children are the same bit for bit."""
+    state, hx, _ = _hit_context(scene, cfg, state, traced)
+    return _spawn_children(scene, cfg, px, py, sample_index, state, hx)[0]
+
+
+def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
+    """Trace + shade one WorkItem per lane (RayGen.hlsl:174-848).
+    Returns (color, records, children, extra_rays)."""
+    n = px.shape[0]
+    dev = px.device
+    f32 = torch.float32
+    zeros3 = torch.zeros((n, 3), dtype=f32, device=dev)
+    ones3 = torch.ones((n, 3), dtype=f32, device=dev)
+    state, hx, beer = _hit_context(scene, cfg, state, traced)
+    hit, hit_mask, pos, nrm = hx["hit"], hx["hit_mask"], hx["pos"], hx["nrm"]
+    albedo, metallic, roughness = hx["albedo"], hx["metallic"], hx["roughness"]
+    transmission, emission, is_glass = hx["transmission"], hx["emission"], hx["is_glass"]
+    specular, spec_blend, f0 = hx["specular"], hx["spec_blend"], hx["f0"]
     view = -state.direction
-    is_glass = transmission > 0.01
     l_cap = scene.light_capacity
 
     # ---- Glass: specular highlights only (RayGen.hlsl:283-334) ----------
-    f0_from_ior = torch.square((ior - 1.0) / (ior + 1.0))
-    spec_blend = torch.clamp(specular, 0.0, 1.0)
-    f0_glass = f0_from_ior + (spec_blend - f0_from_ior) * spec_blend
     highlight = zeros3
     if cfg.any_glass and cfg.has_lights:
         for li in range(l_cap):
@@ -188,7 +320,7 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
             half = vec.normalize(l_vec + view)
             shininess = torch.clamp(512.0 * (1.0 - roughness), min=64.0)
             spec = torch.pow(torch.clamp(vec.dot(nrm, half), min=0.0), shininess)
-            sf = shade.fresnel_schlick(torch.clamp(vec.dot(half, view), min=0.0), f0_glass)
+            sf = shade.fresnel_schlick(torch.clamp(vec.dot(half, view), min=0.0), hx["f0_glass"])
             contrib = scene.lt_color[li][None, :3] * (
                 scene.lt_intensity[li] * spec * sf * atten)[:, None]
             highlight = highlight + torch.where((non_ambient & (ndotl > 0.0))[:, None], contrib, 0.0)
@@ -197,7 +329,6 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     glass_color = highlight + emission
 
     # ---- Non-glass: PBR direct lighting (RayGen.hlsl:336-539) -----------
-    f0 = 0.04 + (albedo - 0.04) * metallic[:, None]
     diffuse_color = albedo * (1.0 - metallic)[:, None]
     sample_idx_rng = (sampling.u32(sample_index, dev) + state.depth * 4096) & _M32
     seed = sampling.rng_init(px, py, scene.frame_index, sample_idx_rng, C.RNG_SALT_SHADOW)
@@ -336,91 +467,8 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
         "obj_id": torch.where(hit_mask, hit.obj_type * 65536 + hit.obj_index, -1),
     }
 
-    # ---- Children (RayGen.hlsl:591-847) ----------------------------------
-    no = torch.zeros((n,), dtype=torch.bool, device=dev)
-    entering = front_face
-    glass_spawn, tir = no, no
-    thick_tag = torch.zeros((n,), dtype=torch.int64, device=dev)
-    g_reflect = g_refract = reflect_tp = refract_tp = zeros3
-    refraction_absorb = ones3
-    if cfg.any_glass:
-        eta = torch.where(entering, 1.0 / ior, ior)
-        reflect_dir0 = vec.normalize(_reflect(state.direction, nrm))
-        refract_dir, tir = _refract(state.direction, nrm, eta)
-        refract_dir = vec.where3(tir, refract_dir, vec.normalize(refract_dir))
-        # roughness perturbation at depth 0 (RayGen.hlsl:613-623)
-        rng_reflect = sampling.rng_init(px, py, scene.frame_index, sample_idx_rng,
-                                        C.RNG_SALT_REFLECT)
-        _, pert_reflect = sampling.perturb_reflection(reflect_dir0, nrm, roughness, rng_reflect)
-        rng_refract = sampling.rng_init(px, py, scene.frame_index, sample_idx_rng,
-                                        C.RNG_SALT_REFRACT)
-        _, pert_refract = sampling.perturb_reflection(refract_dir, -nrm, roughness, rng_refract)
-        glass_perturb = (roughness > 0.01) & (state.depth == 0)
-        g_reflect = vec.where3(glass_perturb, pert_reflect, reflect_dir0)
-        g_refract = vec.where3(glass_perturb & ~tir, pert_refract, refract_dir)
-
-        cos_theta = torch.clamp(vec.dot(-state.direction, nrm), 0.0, 1.0)
-        fresnel = torch.where(tir, 1.0, shade.fresnel_schlick(cos_theta, f0_glass))
-        reflect_tp = torch.clamp(fresnel, 0.0, 1.0)[:, None].expand(n, 3)
-        tint = vec.where3(entering, 1.0 + (albedo - 1.0) * C.GLASS_TINT_STRENGTH, ones3)
-        refract_tp = torch.clamp(
-            (1.0 - fresnel)[:, None] * torch.clamp(transmission, 0.0, 1.0)[:, None] * tint, 0.0, 1.0)
-        glass_spawn = hit_mask & is_glass
-        if cfg.any_absorption:
-            # thickness ray for Beer-Lambert absorption (RayGen.hlsl:646-678)
-            th_origin = pos + g_refract * C.SELF_OFFSET
-            do_thickness = glass_spawn & ~tir
-            th_type = hit.obj_type
-            if scene.mesh is not None:
-                # mesh-glass lanes defer their thickness to the refract
-                # child's closest walk (above): the child carries the tag;
-                # the thickness ray still counts, as the reference traces it
-                absorbing = torch.any(absorption > 0.0, dim=-1)
-                is_mesh_th = th_type == C.OBJECT_TYPE_MESH
-                thick_tag = torch.where(do_thickness & is_mesh_th & absorbing,
-                                        (hit.obj_index + 1) << 8, 0)
-                th_type = torch.where(is_mesh_th, _INVALID, th_type)
-            th_hit, th_t = intersect.trace_thickness(scene, th_origin, g_refract, th_type,
-                                                     hit.obj_index)
-            ray_count = ray_count + do_thickness.to(torch.int64)
-            thickness = torch.where(do_thickness & th_hit, th_t, 0.0)
-            refraction_absorb = vec.where3(
-                ~tir & (thickness > 0.0),
-                torch.exp(-absorption * (thickness * C.GLASS_ABSORPTION_SCALE)[:, None]), ones3)
-
-    metal_spawn = no
-    metal_dir = metal_tp = zeros3
-    if cfg.any_metal:
-        # metal child (RayGen.hlsl:806-846)
-        is_metal = ~is_glass & (metallic > 0.1)
-        rng_metal = sampling.rng_init(px, py, scene.frame_index, sample_idx_rng,
-                                      C.RNG_SALT_REFLECT)
-        _, metal_dir = sampling.perturb_reflection(_reflect(state.direction, nrm), nrm,
-                                                   roughness, rng_metal)
-        ndotv_m = torch.clamp(vec.dot(nrm, -state.direction), 0.0, 1.0)
-        f_metal = shade.fresnel_schlick3(ndotv_m, f0)
-        reflect_scale = 1.0 - roughness * 0.5
-        boost = torch.where(state.depth > 0, C.METAL_SECONDARY_BOOST, 1.0)
-        metal_tp = f_metal * (reflect_scale * boost)[:, None] * state.throughput
-        metal_spawn = hit_mask & is_metal
-
-    children = {
-        "glass_spawn": glass_spawn,
-        "metal_spawn": metal_spawn,
-        "tir": tir,
-        "entering": entering,
-        "reflect_dir": g_reflect,
-        "refract_dir": g_refract,
-        "metal_dir": metal_dir,
-        "reflect_tp": reflect_tp * state.throughput,
-        "refract_tp": refract_tp * refraction_absorb * state.throughput,
-        "metal_tp": metal_tp,
-        "hit_pos": pos,
-        "normal": nrm,
-        "hit_obj_type": hit.obj_type,
-        "hit_obj_index": hit.obj_index,
-        "thick_tag": thick_tag,
-    }
+    children, thickness_rays = _spawn_children(scene, cfg, px, py, sample_index, state, hx)
+    ray_count = ray_count + thickness_rays
     if beer is not None:
         # the caller adds cur.throughput (without the Beer factor) * color,
         # so the deferred factor rides the radiance; tagged lanes have
@@ -429,40 +477,130 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     return color, records, children, ray_count
 
 
-def run_sample(scene, cfg, px, py, sample_index, primary: RayState, prev_prim_hit):
-    """Run the full DFS for one sample; returns a dict of lane accumulators."""
-    n = px.shape[0]
-    dev = px.device
+def new_accumulators(n, device) -> dict:
+    """One sample's zeroed lane accumulators (colour, records, counters)."""
+    f32, i64 = torch.float32, torch.int64
+    zero3 = torch.zeros((n, 3), dtype=f32, device=device)
+    return {
+        "color": zero3, "primary": zero3, "diffuse": zero3, "specular": zero3,
+        "hitdist": torch.zeros((n,), dtype=f32, device=device),
+        "bounce": torch.zeros((n,), dtype=i64, device=device),
+        "rays": torch.zeros((n,), dtype=i64, device=device),
+        "shadow_vis": torch.ones((n,), dtype=f32, device=device),
+        "shadow_pen": torch.zeros((n,), dtype=f32, device=device),
+        "shadow_dist": torch.full((n,), C.NRD_FP16_MAX, dtype=f32, device=device),
+        "prim_hit": torch.zeros((n,), dtype=torch.bool, device=device),
+        "prim_normal": vec.const3(0.0, 1.0, 0.0, like=zero3).expand(n, 3),
+        "prim_rough": torch.ones((n,), dtype=f32, device=device),
+        "prim_albedo": zero3,
+        "prim_metallic": torch.zeros((n,), dtype=f32, device=device),
+        "prim_transmission": torch.zeros((n,), dtype=f32, device=device),
+        "prim_pos": zero3,
+        "prim_obj_id": torch.full((n,), -1, dtype=i64, device=device),
+    }
+
+
+class Stack(NamedTuple):
+    """The per-lane LIFO of deferred WorkItems: float fields [N,8,10]
+    (origin, direction, throughput, sky boost), int fields [N,8,5] (depth,
+    flags, ray flags, skip type, skip index) and the entry count [N]."""
+
+    f: torch.Tensor
+    i: torch.Tensor
+    count: torch.Tensor
+
+
+def empty_stack(n, device) -> Stack:
+    return Stack(f=torch.zeros((n, STACK_DEPTH, 10), dtype=torch.float32, device=device),
+                 i=torch.zeros((n, STACK_DEPTH, 5), dtype=torch.int64, device=device),
+                 count=torch.zeros((n,), dtype=torch.int64, device=device))
+
+
+def advance(cur: RayState, ch, traced, stack: Stack):
+    """One step of the continuation and stack machine (RayGen.hlsl:697-846):
+    the next WorkItem of each lane, refract > unpushed reflect > metal >
+    pop, with the reflect child pushed when refract continues. The push
+    capacity is the full STACK_DEPTH. Returns (cur, stack)."""
+    n = cur.origin.shape[0]
+    dev = cur.origin.device
     f32, i64 = torch.float32, torch.int64
 
     def full(v, dt=i64):
         return torch.full((n,), v, dtype=dt, device=dev)
 
-    zero3 = torch.zeros((n, 3), dtype=f32, device=dev)
-    acc = {
-        "color": zero3, "primary": zero3, "diffuse": zero3, "specular": zero3,
-        "hitdist": torch.zeros((n,), dtype=f32, device=dev),
-        "bounce": torch.zeros((n,), dtype=i64, device=dev),
-        "rays": torch.zeros((n,), dtype=i64, device=dev),
-        "shadow_vis": torch.ones((n,), dtype=f32, device=dev),
-        "shadow_pen": torch.zeros((n,), dtype=f32, device=dev),
-        "shadow_dist": torch.full((n,), C.NRD_FP16_MAX, dtype=f32, device=dev),
-        "prim_hit": torch.zeros((n,), dtype=torch.bool, device=dev),
-        "prim_normal": vec.const3(0.0, 1.0, 0.0, like=zero3).expand(n, 3),
-        "prim_rough": torch.ones((n,), dtype=f32, device=dev),
-        "prim_albedo": zero3,
-        "prim_metallic": torch.zeros((n,), dtype=f32, device=dev),
-        "prim_transmission": torch.zeros((n,), dtype=f32, device=dev),
-        "prim_pos": zero3,
-        "prim_obj_id": torch.full((n,), -1, dtype=i64, device=dev),
-    }
-    stack_f = torch.zeros((n, STACK_DEPTH, 10), dtype=f32, device=dev)
-    stack_i = torch.zeros((n, STACK_DEPTH, 5), dtype=i64, device=dev)
-    count = torch.zeros((n,), dtype=i64, device=dev)
+    count = stack.count
+    glass_spawn = ch["glass_spawn"] & traced
+    metal_spawn = ch["metal_spawn"] & traced
+    push_reflect = glass_spawn & (count < STACK_DEPTH)
+    refract_ok = glass_spawn & ~ch["tir"] & (count + push_reflect.to(i64) < STACK_DEPTH)
+    stack_write = push_reflect & refract_ok
+
+    next_depth = cur.depth + 1
+    spec_flags = cur.flags | C.PATH_FLAG_SPECULAR
+    reflect_child = RayState(
+        valid=push_reflect,
+        origin=ch["hit_pos"] + ch["normal"] * C.SELF_OFFSET,
+        direction=ch["reflect_dir"], depth=next_depth, throughput=ch["reflect_tp"],
+        flags=spec_flags, sky_boost=full(C.SKY_BOOST_GLASS, f32),
+        ray_flags=full(C.RAYFLAG_SKIP_SELF),
+        skip_type=ch["hit_obj_type"], skip_index=ch["hit_obj_index"])
+    # push the reflect child only when refract becomes the continuation
     slots = torch.arange(STACK_DEPTH, device=dev)[None, :]
-    cur = primary
-    it = 0
-    while it < cfg.max_queue_iters and bool(torch.any(cur.valid | (count > 0))):
+    onehot = ((slots == torch.clamp(count, 0, STACK_DEPTH - 1)[:, None])
+              & stack_write[:, None])[..., None]
+    stack_f = torch.where(onehot, _pack_f(reflect_child)[:, None, :], stack.f)
+    stack_i = torch.where(onehot, _pack_i(reflect_child)[:, None, :], stack.i)
+    count = count + stack_write.to(i64)
+
+    refract_child = RayState(
+        valid=refract_ok,
+        origin=ch["hit_pos"] + ch["refract_dir"] * C.SELF_OFFSET,
+        direction=ch["refract_dir"], depth=next_depth, throughput=ch["refract_tp"],
+        flags=torch.where(ch["entering"], spec_flags | C.PATH_FLAG_INSIDE,
+                          spec_flags & ~C.PATH_FLAG_INSIDE),
+        sky_boost=full(C.SKY_BOOST_GLASS, f32), ray_flags=ch["thick_tag"],
+        skip_type=full(_INVALID), skip_index=full(0))
+    metal_inside = (spec_flags & C.PATH_FLAG_INSIDE) != 0
+    metal_child = RayState(
+        valid=metal_spawn,
+        origin=ch["hit_pos"] + ch["normal"] * C.SELF_OFFSET,
+        direction=ch["metal_dir"], depth=next_depth, throughput=ch["metal_tp"],
+        flags=spec_flags, sky_boost=full(C.SKY_BOOST_METAL, f32),
+        ray_flags=torch.where(metal_inside, 0, C.RAYFLAG_SKIP_SELF),
+        skip_type=torch.where(metal_inside, _INVALID, ch["hit_obj_type"]),
+        skip_index=torch.where(metal_inside, 0, ch["hit_obj_index"]))
+
+    # continuation: refract > reflect (unpushed) > metal > pop
+    cont_reflect = push_reflect & ~refract_ok
+    has_cont = refract_ok | cont_reflect | metal_spawn
+    cont = _select(metal_spawn, metal_child, empty_ray(n, dev))
+    cont = _select(cont_reflect, reflect_child, cont)
+    cont = _select(refract_ok, refract_child, cont)
+    cont = cont._replace(valid=has_cont)
+
+    # terminal lanes pop the deferred sibling
+    popped = ~has_cont & (count > 0)
+    pslot = torch.clamp(count - 1, 0, STACK_DEPTH - 1)
+    fv = torch.gather(stack_f, 1, pslot[:, None, None].expand(n, 1, 10))[:, 0]
+    iv = torch.gather(stack_i, 1, pslot[:, None, None].expand(n, 1, 5))[:, 0]
+    count = count - popped.to(i64)
+    popped_ray = RayState(
+        valid=popped, origin=fv[:, 0:3], direction=fv[:, 3:6], depth=iv[:, 0],
+        throughput=fv[:, 6:9], flags=iv[:, 1], sky_boost=fv[:, 9], ray_flags=iv[:, 2],
+        skip_type=iv[:, 3], skip_index=iv[:, 4])
+    cur = _select(popped, popped_ray, cont)._replace(valid=has_cont | popped)
+    return cur, Stack(stack_f, stack_i, count)
+
+
+def dfs(scene, cfg, px, py, sample_index, cur: RayState, stack: Stack, acc, prev_prim_hit,
+        first_iteration, max_iters):
+    """The DFS from iteration `first_iteration` with the given current ray,
+    stack and accumulators, until every lane's current ray and stack are
+    empty or at iteration `max_iters` (raytracevs_tpu/ops/pallas/
+    megakernel.py::_dfs_from_k). Returns (acc, cur, stack) as it stopped."""
+    i64 = torch.int64
+    it = first_iteration
+    while it < max_iters and bool(torch.any(cur.valid | (stack.count > 0))):
         it += 1
         active = cur.valid
         acc["bounce"] = torch.maximum(acc["bounce"], torch.where(active, cur.depth + 1, 0))
@@ -500,64 +638,19 @@ def run_sample(scene, cfg, px, py, sample_index, primary: RayState, prev_prim_hi
             acc[k] = torch.where(first_hit, rec[rk], acc[k])
         acc["prim_hit"] = acc["prim_hit"] | first_hit
 
-        # ---- continuation / stack update (RayGen.hlsl:697-846) ----------
-        glass_spawn = ch["glass_spawn"] & traced
-        metal_spawn = ch["metal_spawn"] & traced
-        push_reflect = glass_spawn & (count < STACK_DEPTH)
-        refract_ok = glass_spawn & ~ch["tir"] & (count + push_reflect.to(i64) < STACK_DEPTH)
-        stack_write = push_reflect & refract_ok
+        cur, stack = advance(cur, ch, traced, stack)
+    return acc, cur, stack
 
-        next_depth = cur.depth + 1
-        spec_flags = cur.flags | C.PATH_FLAG_SPECULAR
-        reflect_child = RayState(
-            valid=push_reflect,
-            origin=ch["hit_pos"] + ch["normal"] * C.SELF_OFFSET,
-            direction=ch["reflect_dir"], depth=next_depth, throughput=ch["reflect_tp"],
-            flags=spec_flags, sky_boost=full(C.SKY_BOOST_GLASS, f32),
-            ray_flags=full(C.RAYFLAG_SKIP_SELF),
-            skip_type=ch["hit_obj_type"], skip_index=ch["hit_obj_index"])
-        # push the reflect child only when refract becomes the continuation
-        onehot = ((slots == torch.clamp(count, 0, STACK_DEPTH - 1)[:, None])
-                  & stack_write[:, None])[..., None]
-        stack_f = torch.where(onehot, _pack_f(reflect_child)[:, None, :], stack_f)
-        stack_i = torch.where(onehot, _pack_i(reflect_child)[:, None, :], stack_i)
-        count = count + stack_write.to(i64)
 
-        refract_child = RayState(
-            valid=refract_ok,
-            origin=ch["hit_pos"] + ch["refract_dir"] * C.SELF_OFFSET,
-            direction=ch["refract_dir"], depth=next_depth, throughput=ch["refract_tp"],
-            flags=torch.where(ch["entering"], spec_flags | C.PATH_FLAG_INSIDE,
-                              spec_flags & ~C.PATH_FLAG_INSIDE),
-            sky_boost=full(C.SKY_BOOST_GLASS, f32), ray_flags=ch["thick_tag"],
-            skip_type=full(_INVALID), skip_index=full(0))
-        metal_inside = (spec_flags & C.PATH_FLAG_INSIDE) != 0
-        metal_child = RayState(
-            valid=metal_spawn,
-            origin=ch["hit_pos"] + ch["normal"] * C.SELF_OFFSET,
-            direction=ch["metal_dir"], depth=next_depth, throughput=ch["metal_tp"],
-            flags=spec_flags, sky_boost=full(C.SKY_BOOST_METAL, f32),
-            ray_flags=torch.where(metal_inside, 0, C.RAYFLAG_SKIP_SELF),
-            skip_type=torch.where(metal_inside, _INVALID, ch["hit_obj_type"]),
-            skip_index=torch.where(metal_inside, 0, ch["hit_obj_index"]))
-
-        # continuation: refract > reflect (unpushed) > metal > pop
-        cont_reflect = push_reflect & ~refract_ok
-        has_cont = refract_ok | cont_reflect | metal_spawn
-        cont = _select(metal_spawn, metal_child, empty_ray(n, dev))
-        cont = _select(cont_reflect, reflect_child, cont)
-        cont = _select(refract_ok, refract_child, cont)
-        cont = cont._replace(valid=has_cont)
-
-        # terminal lanes pop the deferred sibling
-        popped = ~has_cont & (count > 0)
-        pslot = torch.clamp(count - 1, 0, STACK_DEPTH - 1)
-        fv = torch.gather(stack_f, 1, pslot[:, None, None].expand(n, 1, 10))[:, 0]
-        iv = torch.gather(stack_i, 1, pslot[:, None, None].expand(n, 1, 5))[:, 0]
-        count = count - popped.to(i64)
-        popped_ray = RayState(
-            valid=popped, origin=fv[:, 0:3], direction=fv[:, 3:6], depth=iv[:, 0],
-            throughput=fv[:, 6:9], flags=iv[:, 1], sky_boost=fv[:, 9], ray_flags=iv[:, 2],
-            skip_type=iv[:, 3], skip_index=iv[:, 4])
-        cur = _select(popped, popped_ray, cont)._replace(valid=has_cont | popped)
-    return acc
+def run_sample(scene, cfg, px, py, sample_index, primary: RayState, prev_prim_hit,
+               max_iters=None):
+    """Run one sample's DFS from its primary rays, up to cfg.max_queue_iters
+    iterations (or `max_iters`). Returns (acc, cur): the lane accumulators
+    and the current rays where the loop stopped; after one iteration (phase
+    A of the two-phase renderer, max_iters=1) cur holds the continuation
+    that iteration spawned."""
+    n = px.shape[0]
+    acc, cur, _ = dfs(scene, cfg, px, py, sample_index, primary, empty_stack(n, px.device),
+                      new_accumulators(n, px.device), prev_prim_hit, 0,
+                      cfg.max_queue_iters if max_iters is None else max_iters)
+    return acc, cur

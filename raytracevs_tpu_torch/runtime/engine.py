@@ -9,6 +9,12 @@ the photon gather K6); it raises when PyTorch sees no CUDA device. On
 "cpu", asked for by name, the same pipeline runs their plain PyTorch
 versions.
 
+`two_phase=True` renders through the two-phase renderer instead of K1:
+phase A (K7), the coherence sort, phase B (K8) (ops/twophase.py), the
+counterpart of the JAX package's backend "pallas2" (or RTVS_TWOPHASE=1).
+It needs spp 1 and a pinhole camera (aperture <= 1e-3); update_scene
+raises ValueError otherwise.
+
 Triangle meshes come from a mesh service (io/mesh_cache.MeshCacheService):
 `update_scene` flattens each mesh instance into one BVH forest, building a
 mesh's BVH once (the Engine's BLASCache) and retransforming it when an
@@ -16,6 +22,7 @@ instance moves.
 
 Example:
     engine = Engine(1920, 1080, mesh_service=meshes)   # on the card
+    # or Engine(1920, 1080, mesh_service=meshes, two_phase=True), spp 1
     engine.update_scene(scene_data)      # evaluated SceneData
     img = engine.render()                # np.uint8 [H, W, 4]
 """
@@ -29,6 +36,7 @@ import torch
 
 from ..ops.bvh import BLASCache
 from ..ops.render_cf import render_rows_cf
+from ..ops.twophase import check_two_phase
 from ..post import composite as composite_mod
 from ..post import denoise as denoise_mod
 from ..post import tonemap
@@ -38,11 +46,12 @@ from ..scene.sanitize import sanitize_scene
 from ..utils.checksum import scene_content_checksum
 
 
-def render_frame(scene, cfg: RenderConfig, denoise_state):
+def render_frame(scene, cfg: RenderConfig, denoise_state, two_phase=False, aperture_size=None):
     """One frame on the scene tensors' device: render -> (denoise) ->
     composite -> RGBA8. Returns (rgba uint8 [H,W,4] tensor, rays tensor,
-    new denoiser state, linear HDR colour [3,H,W] tensor)."""
-    out = render_rows_cf(scene, cfg)
+    new denoiser state, linear HDR colour [3,H,W] tensor). two_phase and
+    aperture_size (the host's): render_rows_cf's."""
+    out = render_rows_cf(scene, cfg, two_phase, aperture_size)
     if cfg.enable_denoiser:
         dd, ds, _dshadow, denoise_state = denoise_mod.denoise_frame_cf(out.gbuffer, denoise_state)
         color01 = composite_mod.composite_cf(
@@ -60,10 +69,12 @@ def render_frame(scene, cfg: RenderConfig, denoise_state):
 class Engine:
     """Render engine with the EngineWrapper-compatible surface."""
 
-    def __init__(self, width: int, height: int, device="cuda", mesh_service=None):
+    def __init__(self, width: int, height: int, device="cuda", mesh_service=None,
+                 two_phase=False):
         self.width = int(width)
         self.height = int(height)
         self.mesh_service = mesh_service
+        self.two_phase = bool(two_phase)
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -95,18 +106,25 @@ class Engine:
         (the reference's FNV checksum, DXRPipeline.cpp:2795-2880): camera
         motion keeps it and reprojects it. The frame index never resets
         (DXRPipeline.cpp:779-780) and the previous view-projection carries
-        over from the last update."""
+        over from the last update. With two_phase, a scene the two-phase
+        renderer cannot render (spp != 1, aperture > 1e-3) raises
+        ValueError and leaves the Engine's scene, configuration and history
+        as they were."""
         clean = sanitize_scene(scene)
+        cfg = make_config(clean, self.width, self.height, **config_overrides)
+        flat = flatten_scene(clean, frame_index=self._frame_index,
+                             aspect=self.width / self.height,
+                             prev_view_proj=self._prev_view_proj,
+                             mesh_service=self.mesh_service, blas_cache=self._blas_cache)
+        if self.two_phase:
+            check_two_phase(cfg, float(flat.aperture_size))
         self._scene = clean
         new_checksum = scene_content_checksum(clean)
         if new_checksum != self._checksum:
             self._denoise_state = None
         self._checksum = new_checksum
-        self._flat = flatten_scene(clean, frame_index=self._frame_index,
-                                   aspect=self.width / self.height,
-                                   prev_view_proj=self._prev_view_proj,
-                                   mesh_service=self.mesh_service, blas_cache=self._blas_cache)
-        self._cfg = make_config(clean, self.width, self.height, **config_overrides)
+        self._flat = flat
+        self._cfg = cfg
         self._prev_view_proj = np.asarray(self._flat.view_proj)
         self._scene_t = to_device(self._flat, self.device)
 
@@ -119,7 +137,8 @@ class Engine:
             self._denoise_state = denoise_mod.init_state_cf(self.height, self.width, self.device)
         start = time.perf_counter()
         rgba_t, rays_t, self._denoise_state, self._last_hdr_t = render_frame(
-            self._scene_t, self._cfg, self._denoise_state)
+            self._scene_t, self._cfg, self._denoise_state, self.two_phase,
+            float(self._flat.aperture_size))
         rgba = rgba_t.cpu().numpy()  # waits for the device
         self._last_render_ms = (time.perf_counter() - start) * 1000.0
         self._last_rgba = rgba

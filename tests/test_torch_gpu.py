@@ -1,13 +1,15 @@
-"""The port's CUDA kernels K1 (analytic and mesh), K2-K4 and the photon
-kernels K5-K6 vs their plain PyTorch versions, on the card. Every test needs a CUDA device and skips
-without one. This file imports no JAX, so it runs where JAX is absent:
+"""The port's CUDA kernels K1 (analytic and mesh), K2-K4, the photon
+kernels K5-K6 and the two-phase kernels K7-K8 vs their plain PyTorch
+versions, on the card. Every test needs a CUDA device and skips without one. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Bands: K1 ray count and object ids exact, HDR colour atol 2e-4 on >= 99%
 of pixels; K2-K4 atol 1e-5 (the kernels round like the plain ops; they
 are built with --fmad=false); K5 store masks equal, store fields within
-tests/test_megakernel.py:190-197's bands; K6 |d| <= 1e-5 * max(1, |plain|)."""
+tests/test_megakernel.py:190-197's bands; K6 |d| <= 1e-5 * max(1, |plain|);
+K7 and K8 as K1, and K7+K8 against K1 at spp 1: rays, bounce and record
+planes bit-equal, colour within 2e-5 * max(1, |K1|)."""
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ from raytracevs_tpu_torch import Engine
 from raytracevs_tpu_torch.io import mesh_cache as PMC
 from raytracevs_tpu_torch.ops import photon as PP
 from raytracevs_tpu_torch.ops import render as R
+from raytracevs_tpu_torch.ops import twophase as TP
 from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
 from raytracevs_tpu_torch.ops.cuda import megakernel as MK
 from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
@@ -238,8 +241,119 @@ def test_caustics_engine_cuda_matches_cpu_and_launches_every_kernel():
     assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 2, 2, 6, 2]
 
 
+TWO_PHASE_SCENES = {
+    "demo": (lambda: S.demo_scene(D), dict(S.DEMO_OVERRIDES, samples_per_pixel=1), None),
+    "glass_ball": (lambda: S.glass_ball_scene(D), {"max_soft_samples": 2},
+                   {"GlassBall": (9, 9, 0.7)}),
+}
+RECORD_PLANES = list(range(R.CH_PRIMARY, R.CH_HITDIST + 1)) + list(range(R.CH_PRIM_HIT, R.NUM_CH))
+
+
+def _two_phase_scene(name):
+    build, over, meshes = TWO_PHASE_SCENES[name]
+    scene = build()
+    w, h = 72, 40
+    ms = None if meshes is None else S.mesh_service(PMC, meshes)
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3,
+                                 mesh_service=ms), "cuda")
+    cfg = make_config(scene, w, h, **over)
+    assert cfg.samples_per_pixel == 1
+    return sc, cfg
+
+
+def _assert_like_plain(got, want):
+    """K1's band against the plain version: rays and ids exact, colour 2e-4
+    on >= 99% of the pixels."""
+    assert torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
+    assert torch.equal(got[R.CH_OBJ_ID], want[R.CH_OBJ_ID])
+    d = (got[0:3] - want[0:3]).abs().amax(0)
+    assert float((d <= 2e-4).float().mean()) >= 0.99, float(d.max())
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("name", list(TWO_PHASE_SCENES))
+def test_k7_cuda_matches_plain(name):
+    """K7 (rtvs_render_phase_a[_mesh]) against plain phase A, the spawned
+    continuations included."""
+    _need_cuda()
+    sc, cfg = _two_phase_scene(name)
+    before = MK.render_phase_a.launches
+    got = MK.render_phase_a(sc, cfg)
+    assert MK.render_phase_a.launches == before + 1
+    want = R.render_accum_phase_a(sc, cfg)
+    torch.cuda.synchronize()
+    assert got.shape == (R.NUM_CH_A, 40, 72)
+    _assert_like_plain(got, want)
+    assert torch.equal(got[R.CH_SPAWN_VALID:], want[R.CH_SPAWN_VALID:])
+    assert int(want[R.CH_SPAWN_VALID].sum()) > 50
+
+
+@pytest.mark.parametrize("name", list(TWO_PHASE_SCENES))
+def test_k8_cuda_matches_plain(name):
+    """K8 (rtvs_render_phase_b[_mesh]) against plain phase B on the same
+    phase-A planes and the same sorted order; the count stays on the card."""
+    _need_cuda()
+    sc, cfg = _two_phase_scene(name)
+    a = R.render_accum_phase_a(sc, cfg)
+    order, count = TP.coherence_order(a)
+    before = MK.render_phase_b.launches
+    got = MK.render_phase_b(sc, cfg, order, count, a[:R.NUM_CH].clone())
+    assert MK.render_phase_b.launches == before + 1
+    want = R.render_accum_phase_b(sc, cfg, order[:int(count)], a[:R.NUM_CH].clone())
+    torch.cuda.synchronize()
+    _assert_like_plain(got, want)
+    assert torch.equal(got[R.CH_BOUNCE], want[R.CH_BOUNCE])
+    assert float(got[R.CH_RAYS].sum()) > float(a[R.CH_RAYS].sum())
+
+
+@pytest.mark.parametrize("name", list(TWO_PHASE_SCENES))
+def test_k7_k8_match_k1(name):
+    """The two phases on the card against K1 at spp 1: rays, bounce and
+    every record plane bit-equal, colour within 2e-5 * max(1, |K1|)."""
+    _need_cuda()
+    sc, cfg = _two_phase_scene(name)
+    k1 = MK.render_accum(sc, cfg)
+    two = TP.render_accum_two_phase(sc, cfg, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(two[R.CH_RAYS], k1[R.CH_RAYS])
+    assert torch.equal(two[R.CH_BOUNCE], k1[R.CH_BOUNCE])
+    assert torch.equal(two[RECORD_PLANES], k1[RECORD_PLANES])
+    c1, c2 = k1[0:3], two[0:3]
+    assert bool(((c2 - c1).abs() <= 2e-5 * c1.abs().clamp(min=1.0)).all())
+
+
+def test_two_phase_engine_cuda_matches_cpu_and_launches_every_kernel():
+    _need_cuda()
+    w, h = 64, 36
+    over = dict(S.DEMO_OVERRIDES, samples_per_pixel=1)
+    gpu = Engine(w, h, device="cuda", mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL),
+                 two_phase=True)
+    cpu = Engine(w, h, device="cpu", mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL),
+                 two_phase=True)
+    kernels = [MK.render_accum_mesh, MK.render_phase_a, MK.render_phase_b,
+               K.reproject_accumulate, K.atrous, K.shadow_denoise]
+    counts = [k.launches for k in kernels]
+    for f in range(2):
+        for e in (gpu, cpu):
+            e.update_scene(S.mesh_demo_scene(D, f), **over)
+        a, b = gpu.render(), cpu.render()
+        assert gpu.last_rays == cpu.last_rays
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
+        assert (d <= 1).mean() >= 0.995
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [0, 2, 2, 2, 6, 2]
+
+
 def test_wrappers_reject_bad_inputs():
     _need_cuda()
+    sc, cfg = _two_phase_scene("demo")
+    a = MK.render_phase_a(sc, cfg)
+    order, count = TP.coherence_order(a)
+    with pytest.raises(ValueError, match="order"):
+        MK.render_phase_b(sc, cfg, order.long(), count, a[:R.NUM_CH])
+    with pytest.raises(ValueError, match="samples_per_pixel"):
+        MK.render_phase_a(sc, cfg._replace(samples_per_pixel=2))
+    with pytest.raises(ValueError, match="aperture"):
+        TP.render_accum_two_phase(sc, cfg, 0.1)
     x = _inputs(16, 16, 4)
     with pytest.raises(ValueError, match="contiguous"):
         K.atrous(x["img6"].transpose(1, 2).contiguous().transpose(1, 2), x["view_z"],
