@@ -15,9 +15,14 @@ G-buffer of a rendered frame; K1-mesh also on nine mesh instances at
 480x270; the photon trace K5 at 16,384 and 131,072 photons and on the mesh
 demo scene's tables; the photon gather K6 at 1920x1080 with both maps; K7
 and K8 at 1920x1080 and spp 1 on the mesh demo scene and the demo scene,
-and together against K1-mesh and K1 there), times both and
-computes each kernel's bound (the larger of its bytes over the memory rate
-and its operations over the float32 rate); after each path it checks the
+and together against K1-mesh and K1 there; the mesh walks alone, bit-equal
+to the plain walks on over a million camera, secondary and shadow rays of
+the mesh demo scene and on the nine instances), counts the mesh walks'
+node fetches, box tests and triangle tests by ray class (the kernels'
+counting build at 1080p and 480x270, the plain threaded walks at 480x270),
+times both and computes each kernel's bound (the larger of its bytes over
+the memory rate and its operations over the float32 rate, the walks' box
+and triangle tests included); after each path it checks the
 frames and that every kernel of the path launched; then it compares small
 frames with the CPU's plain pipeline and times each stage of a 1080p frame
 of the scenes. It prints a JSON line of the kernels, the card's name and
@@ -39,7 +44,7 @@ import torch
 
 # The kernels' table; the launch counts come from the main-path run.
 KERNELS = [
-    ("render_accum", "raytracevs_tpu_torch/csrc/megakernel.cu",
+    ("render_accum", "raytracevs_tpu_torch/csrc/render.cuh",
      "raytracevs_tpu/ops/pallas/megakernel.py:2443"),
     ("reproject_accumulate", "raytracevs_tpu_torch/csrc/denoise.cu",
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:99"),
@@ -47,15 +52,15 @@ KERNELS = [
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:472"),
     ("shadow_denoise", "raytracevs_tpu_torch/csrc/denoise.cu",
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:657"),
-    ("render_accum_mesh", "raytracevs_tpu_torch/csrc/megakernel.cu",
+    ("render_accum_mesh", "raytracevs_tpu_torch/csrc/render.cuh",
      "raytracevs_tpu/ops/pallas/megakernel.py:3155"),
     ("photon_trace", "raytracevs_tpu_torch/csrc/photon.cu",
      "raytracevs_tpu/ops/pallas/photon_trace.py:58"),
     ("photon_gather", "raytracevs_tpu_torch/csrc/photon.cu",
      "raytracevs_tpu/ops/pallas/photon_gather.py:151"),
-    ("render_phase_a", "raytracevs_tpu_torch/csrc/megakernel.cu",
+    ("render_phase_a", "raytracevs_tpu_torch/csrc/render.cuh",
      "raytracevs_tpu/ops/pallas/megakernel.py:2443"),
-    ("render_phase_b", "raytracevs_tpu_torch/csrc/megakernel.cu",
+    ("render_phase_b", "raytracevs_tpu_torch/csrc/render.cuh",
      "raytracevs_tpu/ops/pallas/megakernel.py:2569"),
 ]
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
@@ -64,9 +69,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Float operations of one intersection test of csrc/closest.cuh
 # (isect_sphere, isect_plane, isect_box), counted by hand from the source;
-# the bounds of K1 and K5 count these tests only (every traced ray against
-# every primitive slot), not the shading, nor the mesh walks of K1-mesh.
+# the bounds of K1 and K5 count these tests (every traced ray against every
+# primitive slot), not the shading.
 SPHERE_OPS, PLANE_OPS, BOX_OPS = 36, 29, 84
+# ... and of the mesh walks' tests, by hand: a box test (closest.cuh::slab:
+# 6 subtractions, 6 multiplications, 6 min/max of the slab pairs, 3 and 3
+# into t_near and t_far with the clamps, 1 compare) and a triangle test
+# (tri_plane: two 3-term dots, the division, the hit point, two 4-term
+# plane rows, 5 compares). The bounds of K1-mesh, K7 and K8 add them at the
+# counts of the counting build, which tests fewer boxes than the threaded walk.
+BOX_TEST_OPS, TRI_TEST_OPS = 25, 38
 # per photon bounce besides the closest hit (K5's Russian roulette, Fresnel
 # or metal lobe), and per photon scanned by the gather (K6), by hand
 PHOTON_BOUNCE_OPS, GATHER_PHOTON_OPS = 60, 30
@@ -253,6 +265,12 @@ def kernel_row(err, ms, plain_ms, nbytes, ops):
                 library_ms=None)
 
 
+def same_bits(a, b):
+    """Whether float tensors a and b hold the same bits (K7's hit planes
+    hold ints as their bits, some of them NaN patterns)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def assert_like_plain(name, R, cfg, got, want, note=""):
     """Accumulator planes of a render kernel against its plain version's:
     per-pixel ray counts and object ids equal, colour 2e-4 on >= 99% of
@@ -270,7 +288,7 @@ def assert_like_plain(name, R, cfg, got, want, note=""):
     if not (same_rays and same_ids and frac >= 0.99):
         raise AssertionError(f"{name} disagrees with its plain version beyond the band "
                              "(rays exact, obj_id exact, colour 2e-4 on >= 99%)")
-    if not bool(torch.isfinite(got).all()):
+    if not bool(torch.isfinite(got[:R.CH_HIT]).all()):  # K7's hit planes hold int bits
         raise AssertionError(f"{name}: non-finite accumulator planes")
     return err
 
@@ -295,12 +313,14 @@ def check_phases(label, MK, R, TP, sc, cfg):
     want_a, pa_ms = timed_ms(lambda: R.render_accum_phase_a(sc, cfg))
     err_a = assert_like_plain(f"phase 4 K7 {label}", R, cfg, got_a, want_a,
                               f"; plain {pa_ms:.3f} ms")
-    if not torch.equal(got_a[R.CH_SPAWN_VALID:], want_a[R.CH_SPAWN_VALID:]):
-        raise AssertionError(f"K7 {label}: the spawned continuations differ from plain phase A's")
+    if not same_bits(got_a[R.CH_SPAWN_VALID:], want_a[R.CH_SPAWN_VALID:]):
+        raise AssertionError(f"K7 {label}: the spawned continuations or primary hits differ from "
+                             "plain phase A's")
     order, count = TP.coherence_order(want_a)
-    got_b = MK.render_phase_b(sc, cfg, order, count, want_a[:R.NUM_CH].clone())
+    hits = want_a[R.CH_HIT:]
+    got_b = MK.render_phase_b(sc, cfg, order, count, want_a[:R.NUM_CH].clone(), hits)
     want_b, pb_ms = timed_ms(lambda: R.render_accum_phase_b(
-        sc, cfg, order[:int(count)], want_a[:R.NUM_CH].clone()))
+        sc, cfg, order[:int(count)], want_a[:R.NUM_CH].clone(), hits))
     err_b = assert_like_plain(f"phase 4 K8 {label}", R, cfg, got_b, want_b,
                               f"; {int(count)} pixels resumed; plain {pb_ms:.3f} ms")
     if not torch.equal(got_b[R.CH_BOUNCE], want_b[R.CH_BOUNCE]):
@@ -344,7 +364,8 @@ def time_two_phase(label, MK, R, TP, sc, cfg, aperture):
     t = {"k1": gpu_ms(lambda: MK.render_accum(sc, cfg), 3)}
     t["k7"] = gpu_ms(lambda: MK.render_phase_a(sc, cfg, tables), 3)
     t["sort"] = gpu_ms(lambda: TP.coherence_order(a), 3)
-    t["k8"] = gpu_ms(lambda: MK.render_phase_b(sc, cfg, order, count, acc, tables), 3)
+    t["k8"] = gpu_ms(lambda: MK.render_phase_b(sc, cfg, order, count, acc, a[R.CH_HIT:],
+                                               tables), 3)
     t["two_phase"] = gpu_ms(lambda: TP.render_accum_two_phase(sc, cfg, aperture), 3)
     t["k1_again"] = gpu_ms(lambda: MK.render_accum(sc, cfg), 3)
     t["sum"] = t["k7"] + t["sort"] + t["k8"]
@@ -508,7 +529,7 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
             a = stage("K7 render_phase_a", lambda: MK.render_phase_a(sc, cfg, tables))
             order, count = stage("coherence key + torch.sort", lambda: TP.coherence_order(a))
             acc = stage("K8 render_phase_b", lambda: MK.render_phase_b(
-                sc, cfg, order, count, a[:R.NUM_CH], tables))
+                sc, cfg, order, count, a[:R.NUM_CH], a[R.CH_HIT:], tables))
         else:
             acc = stage("K1 render_accum (incl. table packing)",
                         lambda: MK.render_accum(sc, cfg))
@@ -616,6 +637,135 @@ def caustic_share(hdr, plain_hdr):
     """Share of pixels where frame `hdr` differs from `plain_hdr`, the same
     frame rendered without caustics: the pixels its caustic lights."""
     return float(((hdr - plain_hdr).abs().amax(0) > 0).float().mean())
+
+
+def walk_rays(R, I, C, sc, cfg, seed):
+    """Rays of a frame for the walk-only kernels. Closest: the camera rays,
+    and from every mesh hit point a random direction, skip-self by its
+    instance on half of them and a pending thickness query into it on a
+    quarter. Shadow: from every hit point (the analytic closest hit and the
+    mesh walk) to each point light and along each directional light, 5% of
+    them seeded blocked. Returns ((o, d, skip_active, skip_inst,
+    thick_inst), (o, d, max_dist, blocked0))."""
+    from raytracevs_tpu_torch.ops import sampling, vec
+
+    dev = sc.cam_pos.device
+    n = cfg.width * cfg.height
+    idx = torch.arange(n, device=dev)
+    cam = R.primary_rays(sc, cfg, idx % cfg.width, idx // cfg.width, 0,
+                         sampling.blue_noise_tile(dev))
+    o, d = cam.origin.contiguous(), cam.direction.contiguous()
+    h = I.trace_closest(sc, o, d, torch.full((n,), C.RAY_TMIN, device=dev),
+                        torch.full((n,), C.RAY_TMAX, device=dev))
+    pos = (o + d * h.t[:, None])[h.hit]
+    on_mesh = (h.obj_type == C.OBJECT_TYPE_MESH)[h.hit]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mo = pos[on_mesh]
+    minst = h.obj_index[h.hit][on_mesh].to(torch.int32)
+    m = mo.shape[0]
+    md = vec.normalize(torch.randn((m, 3), generator=g, device=dev))
+    r = torch.rand((m,), generator=g, device=dev)
+    no = torch.zeros((n,), dtype=torch.bool, device=dev)
+    closest = (torch.cat([o, mo]).contiguous(), torch.cat([d, md]).contiguous(),
+               torch.cat([no, r < 0.5]),
+               torch.cat([torch.zeros((n,), dtype=torch.int32, device=dev), minst]),
+               torch.cat([torch.full((n,), -1, dtype=torch.int32, device=dev),
+                          torch.where(r >= 0.75, minst, -1)]))
+    so, sd, sm = [], [], []
+    for i in range(int(sc.num_lights)):
+        lpos = sc.lt_position[i]
+        if int(sc.lt_type[i]) == C.LIGHT_TYPE_POINT:
+            to_l = lpos[None, :] - pos
+            dist = vec.length(to_l)
+            so.append(pos)
+            sd.append(to_l / dist[:, None])
+            sm.append(dist)
+        elif int(sc.lt_type[i]) == C.LIGHT_TYPE_DIRECTIONAL:
+            so.append(pos)
+            sd.append(vec.normalize(-lpos)[None, :].expand_as(pos))
+            sm.append(torch.full((pos.shape[0],), 10000.0, device=dev))
+    sm = torch.cat(sm)
+    shadow = (torch.cat(so).contiguous(), torch.cat(sd).contiguous(), sm.contiguous(),
+              torch.rand(sm.shape, generator=g, device=dev) < 0.05)
+    return closest, shadow
+
+
+def check_walks(label, MW, B, C, mesh, rays):
+    """The walk-only kernels against the plain walks on `rays`
+    (walk_rays'): every output bit-equal. Returns (closest rays, shadow
+    rays, ms of the kernels' closest walk over the camera rays and of the
+    plain one)."""
+    (o, d, skip, sinst, thick), (so, sd, sm, blocked) = rays
+    n = o.shape[0]
+    got = MW.closest(mesh, o, d, C.RAY_TMIN, C.RAY_TMAX, skip, sinst, thick)
+    want = B.traverse_closest(mesh, o, d, torch.full((n,), C.RAY_TMIN, device=o.device),
+                              torch.full((n,), C.RAY_TMAX, device=o.device), skip_active=skip,
+                              skip_inst=sinst, thick_inst=thick)
+    same = {f: torch.equal(getattr(got, f), getattr(want, f)) for f in B.TriHit._fields}
+    gs = MW.shadow(mesh, so, sd, sm, blocked)
+    ws = B.traverse_shadow(mesh, so, sd, sm, blocked0=blocked)
+    same.update({f: torch.equal(a, b) for f, a, b in zip(("vis", "color", "occ"), gs, ws)})
+    print(f"phase 4 walks {label}: {n} closest rays ({int(want.hit.sum())} hit, "
+          f"{int((thick >= 0).sum())} with a thickness query, {int(skip.sum())} skip-self), "
+          f"{so.shape[0]} shadow rays ({int((ws[0] == 0).sum())} blocked); bit-equal {same}",
+          flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"the walk-only kernels differ from the plain walks ({label})")
+    return n, so.shape[0]
+
+
+def walk_counts(MK, R, TP, sc, cfg, cfg1):
+    """The counting build's walk counts ([4, 4] int64 on the host, rows
+    ops/bvh.py::WALK_CLASSES, columns walks, node fetches, box tests,
+    triangle tests) of K1-mesh at cfg and of K7 and K8 at cfg1; its planes
+    must equal the plain instantiation's."""
+    dev = sc.cam_pos.device
+    k1, k7, k8 = (torch.zeros((4, 4), dtype=torch.int64, device=dev) for _ in range(3))
+    same = [torch.equal(MK.render_accum(sc, cfg, counts=k1), MK.render_accum(sc, cfg))]
+    a = MK.render_phase_a(sc, cfg1, counts=k7)
+    same.append(same_bits(a, MK.render_phase_a(sc, cfg1)))
+    order, count = TP.coherence_order(a)
+    b = MK.render_phase_b(sc, cfg1, order, count, a[:R.NUM_CH].clone(), a[R.CH_HIT:], counts=k8)
+    same.append(torch.equal(b, MK.render_phase_b(sc, cfg1, order, count, a[:R.NUM_CH].clone(),
+                                                 a[R.CH_HIT:])))
+    if not all(same):
+        raise AssertionError(f"the counting build's planes differ from the kernels' {same}")
+    return k1.cpu(), k7.cpu(), k8.cpu()
+
+
+def plain_walk_counts(R, TP, sc, cfg, cfg1):
+    """The same counts of the plain threaded walks (MeshArrays.walk_counts)
+    in the plain K1-mesh, phase A and phase B."""
+    k1, k7, k8 = (torch.zeros((4, 4), dtype=torch.int64, device=sc.cam_pos.device)
+                  for _ in range(3))
+
+    def counted(k):
+        return sc._replace(mesh=sc.mesh._replace(walk_counts=k))
+
+    R.render_accum(counted(k1), cfg)
+    a = R.render_accum_phase_a(counted(k7), cfg1)
+    order, count = TP.coherence_order(a)
+    R.render_accum_phase_b(counted(k8), cfg1, order[:int(count)], a[:R.NUM_CH].clone(),
+                           a[R.CH_HIT:])
+    return k1.cpu(), k7.cpu(), k8.cpu()
+
+
+def print_counts(B, label, counts):
+    for i, name in enumerate(B.WALK_CLASSES):
+        walks, fetches, boxes, tris = (int(x) for x in counts[i])
+        per = max(walks, 1)
+        print(f"phase 4 walk counts {label}, {name}: {walks} walks; per walk {fetches / per:.3f} "
+              f"node fetches, {boxes / per:.3f} box tests, {tris / per:.3f} triangle tests",
+              flush=True)
+    tot = counts.sum(0)
+    print(f"phase 4 walk counts {label}, all: {int(tot[0])} walks, {int(tot[1])} node fetches, "
+          f"{int(tot[2])} box tests, {int(tot[3])} triangle tests", flush=True)
+
+
+def walk_ops(counts):
+    """Float operations of the walks' box and triangle tests at `counts`."""
+    tot = counts.sum(0)
+    return int(tot[2]) * BOX_TEST_OPS + int(tot[3]) * TRI_TEST_OPS
 
 
 def main():
@@ -727,6 +877,8 @@ def main():
     del acc
 
     # K1-mesh on the mesh demo scene at 1080p, and on nine instances
+    from raytracevs_tpu_torch.ops import twophase as TP
+
     meshes, blas_cache = mesh_service(MESH_DEMO), P.BLASCache()
     mscene = mesh_demo_scene(D, 0)
     t0 = time.perf_counter()
@@ -739,10 +891,11 @@ def main():
     msc = P.to_device(mflat, dev)
     torch.cuda.synchronize()
     print(f"phase 4 mesh demo scene: {mflat.mesh.num_tris} triangles, {mflat.mesh.num_nodes} "
-          f"nodes, {mflat.mesh.num_inst} instances; flatten with the SAH builds "
-          f"{(t1 - t0) * 1e3:.1f} ms, flatten with cached BLASes (retransform only) "
-          f"{(t2 - t1) * 1e3:.1f} ms, to_device with the plane table "
-          f"{(time.perf_counter() - t2) * 1e3:.1f} ms", flush=True)
+          f"nodes ({mflat.mesh.wide_topology.child.shape[0]} wide, a walk stack of "
+          f"{mflat.mesh.wide_stack} at most), {mflat.mesh.num_inst} instances; flatten with the "
+          f"SAH builds and collapses {(t1 - t0) * 1e3:.1f} ms, flatten with cached BLASes "
+          f"(retransform only) {(t2 - t1) * 1e3:.1f} ms, to_device with the plane table and the "
+          f"wide nodes {(time.perf_counter() - t2) * 1e3:.1f} ms", flush=True)
     mcfg = P.make_config(mscene, FULL_W, FULL_H, **OVERRIDES)
     mk_err, _, mk_plain_ms, mrays = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg)
     mk_ms = gpu_ms(lambda: MK.render_accum(msc, mcfg), 3)
@@ -751,10 +904,53 @@ def main():
     nscene = nine_ball_scene(D)
     nsc = P.to_device(P.flatten_scene(P.sanitize_scene(nscene), aspect=480 / 270,
                                       mesh_service=mesh_service({"Ball": (24, 32, 0.3)})), dev)
-    n_err, _, _, _ = check_k1("phase 4 K1-mesh, nine instances,", MK, R, nsc,
-                              P.make_config(nscene, 480, 270))
-    results["render_accum_mesh"] = kernel_row(max(mk_err, n_err), mk_ms, mk_plain_ms, out_bytes,
-                                              mrays * closest_ops(msc))
+    ncfg = P.make_config(nscene, 480, 270)
+    n_err, _, _, _ = check_k1("phase 4 K1-mesh, nine instances,", MK, R, nsc, ncfg)
+
+    # the mesh walks alone against the plain walks, bit for bit: the mesh
+    # demo scene's rays at 1080p and the nine instances' at 480x270
+    from raytracevs_tpu_torch import constants as C
+    from raytracevs_tpu_torch.ops import bvh as B
+    from raytracevs_tpu_torch.ops import intersect as I
+    from raytracevs_tpu_torch.ops.cuda import mesh_walks as MW
+
+    n_closest, n_shadow = check_walks("mesh demo scene 1920x1080", MW, B, C, msc.mesh,
+                                      walk_rays(R, I, C, msc, mcfg, 1))
+    n9 = check_walks("nine instances 480x270", MW, B, C, nsc.mesh,
+                     walk_rays(R, I, C, nsc, ncfg, 2))
+    print(f"phase 4 walks: {n_closest + n9[0]} closest and {n_shadow + n9[1]} shadow rays "
+          f"bit-equal in all", flush=True)
+    if n_closest < 1_000_000 or n_shadow < 1_000_000:
+        raise AssertionError("fewer than a million rays of each walk on the mesh demo scene")
+    cam = walk_rays(R, I, C, msc, mcfg, 3)[0]
+    npx = FULL_W * FULL_H
+    cam = [x[:npx] for x in cam]
+    w_ms = gpu_ms(lambda: MW.closest(msc.mesh, *cam[:2], C.RAY_TMIN, C.RAY_TMAX, *cam[2:]), 5)
+    print(f"  closest walk alone over {npx} camera rays: kernel {w_ms:.4f} ms", flush=True)
+    del cam
+
+    # the walks' work by ray class: the counting build at 1080p (the main
+    # paths' frames) and at 480x270, the plain threaded walks at 480x270
+    mcfg1 = P.make_config(mscene, FULL_W, FULL_H, **SPP1)
+    qcfg, qcfg1 = (P.make_config(mscene, 480, 270, **o) for o in (OVERRIDES, SPP1))
+    counts = {}
+    for res, (c, c1) in (("1920x1080", (mcfg, mcfg1)), ("480x270", (qcfg, qcfg1))):
+        for name, k in zip(("K1-mesh spp 2", "K7 spp 1", "K8 spp 1"),
+                           walk_counts(MK, R, TP, msc, c, c1)):
+            counts[(name, res)] = k
+            print_counts(B, f"wide walks, {name}, {res}", k)
+    for name, k in zip(("K1-mesh spp 2", "K7 spp 1", "K8 spp 1"),
+                       plain_walk_counts(R, TP, msc, qcfg, qcfg1)):
+        print_counts(B, f"threaded walks (plain), {name}, 480x270", k)
+    k8c = counts[("K8 spp 1", "1920x1080")]
+    prim = B.WALK_CLASSES.index("primary")
+    print(f"phase 4 walk counts: K8 walks {int(k8c[prim, 0])} primary rays (K7 hands it "
+          f"their hits)", flush=True)
+    if int(k8c[prim, 0]):
+        raise AssertionError("K8 walked primary rays again")
+    results["render_accum_mesh"] = kernel_row(
+        max(mk_err, n_err), mk_ms, mk_plain_ms, out_bytes,
+        mrays * closest_ops(msc) + walk_ops(counts[("K1-mesh spp 2", "1920x1080")]))
     # K5 on the mesh demo scene's tables: the instance material rows stay,
     # and the light table follows them
     rows.append(check_k5("mesh demo scene", PP, PK, msc, ccfg.num_photons))
@@ -764,9 +960,6 @@ def main():
     # demo scene (the two-phase main path) and on the demo scene; the two
     # phases against K1-mesh and K1; their times. The kernels' rows are the
     # mesh demo scene's; the demo scene's bounds are printed only.
-    from raytracevs_tpu_torch.ops import twophase as TP
-
-    mcfg1 = P.make_config(mscene, FULL_W, FULL_H, **SPP1)
     ma_err, mb_err, pa_ms, pb_ms = check_phases("mesh demo scene", MK, R, TP, msc, mcfg1)
     cfg1 = P.make_config(scene, FULL_W, FULL_H, **SPP1)
     a_err, b_err, _, _ = check_phases("demo scene", MK, R, TP, sc, cfg1)
@@ -776,18 +969,25 @@ def main():
                                                  float(flat.aperture_size))
     t = time_two_phase("mesh demo scene", MK, R, TP, msc, mcfg1, float(mflat.aperture_size))
     time_two_phase("demo scene", MK, R, TP, sc, cfg1, float(flat.aperture_size))
-    # bounds: K7 writes 39 planes and traces phase A's rays; K8 reads its
-    # pixel id and read-modify-writes 5 floats a resumed pixel, and traces
-    # the rest of the rays (its re-traced primaries not counted); the mesh
-    # walks are not counted, as in K1-mesh's
+    # bounds: K7 writes 46 planes and traces phase A's rays; K8 reads its
+    # pixel id and 7 hit floats and read-modify-writes 5 floats a resumed
+    # pixel, and traces the rest of the rays; both add their mesh walks'
+    # tests at the counting build's counts
     rays_b = int(mtwo[R.CH_RAYS].double().sum()) - mrays_a
-    results["render_phase_a"] = kernel_row(max(a_err, ma_err), t["k7"], pa_ms,
-                                           R.NUM_CH_A * px * 4, mrays_a * closest_ops(msc))
-    results["render_phase_b"] = kernel_row(max(b_err, mb_err), t["k8"], pb_ms,
-                                           4 + 44 * mresumed, rays_b * closest_ops(msc))
+    results["render_phase_a"] = kernel_row(
+        max(a_err, ma_err), t["k7"], pa_ms, R.NUM_CH_A * px * 4,
+        mrays_a * closest_ops(msc) + walk_ops(counts[("K7 spp 1", "1920x1080")]))
+    results["render_phase_b"] = kernel_row(
+        max(b_err, mb_err), t["k8"], pb_ms, 4 + 72 * mresumed,
+        rays_b * closest_ops(msc) + walk_ops(k8c))
+    # the coherence sort between them (a library call, no kernel of the
+    # port): its 2,073,600 int32 keys and indices, each read and written
+    sort_ms, sort_by = bound(4 * 4 * px, 0)
+    print(f"  coherence key + torch.sort: {t['sort']:.4f} ms, bound {sort_ms:.4f} ms by "
+          f"{sort_by} ({4 * 4 * px / 1e6:.1f} MB)", flush=True)
     for name, nbytes, ops in (
             ("K7", R.NUM_CH_A * px * 4, rays_a * closest_ops(sc)),
-            ("K8", 4 + 44 * resumed, (int(two[R.CH_RAYS].double().sum()) - rays_a)
+            ("K8", 4 + 72 * resumed, (int(two[R.CH_RAYS].double().sum()) - rays_a)
              * closest_ops(sc))):
         b_ms, b_by = bound(nbytes, ops)
         print(f"  {name} bound on the demo scene at 1080p: {b_ms:.4f} ms by {b_by} "

@@ -1,4 +1,4 @@
-// The scene as the kernels of K1 (megakernel.cu) and K5 (photon.cu) read it:
+// The scene as the kernels of K1 (render.cuh) and K5 (photon.cu) read it:
 // the table layout of ops/cuda/megakernel.py::pack_scene, the RNG, the mesh
 // walks and the closest analytic hit. nvcc compiles each .cu on its own (no
 // -rdc), so both files include these definitions; each instantiates only
@@ -36,20 +36,22 @@ struct Cfg {
   float aspect;
 };
 
-// The mesh tables (ops/cuda/megakernel.py::pack_mesh): node_box [Nn][2]
-// float4 = (min.x, min.y, min.z, max.x), (max.y, max.z, 0, 0); node_link
-// [Nn] int4 = (hit_next, miss_next, tri_start, tri_count); plane [T][3]
-// float4 = the 12 floats of ops/bvh.py::plane_table; n0/n1/n2/e1/e2 [T,3];
-// inst [T]; inst_tbl [I][8] = (transmission, absorption xyz, shadow Beer
-// factor xyz, 0).
+// The mesh tables (ops/cuda/megakernel.py::pack_mesh): wide [W][8] float4,
+// the wide nodes of ops/bvh.py::wide_table (per child slot 0..3 its box's
+// min x, min y, min z, max x, max y, max z, then the four child words as an
+// int4, then the slots' fine nodes, not read: 128 bytes a node); plane [T][3] float4 = the 12 floats
+// of ops/bvh.py::plane_table; n0/n1/n2/e1/e2 [T,3]; inst [T]; inst_tbl [I][8]
+// = (transmission, absorption xyz, shadow Beer factor xyz, 0). counts: the
+// counting build's [4][4] walk counts (WC_* rows; walks, node fetches, box
+// tests, triangle tests), else null.
 struct Mesh {
-  const float4* node_box;
-  const int4* node_link;
+  const float4* wide;
   const float4* plane;
   const float *n0, *n1, *n2, *e1, *e2;
   const int* inst;
   const float* inst_tbl;
-  int num_nodes, num_tris, num_inst;
+  unsigned long long* counts;
+  int num_tris, num_inst;
 };
 
 struct Scene {
@@ -80,19 +82,163 @@ __device__ __forceinline__ float par(const Scene& sc, int i) { return __ldg(sc.p
 __device__ __forceinline__ V3 par3(const Scene& sc, int i) { return ld3(sc.par + i); }
 
 // ---- mesh walks (raytracevs_tpu_torch/ops/bvh.py) ---------------------------
+// They replace the TPU kernels' mesh walks (raytracevs_tpu/ops/pallas/
+// megakernel.py: mesh_closest_k, mesh_shadow_count_k, mesh_shadow_k, and
+// mesh_thickness_k through the closest walk's fused thickness) and return
+// what the plain threaded walks (ops/bvh.py::traverse_closest,
+// traverse_shadow) return, bit for bit.
+//
+// What bounds them: dependent loads. A walk is a chain of node fetches,
+// each an L2 gather (~4.5 MB of wide nodes and ~11 MB of plane rows for the
+// mesh demo scene's 237k triangles stay in the 50 MB L2, not in L1), so
+// latency and the warps that hide it decide the time, plus divergence
+// between rays that walk a few nodes and rays that walk hundreds. The
+// threaded walk fetched one fine node (3 dependent 16-byte loads) per box
+// test: 9.4 a primary ray, 7.6 a shadow ray, 16.6 a secondary ray and 54
+// a ray with a pending thickness query on the mesh demo scene; these walks
+// fetch 2.9, 2.5, 4.8 and 14.8 wide nodes for the same box and triangle
+// tests (PERF.md). Alone they walk 2,073,600 camera rays in 0.33 ms; in
+// the render kernels the megakernel around them (one block an SM, the
+// caller's state saved around each call) costs more than their loads.
+//
+// Design: one ray per thread walks wide nodes (ops/bvh.py::collapse: the
+// fine tree's binary nodes merged into up to four children, leaves as they
+// are, LEAF_SIZE 4): one 128-byte node, seven independent 16-byte __ldg,
+// gives four box tests. The slab test is _ray_aabb's arithmetic on the
+// fine boxes bit for bit, and a child box lies inside its parent's, so a
+// grandchild fails wherever the binary node the collapse skipped fails.
+// The walk keeps the fine tree's preorder (hit children pushed right to
+// left on a per-thread stack of (child, entry distance), Aila and Laine's
+// while-while loop: inner nodes until a leaf is due, then leaves), so it
+// tests the threaded walk's leaves in its order. A popped child is
+// re-tested as entry <= the current bound, which is the slab test at that
+// bound (the entry passed at a larger one). The order matters for every
+// walk: the closest hit's ties and its box culls, the pending thickness
+// (open to BIG until the first same-instance hit), the shadow walk's
+// occluder distance before an opaque leaf ends it and the multiply mode's
+// product. Nearest child first is not exact (a box's slab distance and a
+// triangle's plane distance round apart; tests/test_torch_wide_bvh.py).
+// Tensor cores and TMA have no use here: every load is a per-ray gather.
+// The stack is per-thread local memory (cached in L1): a per-thread slice
+// of shared memory measured slower, K1-mesh at spp 2 by 4.6% and K7-mesh
+// by 46% (PERF.md).
+constexpr int WALK_STACK = 64;  // ops/bvh.py::WALK_STACK; the wrapper checks the table's need
+constexpr int CHILD_EMPTY = -1;
+// walk classes of the counting build (ops/bvh.py::WALK_CLASSES)
+constexpr int WC_PRIMARY = 0, WC_SECONDARY = 1, WC_THICK = 2, WC_SHADOW = 3;
+
 __device__ __forceinline__ float safe_inv1(float x) {
   return 1.0f / (fabsf(x) < F(1e-12) ? (x < 0.0f ? F(-1e-12) : F(1e-12)) : x);
 }
 
-// slab test of a node box (ops/bvh.py::_ray_aabb)
-__device__ __forceinline__ bool ray_aabb(V3 o, V3 inv, float4 a, float4 b, float tmin,
-                                         float tmax) {
-  float t0x = (a.x - o.x) * inv.x, t1x = (a.w - o.x) * inv.x;
-  float t0y = (a.y - o.y) * inv.y, t1y = (b.x - o.y) * inv.y;
-  float t0z = (a.z - o.z) * inv.z, t1z = (b.y - o.z) * inv.z;
-  float t_near = maxn(maxn(maxn(minn(t0x, t1x), minn(t0y, t1y)), minn(t0z, t1z)), tmin);
-  float t_far = minn(minn(minn(maxn(t0x, t1x), maxn(t0y, t1y)), maxn(t0z, t1z)), tmax);
-  return t_near <= t_far;
+struct Wide {
+  float4 lx, ly, lz, hx, hy, hz;
+  int4 c;
+};
+
+__device__ __forceinline__ Wide load_wide(const float4* w, int n) {
+  const float4* p = w + 8 * n;
+  Wide r;
+  r.lx = __ldg(p);
+  r.ly = __ldg(p + 1);
+  r.lz = __ldg(p + 2);
+  r.hx = __ldg(p + 3);
+  r.hy = __ldg(p + 4);
+  r.hz = __ldg(p + 5);
+  r.c = __ldg(reinterpret_cast<const int4*>(p + 6));
+  return r;
+}
+
+// slab test of one child box (ops/bvh.py::_ray_aabb) for a finite ray, whose
+// t values hold no NaN: fminf/fmaxf then decide as the NaN-propagating
+// forms do. tn: the entry distance, t_near clamped to tmin.
+__device__ __forceinline__ bool slab(float lx, float ly, float lz, float hx, float hy, float hz,
+                                     V3 o, V3 inv, float tmin, float tmax, float& tn) {
+  float t0x = (lx - o.x) * inv.x, t1x = (hx - o.x) * inv.x;
+  float t0y = (ly - o.y) * inv.y, t1y = (hy - o.y) * inv.y;
+  float t0z = (lz - o.z) * inv.z, t1z = (hz - o.z) * inv.z;
+  tn = fmaxf(fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z)), tmin);
+  float tf = fminf(fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z)), tmax);
+  return tn <= tf;
+}
+
+__device__ __forceinline__ int pop(const int* stk_c, const float* stk_t, int& sp, float bound) {
+  while (sp > 0) {
+    --sp;
+    if (stk_t[sp] <= bound) return stk_c[sp];
+  }
+  return CHILD_EMPTY;
+}
+
+// The preorder walk of the wide table. bound() is the current box bound;
+// leaf(word) tests a leaf and returns true to end the walk. A ray with a
+// non-finite origin or direction fails every slab test of the threaded walk
+// (a NaN, or an infinite t on both sides of the slab, or a zero inverse
+// whose slab ends at t <= 0 < tmin), so it visits nothing here either.
+template <typename Bound, typename Leaf>
+__device__ __forceinline__ void walk(const float4* wide, V3 o, V3 d, float tmin, Bound bound,
+                                     Leaf leaf, uint32_t& fetches, uint32_t& boxes) {
+  if (!(finite3(o) && finite3(d))) return;
+  V3 inv = v3(safe_inv1(d.x), safe_inv1(d.y), safe_inv1(d.z));
+  int stk_c[WALK_STACK];
+  float stk_t[WALK_STACK];
+  int sp = 0;
+  int node = 0;
+  while (node != CHILD_EMPTY) {
+    while (node >= 0) {  // inner nodes until a leaf is due
+      Wide nd = load_wide(wide, node);
+      float b = bound();
+      float t0, t1, t2, t3;
+      bool h0 = nd.c.x != CHILD_EMPTY &&
+                slab(nd.lx.x, nd.ly.x, nd.lz.x, nd.hx.x, nd.hy.x, nd.hz.x, o, inv, tmin, b, t0);
+      bool h1 = nd.c.y != CHILD_EMPTY &&
+                slab(nd.lx.y, nd.ly.y, nd.lz.y, nd.hx.y, nd.hy.y, nd.hz.y, o, inv, tmin, b, t1);
+      bool h2 = nd.c.z != CHILD_EMPTY &&
+                slab(nd.lx.z, nd.ly.z, nd.lz.z, nd.hx.z, nd.hy.z, nd.hz.z, o, inv, tmin, b, t2);
+      bool h3 = nd.c.w != CHILD_EMPTY &&
+                slab(nd.lx.w, nd.ly.w, nd.lz.w, nd.hx.w, nd.hy.w, nd.hz.w, o, inv, tmin, b, t3);
+      fetches += 1;
+      boxes += (nd.c.x != CHILD_EMPTY) + (nd.c.y != CHILD_EMPTY) + (nd.c.z != CHILD_EMPTY) +
+               (nd.c.w != CHILD_EMPTY);
+      // hit children right to left: each later one waits on the stack
+      int next = CHILD_EMPTY;
+      float nt = 0.0f;
+      if (h3) { next = nd.c.w; nt = t3; }
+      if (h2) {
+        if (next != CHILD_EMPTY) { stk_c[sp] = next; stk_t[sp] = nt; ++sp; }
+        next = nd.c.z; nt = t2;
+      }
+      if (h1) {
+        if (next != CHILD_EMPTY) { stk_c[sp] = next; stk_t[sp] = nt; ++sp; }
+        next = nd.c.y; nt = t1;
+      }
+      if (h0) {
+        if (next != CHILD_EMPTY) { stk_c[sp] = next; stk_t[sp] = nt; ++sp; }
+        next = nd.c.x;
+      }
+      node = next != CHILD_EMPTY ? next : pop(stk_c, stk_t, sp, b);
+    }
+    while (node < CHILD_EMPTY) {  // leaves until an inner node is due
+      if (leaf(node)) return;
+      node = pop(stk_c, stk_t, sp, bound());
+    }
+  }
+}
+
+// the triangle range of a leaf's child word
+__device__ __forceinline__ int leaf_start(int word) { return (int)((uint32_t)~word >> 3); }
+__device__ __forceinline__ int leaf_count(int word) { return (int)((uint32_t)~word & 7u); }
+
+template <bool COUNT>
+__device__ __forceinline__ void add_counts(const Mesh& m, int cls, uint32_t fetches,
+                                           uint32_t boxes, uint32_t tris) {
+  if constexpr (COUNT) {
+    unsigned long long* c = m.counts + 4 * cls;
+    atomicAdd(c, 1ull);
+    atomicAdd(c + 1, (unsigned long long)fetches);
+    atomicAdd(c + 2, (unsigned long long)boxes);
+    atomicAdd(c + 3, (unsigned long long)tris);
+  }
 }
 
 // plane-row triangle test (ops/bvh.py::_leaf): `base` is the hit without
@@ -117,45 +263,48 @@ struct MeshHit {
 };
 
 // closest triangle with skip-self by instance and the fused same-instance
-// thickness (ops/bvh.py::traverse_closest)
+// thickness (ops/bvh.py::traverse_closest); cls: the counting build's class
+template <bool COUNT>
 __device__ __noinline__ MeshHit mesh_closest(Mesh m, V3 o, V3 d, float tmin, float tmax,
-                                             bool skip_active, int skip_inst, int thick_inst) {
-  V3 inv = v3(safe_inv1(d.x), safe_inv1(d.y), safe_inv1(d.z));
+                                             bool skip_active, int skip_inst, int thick_inst,
+                                             int cls) {
   MeshHit r;
   r.t = tmax;
   r.u = r.v = 0.0f;
   r.tri = 0;
   r.thick_t = BIG;
   r.thick_hit = false;
-  int node = 0;
-  for (int step = 0; node != NODE_END && step <= m.num_nodes; ++step) {
-    bool pend = thick_inst >= 0 && !r.thick_hit;  // fixed for the step
-    float4 a = __ldg(m.node_box + 2 * node), b = __ldg(m.node_box + 2 * node + 1);
-    int4 link = __ldg(m.node_link + node);
-    bool box_hit = ray_aabb(o, inv, a, b, tmin, pend ? BIG : r.t);
-    if (box_hit && link.w > 0) {
-      for (int k = 0; k < LEAF_SIZE && k < link.w; ++k) {
-        int ti = min(max(link.z + k, 0), m.num_tris - 1);
-        float tt, tu, tv;
-        bool base = tri_plane(m.plane + 3 * ti, o, d, tmin, tt, tu, tv);
-        if (!(base && tt <= (pend ? BIG : r.t))) continue;
-        int it = __ldg(m.inst + ti);
-        if (it == thick_inst && tt < r.thick_t) {
-          r.thick_t = tt;
-          r.thick_hit = true;
-        }
-        if (!(skip_active && it == skip_inst) && tt < r.t) {
-          r.t = tt;
-          r.tri = ti;
-          r.u = tu;
-          r.v = tv;
-        }
+  uint32_t fetches = 0, boxes = 0, tris = 0;
+  // a pending thickness query keeps the interval open to BIG until the
+  // first same-instance hit
+  auto bound = [&]() { return (thick_inst >= 0 && !r.thick_hit) ? BIG : r.t; };
+  auto leaf = [&](int word) {
+    bool pend = thick_inst >= 0 && !r.thick_hit;  // fixed for the leaf
+    int start = leaf_start(word), count = leaf_count(word);
+    for (int k = 0; k < LEAF_SIZE && k < count; ++k) {
+      int ti = min(max(start + k, 0), m.num_tris - 1);
+      float tt, tu, tv;
+      bool base = tri_plane(m.plane + 3 * ti, o, d, tmin, tt, tu, tv);
+      tris += 1;
+      if (!(base && tt <= (pend ? BIG : r.t))) continue;
+      int it = __ldg(m.inst + ti);
+      if (it == thick_inst && tt < r.thick_t) {
+        r.thick_t = tt;
+        r.thick_hit = true;
+      }
+      if (!(skip_active && it == skip_inst) && tt < r.t) {
+        r.t = tt;
+        r.tri = ti;
+        r.u = tu;
+        r.v = tv;
       }
     }
-    node = box_hit ? link.x : link.y;
-  }
+    return false;
+  };
+  walk(m.wide, o, d, tmin, bound, leaf, fetches, boxes);
   r.hit = r.t < tmax * F(0.9999);
   r.inst = __ldg(m.inst + r.tri);
+  add_counts<COUNT>(m, thick_inst >= 0 ? WC_THICK : cls, fetches, boxes, tris);
   return r;
 }
 
@@ -173,42 +322,41 @@ __device__ __forceinline__ float pow_u8(float base, uint32_t n) {
 // shadow transmission over every triangle crossed (ops/bvh.py::
 // traverse_shadow): per-instance 8-bit crossing counts in two words for up
 // to 8 instances, a product per crossing in walk order beyond
+template <bool COUNT>
 __device__ __noinline__ void mesh_shadow(Mesh m, V3 o, V3 d, float max_dist, bool blocked,
                                          float& vis, V3& color, float& occ) {
-  V3 inv = v3(safe_inv1(d.x), safe_inv1(d.y), safe_inv1(d.z));
   bool count_mode = m.num_inst <= 8;
   uint32_t c0 = 0u, c1 = 0u;
   vis = 1.0f;
   color = v3(1.0f, 1.0f, 1.0f);
   occ = FP16_MAX;
-  int node = blocked ? NODE_END : 0;
-  for (int step = 0; node != NODE_END && step <= m.num_nodes; ++step) {
-    float4 a = __ldg(m.node_box + 2 * node), b = __ldg(m.node_box + 2 * node + 1);
-    int4 link = __ldg(m.node_link + node);
-    bool box_hit = ray_aabb(o, inv, a, b, RAY_TMIN, max_dist);
-    if (box_hit && link.w > 0) {
-      for (int k = 0; k < LEAF_SIZE && k < link.w; ++k) {
-        int ti = min(max(link.z + k, 0), m.num_tris - 1);
-        float tt, tu, tv;
-        bool base = tri_plane(m.plane + 3 * ti, o, d, RAY_TMIN, tt, tu, tv);
-        if (!(base && tt <= max_dist)) continue;
-        int it = __ldg(m.inst + ti);
-        const float* row = m.inst_tbl + 8 * it;
-        float tr = __ldg(row);
-        if (tr < F(0.01)) blocked = true;  // opaque: the search ends after this leaf
-        occ = minn(occ, tt);
-        if (count_mode) {
-          uint32_t inc = 1u << ((it & 3) * 8);
-          if (it >= 4) c1 += inc;
-          else c0 += inc;
-        } else if (tr >= F(0.01)) {
-          vis = vis * tr;
-          color = mul(color, ld3(row + 4));
-        }
+  uint32_t fetches = 0, boxes = 0, tris = 0;
+  auto bound = [&]() { return max_dist; };
+  auto leaf = [&](int word) {
+    int start = leaf_start(word), count = leaf_count(word);
+    for (int k = 0; k < LEAF_SIZE && k < count; ++k) {
+      int ti = min(max(start + k, 0), m.num_tris - 1);
+      float tt, tu, tv;
+      bool base = tri_plane(m.plane + 3 * ti, o, d, RAY_TMIN, tt, tu, tv);
+      tris += 1;
+      if (!(base && tt <= max_dist)) continue;
+      int it = __ldg(m.inst + ti);
+      const float* row = m.inst_tbl + 8 * it;
+      float tr = __ldg(row);
+      if (tr < F(0.01)) blocked = true;  // opaque: the search ends after this leaf
+      occ = minn(occ, tt);
+      if (count_mode) {
+        uint32_t inc = 1u << ((it & 3) * 8);
+        if (it >= 4) c1 += inc;
+        else c0 += inc;
+      } else if (tr >= F(0.01)) {
+        vis = vis * tr;
+        color = mul(color, ld3(row + 4));
       }
     }
-    node = blocked ? NODE_END : (box_hit ? link.x : link.y);
-  }
+    return blocked;
+  };
+  if (!blocked) walk(m.wide, o, d, RAY_TMIN, bound, leaf, fetches, boxes);
   if (count_mode) {
     float cr = 1.0f, cg = 1.0f, cb = 1.0f;
     for (int i = 0; i < m.num_inst; ++i) {
@@ -227,6 +375,7 @@ __device__ __noinline__ void mesh_shadow(Mesh m, V3 o, V3 d, float max_dist, boo
     vis = 0.0f;
     color = v3(0.0f, 0.0f, 0.0f);
   }
+  add_counts<COUNT>(m, WC_SHADOW, fetches, boxes, tris);
 }
 
 // ---- RNG (Common.hlsli:761-797) ---------------------------------------------
@@ -295,10 +444,12 @@ __device__ float isect_box(V3 o, V3 d, float tmin, float tmax, const float* b) {
 }
 
 // closest hit over spheres ++ planes ++ boxes; ties keep the first primitive;
-// then the mesh walk, whose hit wins only when strictly nearer
-template <bool HAS_MESH>
+// then the mesh walk, whose hit wins only when strictly nearer. MESH: 0 no
+// meshes, 1 the mesh walk, 2 the mesh walk adding to the walk counts under
+// class cls (WC_*).
+template <int MESH>
 __device__ Hit trace_closest(const Cfg& c, const Scene& sc, V3 o, V3 d, int skip_type,
-                             int skip_index, int thick_inst) {
+                             int skip_index, int thick_inst, int cls = WC_SECONDARY) {
   float best_t = BIG;
   int best = 0, g = 0;
   for (int i = 0; i < c.S; ++i, ++g) {
@@ -328,9 +479,9 @@ __device__ Hit trace_closest(const Cfg& c, const Scene& sc, V3 o, V3 d, int skip
   h.u = h.v = 0.0f;
   h.thick_hit = false;
   h.thick_t = BIG;
-  if constexpr (HAS_MESH) {
-    MeshHit mh = mesh_closest(sc.mesh, o, d, RAY_TMIN, RAY_TMAX, skip_type == TYPE_MESH,
-                              skip_index, thick_inst);
+  if constexpr (MESH != 0) {
+    MeshHit mh = mesh_closest<MESH == 2>(sc.mesh, o, d, RAY_TMIN, RAY_TMAX,
+                                         skip_type == TYPE_MESH, skip_index, thick_inst, cls);
     h.thick_hit = mh.thick_hit;
     h.thick_t = mh.thick_t;
     if (mh.hit && mh.t < best_t) {

@@ -3,8 +3,9 @@
 // port builds the very same tree. The reference has D3D12 build its
 // triangle BLAS (AccelerationStructure.cpp:560-663); here the
 // host builds it with a binned-SAH sweep and emits flat threaded (skip-link)
-// arrays in DFS preorder, which the device walks (ops/bvh.py and the K1
-// mesh walks in csrc/megakernel.cu).
+// arrays in DFS preorder, which the plain walks follow (ops/bvh.py).
+// rtvs_collapse_bvh turns such a tree into the 4-wide nodes that the
+// kernels' walks read (csrc/closest.cuh), once per BLAS.
 //
 // Built by g++ at first use (io/native.py) with the flags of the JAX
 // package's csrc/Makefile, and loaded with ctypes through a plain C ABI.
@@ -12,8 +13,10 @@
 // left out: the port reads no RTVS_PRESPLIT flag and hashes scenes in numpy.
 
 #include <algorithm>
+#include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <utility>
 #include <vector>
 
 namespace {
@@ -232,6 +235,90 @@ int rtvs_build_bvh(const float* v0, const float* v1, const float* v2,
                bbox_min, bbox_max);
     std::memcpy(tri_order, builder.order.data(), sizeof(int) * (size_t)num_tris);
     return (int)builder.nodes.size();
+}
+
+// The wide nodes of the threaded tree (or chained forest) whose root is
+// fine node `root`, topology only (ops/bvh.py::collapse). Each wide node
+// holds its fine node's two children, then opens the inner child with the
+// most triangles (the leftmost on ties) in place until it has `wide`
+// children or only leaves; a leaf root is a wide node of one leaf. Wide
+// node 0 is the root and a node's inner children get the next indices when
+// it is written, in the order of a preorder walk. Writes per wide node
+// `wide` child words (a wide node index >= 0, a leaf ~(tri_start << 3 |
+// tri_count), or -1 for an empty slot) and `wide` fine nodes (-1: empty),
+// and into *need the deepest stack a walk needs: over root-to-leaf paths,
+// the sum of (children - 1) of the wide nodes on the path. The outputs
+// hold num_nodes wide nodes. Returns the wide node count, or -1 on error.
+int rtvs_collapse_bvh(const int* tri_start, const int* tri_count, const int* miss_next,
+                      int num_nodes, int root, int wide, int* child, int* src, int* need) {
+    if (num_nodes <= 0 || root < 0 || root >= num_nodes || wide < 2 || wide > 8) return -1;
+    const int n = num_nodes;
+    // a node's subtree is [f, end[f]) in preorder: its miss link, or the end
+    std::vector<int> end((size_t)n);
+    std::vector<int64_t> tris((size_t)n + 1, 0);
+    for (int f = 0; f < n; ++f) {
+        end[f] = miss_next[f] >= 0 ? miss_next[f] : n;
+        tris[f + 1] = tris[f] + tri_count[f];
+    }
+    auto leaf = [&](int f) { return tri_count[f] > 0; };
+    auto size = [&](int f) { return tris[end[f]] - tris[f]; };
+    std::vector<std::vector<int>> inner_of;  // per wide node: its inner children's wide indices
+    std::vector<std::pair<int, int>> todo{{root, 0}};  // (fine node, its wide index)
+    int count = 1;
+    inner_of.emplace_back();
+    while (!todo.empty()) {
+        auto [f, w] = todo.back();
+        todo.pop_back();
+        int kids[8], nk = 0;
+        if (leaf(f)) {
+            kids[nk++] = f;
+        } else {
+            if (f + 1 >= n || end[f + 1] >= n) return -1;
+            kids[nk++] = f + 1;
+            kids[nk++] = end[f + 1];
+        }
+        while (nk < wide) {
+            int best = -1;
+            for (int i = 0; i < nk; ++i)
+                if (!leaf(kids[i]) && (best < 0 || size(kids[i]) > size(kids[best]))) best = i;
+            if (best < 0) break;
+            int k = kids[best];
+            if (k + 1 >= n || end[k + 1] >= n) return -1;
+            for (int i = nk; i > best + 1; --i) kids[i] = kids[i - 1];
+            kids[best] = k + 1;
+            kids[best + 1] = end[k + 1];
+            ++nk;
+        }
+        size_t first = todo.size();
+        for (int i = 0; i < wide; ++i) {
+            int word = -1, s = -1;
+            if (i < nk) {
+                int k = kids[i];
+                s = k;
+                if (leaf(k)) {
+                    word = ~(tri_start[k] << 3 | tri_count[k]);
+                } else {
+                    if (count >= n) return -1;
+                    word = count++;
+                    inner_of.emplace_back();
+                    inner_of[w].push_back(word);
+                    todo.emplace_back(k, word);
+                }
+            }
+            child[(size_t)w * wide + i] = word;
+            src[(size_t)w * wide + i] = s;
+        }
+        std::reverse(todo.begin() + (std::ptrdiff_t)first, todo.end());  // first child next
+    }
+    std::vector<int> depth((size_t)count, 0);
+    for (int w = count - 1; w >= 0; --w) {  // children's indices exceed their parent's
+        int nk = 0, deepest = 0;
+        for (int i = 0; i < wide; ++i) nk += child[(size_t)w * wide + i] != -1;
+        for (int c : inner_of[w]) deepest = std::max(deepest, depth[c]);
+        depth[w] = nk - 1 + deepest;
+    }
+    *need = depth[0];
+    return count;
 }
 
 }  // extern "C"

@@ -6,7 +6,7 @@
 // roulette, the Fresnel glass choice, roughness-lerped metal and the store
 // at the first diffuse hit after a specular one. Its plain version is
 // raytracevs_tpu_torch/ops/photon.py::_trace_photons; the closest hit is
-// K1's own (closest.cuh: trace_closest<false>, the isect_* tests and
+// K1's own (closest.cuh: trace_closest<0>, the isect_* tests and
 // box_face_normal), so photons and camera rays see the same surfaces.
 // Design: one thread per photon, the loop in registers, the thread retires
 // when its photon dies. On the TPU the photons were [32,128] tiles walked
@@ -75,7 +75,7 @@ __global__ void __launch_bounds__(256)
   V3 s_pos = v3(0.0f, 0.0f, 0.0f), s_dir = s_pos, s_col = s_pos;
   float s_pow = 0.0f;
   for (int depth = 0; depth < MAX_PHOTON_BOUNCES && live; ++depth) {
-    Hit h = trace_closest<false>(c, sc, o, d, INVALID, 0, -1);
+    Hit h = trace_closest<0>(c, sc, o, d, INVALID, 0, -1);
     if (!h.hit) break;
     V3 pos = add(o, scale(d, h.t));
     // the outward geometric normal (ops/photon.py flips the ray-faced

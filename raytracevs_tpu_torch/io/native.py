@@ -1,6 +1,7 @@
 """ctypes binding of the host BVH builder (csrc/host/rtvs_native.cpp).
 
-Restates raytracevs_tpu/io/native.py (``build_bvh_native``) for the port.
+Restates raytracevs_tpu/io/native.py (``build_bvh_native``) for the port,
+and binds the port's own collapse into wide nodes (``collapse_bvh_native``).
 The library is compiled by g++ at first use, with the flags of the JAX
 package's csrc/Makefile, into raytracevs_tpu_torch/_build/ (named by a hash
 of the source and flags, so an edited source rebuilds). There is no numpy
@@ -66,6 +67,9 @@ def load_library() -> ctypes.CDLL:
     lib.rtvs_build_bvh.restype = ctypes.c_int
     lib.rtvs_build_bvh.argtypes = [_FP, _FP, _FP, ctypes.c_int, ctypes.c_int,
                                    _FP, _FP, _IP, _IP, _IP, _IP, _IP]
+    lib.rtvs_collapse_bvh.restype = ctypes.c_int
+    lib.rtvs_collapse_bvh.argtypes = [_IP, _IP, _IP, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      _IP, _IP, _IP]
     return lib
 
 
@@ -103,3 +107,27 @@ def build_bvh_native(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, leaf_size: 
     s = slice(0, n_nodes)
     return (bbox_min[s], bbox_max[s], hit_next[s], miss_next[s], tri_start[s], tri_count[s],
             tri_order)
+
+
+def collapse_bvh_native(tri_start: np.ndarray, tri_count: np.ndarray, miss_next: np.ndarray,
+                        root: int, wide: int):
+    """The wide nodes of the threaded tree at fine node `root` (rtvs_collapse_bvh).
+
+    Returns (child [W,wide] i32, src [W,wide] i32, need); raises if the
+    library cannot be built or the arrays are not a threaded tree."""
+    lib = load_library()
+    n = len(miss_next)
+    tri_start, tri_count, miss_next = (np.ascontiguousarray(a, np.int32)
+                                       for a in (tri_start, tri_count, miss_next))
+    if not (tri_start.shape == tri_count.shape == miss_next.shape == (n,)):
+        raise ValueError(f"collapse_bvh_native: node arrays {tri_start.shape} "
+                         f"{tri_count.shape} {miss_next.shape}")
+    child = np.empty((n, wide), np.int32)
+    src = np.empty((n, wide), np.int32)
+    need = np.zeros(1, np.int32)
+    ip = (lambda a: a.ctypes.data_as(_IP))
+    count = lib.rtvs_collapse_bvh(ip(tri_start), ip(tri_count), ip(miss_next), n, int(root),
+                                  wide, ip(child), ip(src), ip(need))
+    if count <= 0:
+        raise RuntimeError(f"rtvs_collapse_bvh failed ({count}) on {n} nodes, root {root}")
+    return child[:count].copy(), src[:count].copy(), int(need[0])

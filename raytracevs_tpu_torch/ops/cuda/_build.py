@@ -34,21 +34,31 @@ LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points: (argtypes), all return int
 # (a cudaError_t; 0 is success).
+_MESH = (_P,) * 9 + (_I,) * 2  # wide, plane, n0, n1, n2, e1, e2, inst, inst_tbl, T, I
 SIGNATURES = {
     # ftab, itab, out, width, height, S, P, B, L, spp, max_bounces,
     # max_iters, max_soft, flags, aspect, stream
     "rtvs_render_accum": (_P, _P, _P) + (_I,) * 11 + (_F, _P),
-    # ... as rtvs_render_accum up to aspect, then node_box, node_link, plane,
-    # n0, n1, n2, e1, e2, inst, inst_tbl, num_nodes, num_tris, num_inst, stream
-    "rtvs_render_accum_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + (_P,) * 10 + (_I,) * 3 + (_P,),
+    # ... as rtvs_render_accum up to aspect, then the mesh tables, stream
+    "rtvs_render_accum_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P,),
     # K7: as rtvs_render_accum / rtvs_render_accum_mesh (out [39, H, W])
     "rtvs_render_phase_a": (_P, _P, _P) + (_I,) * 11 + (_F, _P),
-    "rtvs_render_phase_a_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + (_P,) * 10 + (_I,) * 3
-    + (_P,),
-    # K8: ftab, itab, order, count, acc, lanes, then as rtvs_render_accum
-    # from width (and the mesh tables of rtvs_render_accum_mesh)
-    "rtvs_render_phase_b": (_P,) * 5 + (_I,) * 12 + (_F, _P),
-    "rtvs_render_phase_b_mesh": (_P,) * 5 + (_I,) * 12 + (_F,) + (_P,) * 10 + (_I,) * 3 + (_P,),
+    "rtvs_render_phase_a_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P,),
+    # K8: ftab, itab, order, count, acc, hits, lanes, then as
+    # rtvs_render_accum from width (and the mesh tables of
+    # rtvs_render_accum_mesh)
+    "rtvs_render_phase_b": (_P,) * 6 + (_I,) * 12 + (_F, _P),
+    "rtvs_render_phase_b_mesh": (_P,) * 6 + (_I,) * 12 + (_F,) + _MESH + (_P,),
+    # the counting build: the _mesh entries' arguments, then counts, stream
+    "rtvs_render_accum_mesh_count": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P, _P),
+    "rtvs_render_phase_a_mesh_count": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P, _P),
+    "rtvs_render_phase_b_mesh_count": (_P,) * 6 + (_I,) * 12 + (_F,) + _MESH + (_P, _P),
+    # wide, plane, inst, inst_tbl, T, I, n, o, d, tmin, tmax, skip_active,
+    # skip_inst, thick_inst, t, tri, u, v, inst, hit, thick_hit, thick_t, stream
+    "rtvs_mesh_closest": (_P,) * 4 + (_I,) * 3 + (_P, _P, _F, _F) + (_P,) * 12,
+    # wide, plane, inst, inst_tbl, T, I, n, o, d, max_dist, blocked, vis,
+    # color, occ, stream
+    "rtvs_mesh_shadow": (_P,) * 4 + (_I,) * 3 + (_P,) * 8,
     # state, curr, motion, motion_spec, view_z, roughness, out, H, W, stream
     "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 2 + (_P,),
     # img6, out6, H, W, stream

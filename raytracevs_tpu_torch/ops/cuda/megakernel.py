@@ -8,13 +8,18 @@ raises: the analytic instantiation for a scene without meshes, and K1-mesh
 (``render_accum_mesh``, entry rtvs_render_accum_mesh) for a scene with a
 mesh leaf. ``render_phase_a`` and ``render_phase_b`` do the same for K7
 and K8 (ops/render.py::render_accum_phase_a/_b; entries
-rtvs_render_phase_a/_b and their _mesh forms). Each wrapper's
-``.launches`` counts its launches.
+rtvs_render_phase_a/_b and their _mesh forms; K8 takes K7's hit planes). Each wrapper's
+``.launches`` counts its launches. Given ``counts`` (a [4, 4] int64 CUDA
+tensor), the mesh wrappers launch the counting build instead (the
+``_count`` entries of csrc/megakernel_count.cu, the same pixels) and add
+their walks' work to it by ray class (ops/bvh.py::WALK_CLASSES: walks,
+node fetches, box tests, triangle tests).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import bvh
 from .. import render as R
 from . import _build
 
@@ -72,19 +77,35 @@ def pack_scene(scene):
 
 
 def pack_mesh(mesh):
-    """K1-mesh's node and instance tables: node_box [Nn,8] f32 (bbox_min,
-    bbox_max, 2 pad), node_link [Nn,4] int32 (hit_next, miss_next,
-    tri_start, tri_count), inst_tbl [I,8] f32 (transmission, absorption,
-    shadow Beer factor, 1 pad). The plane table and the triangle arrays are
-    read as they are."""
-    nn = mesh.num_nodes
-    node_box = torch.cat([mesh.bbox_min, mesh.bbox_max,
-                          torch.zeros((nn, 2), dtype=_F32, device=mesh.bbox_min.device)], dim=1)
-    node_link = torch.stack([mesh.hit_next, mesh.miss_next, mesh.tri_start, mesh.tri_count],
-                            dim=1).to(torch.int32)
+    """The mesh kernels' instance table inst_tbl [I,8] f32 (transmission,
+    absorption, shadow Beer factor, 1 pad). The wide nodes, the plane table
+    and the triangle arrays are read as they are."""
     inst_tbl = torch.cat([mesh.inst_transmission[:, None], mesh.inst_absorption, mesh.inst_beer,
                           torch.zeros_like(mesh.inst_transmission)[:, None]], dim=1)
-    return node_box.contiguous(), node_link.contiguous(), inst_tbl.contiguous()
+    return inst_tbl.contiguous()
+
+
+def mesh_args(mesh, inst_tbl):
+    """The mesh tables as the _mesh entry points take them (render.cuh
+    MESH_PARAMS)."""
+    return [mesh.wide.data_ptr(), mesh.plane.data_ptr(), mesh.n0.data_ptr(), mesh.n1.data_ptr(),
+            mesh.n2.data_ptr(), mesh.edge1.data_ptr(), mesh.edge2.data_ptr(),
+            mesh.inst.data_ptr(), inst_tbl.data_ptr(), mesh.num_tris, mesh.num_inst]
+
+
+def check_mesh(mesh, name):
+    """Raise unless the mesh tables are what the walks take: contiguous
+    float32/int32 tables and a wide table whose deepest walk fits the
+    kernels' stack."""
+    for n in ("wide", "plane", "n0", "n1", "n2", "edge1", "edge2", "inst"):
+        if not getattr(mesh, n).is_contiguous():
+            raise ValueError(f"{name}: mesh.{n} is not contiguous")
+    if mesh.inst.dtype != torch.int32 or mesh.plane.dtype != _F32 or mesh.wide.dtype != _F32:
+        raise ValueError(f"{name}: mesh dtypes {mesh.inst.dtype}, {mesh.plane.dtype}, "
+                         f"{mesh.wide.dtype}")
+    if mesh.wide_stack > bvh.WALK_STACK:
+        raise ValueError(f"{name}: the wide BVH needs a walk stack of {mesh.wide_stack} "
+                         f"entries, the kernels hold {bvh.WALK_STACK}")
 
 
 def pack_tables(scene):
@@ -100,17 +121,13 @@ def _check(scene, cfg, name):
         raise ValueError(f"{name}: unsupported device {dev}")
     leaves = [(n, leaf) for n, leaf in zip(scene._fields, scene) if n != "mesh"]
     if scene.mesh is not None:
-        leaves += [(f"mesh.{n}", leaf) for n, leaf in zip(scene.mesh._fields, scene.mesh)]
+        leaves += [(f"mesh.{n}", leaf) for n, leaf in zip(scene.mesh._fields, scene.mesh)
+                   if torch.is_tensor(leaf)]
     for n, leaf in leaves:
         if leaf.device != dev:
             raise ValueError(f"{name}: scene.{n} on {leaf.device}, expected {dev}")
     if scene.mesh is not None:
-        mesh = scene.mesh
-        for n in ("plane", "n0", "n1", "n2", "edge1", "edge2", "inst"):
-            if not getattr(mesh, n).is_contiguous():
-                raise ValueError(f"{name}: mesh.{n} is not contiguous")
-        if mesh.inst.dtype != torch.int32 or mesh.plane.dtype != _F32:
-            raise ValueError(f"{name}: mesh dtypes {mesh.inst.dtype}, {mesh.plane.dtype}")
+        check_mesh(scene.mesh, name)
     if cfg.photon_debug_mode:  # num_photons is not read: the caustics pass follows K1
         raise NotImplementedError("photon debug modes: not ported yet")
     if not (1 <= cfg.max_soft_samples <= 16):
@@ -119,23 +136,27 @@ def _check(scene, cfg, name):
             | int(cfg.any_absorption) << 3)
 
 
-def _launch(entry, scene, cfg, flags, tables, lead):
-    """Call the library's `entry` (its _mesh form for a scene with meshes)
-    on the current stream: the packed tables, the `lead` arguments, the
-    configuration, then the mesh tables."""
-    ftab, itab, mesh_tables = tables
+def _launch(entry, scene, cfg, flags, tables, lead, counts=None):
+    """Call the library's `entry` (its _mesh form for a scene with meshes,
+    its _mesh_count form given `counts`) on the current stream: the packed
+    tables, the `lead` arguments, the configuration, then the mesh tables."""
+    ftab, itab, inst_tbl = tables
     args = [ftab.data_ptr(), itab.data_ptr(), *lead, cfg.width, cfg.height,
             scene.sphere_capacity, scene.plane_capacity, scene.box_capacity,
             scene.light_capacity, cfg.samples_per_pixel, cfg.max_bounces, cfg.max_queue_iters,
             cfg.max_soft_samples, flags, float(cfg.aspect_ratio)]
     if scene.mesh is not None:
         entry += "_mesh"
-        mesh = scene.mesh
-        node_box, node_link, inst_tbl = mesh_tables
-        args += [node_box.data_ptr(), node_link.data_ptr(), mesh.plane.data_ptr(),
-                 mesh.n0.data_ptr(), mesh.n1.data_ptr(), mesh.n2.data_ptr(),
-                 mesh.edge1.data_ptr(), mesh.edge2.data_ptr(), mesh.inst.data_ptr(),
-                 inst_tbl.data_ptr(), mesh.num_nodes, mesh.num_tris, mesh.num_inst]
+        args += mesh_args(scene.mesh, inst_tbl)
+    if counts is not None:
+        if scene.mesh is None:
+            raise ValueError(f"{entry}: walk counts need a scene with meshes")
+        if (counts.device != scene.cam_pos.device or counts.dtype != torch.int64
+                or tuple(counts.shape) != (len(bvh.WALK_CLASSES), 4)):
+            raise ValueError(f"{entry}: counts {counts.dtype} {tuple(counts.shape)} on "
+                             f"{counts.device}, expected int64 (4, 4) on the scene's device")
+        entry += "_count"
+        args.append(counts.data_ptr())
     lib = _build.load_library()
     dev = scene.cam_pos.device
     with torch.cuda.device(dev):
@@ -143,13 +164,13 @@ def _launch(entry, scene, cfg, flags, tables, lead):
     _build.check(err, entry)
 
 
-def render_accum(scene, cfg) -> torch.Tensor:
+def render_accum(scene, cfg, counts=None) -> torch.Tensor:
     """K1: the [NUM_CH, height, width] accumulator planes of the frame
     (K1-mesh when the scene has meshes)."""
     if scene.cam_pos.device.type == "cpu":
         return R.render_accum(scene, cfg)
     if scene.mesh is not None:
-        return render_accum_mesh(scene, cfg)
+        return render_accum_mesh(scene, cfg, counts)
     flags = _check(scene, cfg, "render_accum")
     out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
     _launch("rtvs_render_accum", scene, cfg, flags, pack_tables(scene), [out.data_ptr()])
@@ -157,7 +178,7 @@ def render_accum(scene, cfg) -> torch.Tensor:
     return out
 
 
-def render_accum_mesh(scene, cfg) -> torch.Tensor:
+def render_accum_mesh(scene, cfg, counts=None) -> torch.Tensor:
     """K1-mesh: render_accum for a scene with triangle meshes."""
     if scene.cam_pos.device.type == "cpu":
         return R.render_accum(scene, cfg)
@@ -165,12 +186,12 @@ def render_accum_mesh(scene, cfg) -> torch.Tensor:
         raise ValueError("render_accum_mesh: the scene has no mesh leaf")
     flags = _check(scene, cfg, "render_accum_mesh")
     out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
-    _launch("rtvs_render_accum", scene, cfg, flags, pack_tables(scene), [out.data_ptr()])
+    _launch("rtvs_render_accum", scene, cfg, flags, pack_tables(scene), [out.data_ptr()], counts)
     render_accum_mesh.launches += 1
     return out
 
 
-def render_phase_a(scene, cfg, tables=None) -> torch.Tensor:
+def render_phase_a(scene, cfg, tables=None, counts=None) -> torch.Tensor:
     """K7, phase A of the two-phase renderer (spp 1): the [NUM_CH_A,
     height, width] planes of one DFS iteration per pixel and the
     continuation it spawned. `tables`: pack_tables(scene), when the caller
@@ -183,26 +204,30 @@ def render_phase_a(scene, cfg, tables=None) -> torch.Tensor:
     out = torch.empty((R.NUM_CH_A, cfg.height, cfg.width), dtype=_F32,
                       device=scene.cam_pos.device)
     _launch("rtvs_render_phase_a", scene, cfg, flags,
-            pack_tables(scene) if tables is None else tables, [out.data_ptr()])
+            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts)
     render_phase_a.launches += 1
     return out
 
 
-def render_phase_b(scene, cfg, order, count, acc, tables=None) -> torch.Tensor:
+def render_phase_b(scene, cfg, order, count, acc, hits, tables=None,
+                   counts=None) -> torch.Tensor:
     """K8, phase B of the two-phase renderer (spp 1): resumes the first
-    `count` ([1] int32) pixels of `order` ([L] int32 pixel ids) and folds
-    each subtree into the phase-A planes `acc` ([NUM_CH, H, W] float32,
-    updated in place and returned). The count stays on the device: the
-    kernel reads it, so the launch needs no host sync."""
+    `count` ([1] int32) pixels of `order` ([L] int32 pixel ids) from the
+    primary rays' closest hits K7 traced (`hits`, its [NUM_CH_HIT, H, W]
+    planes from CH_HIT) and folds each subtree into the phase-A planes
+    `acc` ([NUM_CH, H, W] float32, updated in place and returned). The
+    count stays on the device: the kernel reads it, so the launch needs no
+    host sync."""
     if scene.cam_pos.device.type == "cpu":
-        return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc)
+        return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc, hits)
     if cfg.samples_per_pixel != 1:
         raise ValueError(f"render_phase_b: samples_per_pixel {cfg.samples_per_pixel}, not 1")
     flags = _check(scene, cfg, "render_phase_b")
     dev = scene.cam_pos.device
     for name, t, dtype, shape in (("order", order, torch.int32, (order.numel(),)),
                                   ("count", count, torch.int32, (1,)),
-                                  ("acc", acc, _F32, (R.NUM_CH, cfg.height, cfg.width))):
+                                  ("acc", acc, _F32, (R.NUM_CH, cfg.height, cfg.width)),
+                                  ("hits", hits, _F32, (R.NUM_CH_HIT, cfg.height, cfg.width))):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"render_phase_b: {name} {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"expected {dtype} {shape} on {dev}")
@@ -212,7 +237,8 @@ def render_phase_b(scene, cfg, order, count, acc, tables=None) -> torch.Tensor:
         raise ValueError(f"render_phase_b: {order.numel()} lanes for {cfg.width * cfg.height} pixels")
     _launch("rtvs_render_phase_b", scene, cfg, flags,
             pack_tables(scene) if tables is None else tables,
-            [order.data_ptr(), count.data_ptr(), acc.data_ptr(), order.numel()])
+            [order.data_ptr(), count.data_ptr(), acc.data_ptr(), hits.data_ptr(), order.numel()],
+            counts)
     render_phase_b.launches += 1
     return acc
 

@@ -96,13 +96,14 @@ def _apply_skip(t, obj_type, skip_type, skip_index):
 
 
 def trace_closest(scene, origin, direction, tmin, tmax, skip_type=None, skip_index=None,
-                  thick_inst=None, active=None) -> Hit:
+                  thick_inst=None, active=None, count_class=None) -> Hit:
     """Closest hit over spheres ++ planes ++ boxes (the global primitive
     order of the reference's procedural BLAS, so mat_slot = global index),
     then the mesh instances, whose material rows follow. Ties go to the
     first primitive in that order, and to an analytic hit over a triangle.
     thick_inst rides the mesh walk for deferred same-instance thickness
-    (bvh.traverse_closest); the mesh is walked on `active` lanes only."""
+    (bvh.traverse_closest); the mesh is walked on `active` lanes only;
+    count_class classes its lanes for the mesh's walk_counts."""
     n = origin.shape[0]
     dev = origin.device
     if skip_type is None:
@@ -140,7 +141,7 @@ def trace_closest(scene, origin, direction, tmin, tmax, skip_type=None, skip_ind
         return Hit(hit=hit, t=t, obj_type=obj_type, obj_index=obj_index, mat_slot=best)
     mh = bvh.traverse_closest(scene.mesh, origin, direction, tmin, tmax,
                               skip_active=skip_type == C.OBJECT_TYPE_MESH, skip_inst=skip_index,
-                              thick_inst=thick_inst, active=active)
+                              thick_inst=thick_inst, active=active, count_class=count_class)
     better = mh.hit & (mh.t < t)
     inst = mh.inst.to(torch.int64)
     return Hit(hit=hit | better, t=torch.where(better, mh.t, t),

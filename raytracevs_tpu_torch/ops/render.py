@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from . import sampling, vec, wavefront
+from .. import constants as C
+from . import intersect, sampling, vec, wavefront
 
 # Accumulator planes [NUM_CH, H, W] (megakernel.py:118-136)
 CH_COLOR = 0  # 3
@@ -37,7 +38,12 @@ NUM_CH = 32
 CH_SPAWN_VALID = 32
 CH_SPAWN_O = 33  # 3
 CH_SPAWN_D = 36  # 3
-NUM_CH_A = 39
+# ... and the primary ray's closest hit, which phase B takes instead of
+# tracing the primary again: hit (1 or 0), t, object type, object index,
+# triangle (the three as int32 bits), u, v
+CH_HIT = 39  # 7
+NUM_CH_HIT = 7
+NUM_CH_A = 46
 # Phase B pads its lanes to a multiple of this, so PyTorch's CPU loops run
 # every lane in their vector body: a lane's arithmetic then does not depend
 # on where it sits (a scalar tail can round torch.pow differently)
@@ -156,26 +162,76 @@ def _require_spp1(cfg, name):
                          f"got {cfg.samples_per_pixel}")
 
 
+def _primary_hit_planes(scene, cfg):
+    """[NUM_CH_HIT, H*W] the primary ray's closest hit as iteration 0
+    traces it (wavefront._hit_context); no hit (t 1e30, type INVALID)
+    where the primary is not traced (max_bounces 0)."""
+    dev = scene.cam_pos.device
+    n = cfg.width * cfg.height
+    zero = torch.zeros((n,), dtype=torch.float32, device=dev)
+    zero_i = torch.zeros((n,), dtype=torch.int64, device=dev)
+    if cfg.max_bounces > 0:
+        idx = torch.arange(n, device=dev)
+        primary = primary_rays(scene, cfg, idx % cfg.width, idx // cfg.width, 0,
+                               sampling.blue_noise_tile(dev))
+        h = wavefront._hit_context(scene, cfg, primary,
+                                   torch.ones((n,), dtype=torch.bool, device=dev))[1]["hit"]
+    else:
+        h = intersect.Hit(hit=zero > 0.0, t=torch.full_like(zero, 1e30),
+                          obj_type=torch.full_like(zero_i, intersect.INVALID), obj_index=zero_i,
+                          mat_slot=zero_i)
+    bits = torch.stack([h.obj_type, h.obj_index, zero_i if h.tri is None else h.tri])
+    return torch.cat([h.hit.to(torch.float32)[None], h.t[None],
+                      bits.to(torch.int32).view(torch.float32),
+                      (zero if h.bary_u is None else h.bary_u)[None],
+                      (zero if h.bary_v is None else h.bary_v)[None]])
+
+
+def hit_from_planes(scene, planes):
+    """The intersect.Hit of the lanes' primary rays from their CH_HIT
+    planes ([NUM_CH_HIT, M]), as intersect.trace_closest returns it for
+    those rays (no thickness query pending)."""
+    m = planes.shape[1]
+    dev = planes.device
+    obj_type, obj_index, tri = planes[2:5].view(torch.int32).to(torch.int64)
+    s, p, b = scene.sphere_capacity, scene.plane_capacity, scene.box_capacity
+    slot = torch.where(obj_type == C.OBJECT_TYPE_SPHERE, obj_index, torch.where(
+        obj_type == C.OBJECT_TYPE_PLANE, s + obj_index, torch.where(
+            obj_type == C.OBJECT_TYPE_BOX, s + p + obj_index, torch.where(
+                obj_type == C.OBJECT_TYPE_MESH, s + p + b + obj_index, 0))))
+    mesh = {}
+    if scene.mesh is not None:
+        mesh = dict(tri=tri, bary_u=planes[5], bary_v=planes[6],
+                    thick_hit=torch.zeros((m,), dtype=torch.bool, device=dev),
+                    thick_t=torch.full((m,), 1e30, dtype=torch.float32, device=dev))
+    return intersect.Hit(hit=planes[0] > 0.5, t=planes[1], obj_type=obj_type,
+                         obj_index=obj_index, mat_slot=slot, **mesh)
+
+
 def render_accum_phase_a(scene, cfg) -> torch.Tensor:
     """Phase A of the two-phase renderer, the plain version of kernel K7
     (raytracevs_tpu/ops/pallas/megakernel.py::make_kernel(phase_a=True)),
     spp 1: one DFS iteration per pixel (the primary ray traced and shaded,
     its depth-0 records, its children). Returns [NUM_CH_A, height, width]:
-    the NUM_CH accumulator planes of that iteration, then the continuation
-    it spawned (valid, origin, direction; (0,0,0) and (0,0,1) where none)."""
+    the NUM_CH accumulator planes of that iteration, the continuation it
+    spawned (valid, origin, direction; (0,0,0) and (0,0,1) where none),
+    then the primary ray's closest hit (CH_HIT)."""
     _require_spp1(cfg, "render_accum_phase_a")
     planes, cur = _render_samples(scene, cfg, max_iters=1)
     h, w = cfg.height, cfg.width
     spawn = torch.cat([cur.valid.to(torch.float32)[None], cur.origin.T, cur.direction.T])
-    return torch.cat([planes, spawn.reshape(7, h, w)], dim=0).contiguous()
+    return torch.cat([planes, spawn.reshape(7, h, w),
+                      _primary_hit_planes(scene, cfg).reshape(NUM_CH_HIT, h, w)],
+                     dim=0).contiguous()
 
 
-def render_accum_phase_b(scene, cfg, order, acc) -> torch.Tensor:
+def render_accum_phase_b(scene, cfg, order, acc, hits) -> torch.Tensor:
     """Phase B of the two-phase renderer, the plain version of kernel K8
     (megakernel.py::make_kernel_b), spp 1. Resumes each pixel listed in
     `order` ([M] row-major pixel ids whose phase A spawned a continuation,
     in any order): re-derives its iteration-0 state (the primary ray, its
-    children without lighting, the continuation and stack), runs the DFS
+    children without lighting from the closest hit phase A traced, `hits`
+    [NUM_CH_HIT, height, width], the continuation and stack), runs the DFS
     from iteration 1, and folds the subtree into the phase-A planes `acc`
     ([NUM_CH, height, width], updated in place and returned): colour
     added, rays added, bounce the maximum. Nothing else changes: the
@@ -192,7 +248,8 @@ def render_accum_phase_b(scene, cfg, order, acc) -> torch.Tensor:
     primary = primary._replace(valid=live)
     # a fresh primary is never capped (max_bounces >= 1 where phase A
     # spawned) nor killed (throughput 1)
-    ch = wavefront.children_only(scene, cfg, px, py, 0, primary, live)
+    hit = hit_from_planes(scene, hits.reshape(NUM_CH_HIT, -1)[:, pix])
+    ch = wavefront.children_only(scene, cfg, px, py, 0, primary, live, hit)
     cur, stack = wavefront.advance(primary, ch, live, wavefront.empty_stack(n, dev))
     sub, _, _ = wavefront.dfs(scene, cfg, px, py, 0, cur, stack,
                               wavefront.new_accumulators(n, dev),

@@ -9,7 +9,8 @@ records, and the continuation it spawned. The continuations are sorted by
 direction octant, then by the Morton code of their origin, so that rays
 that will walk the same BVH nodes sit side by side. Phase B resumes each
 sorted continuation in its own thread: it re-derives the pixel's
-iteration-0 state without lighting and runs the DFS from iteration 1, then
+iteration-0 state without lighting from the closest hit phase A traced
+(phase A's hit planes) and runs the DFS from iteration 1, then
 adds the subtree's colour and rays into the pixel's planes and takes the
 maximum of its bounce count.
 
@@ -93,4 +94,5 @@ def render_accum_two_phase(scene, cfg, aperture_size) -> torch.Tensor:
     tables = MK.pack_tables(scene) if scene.cam_pos.device.type == "cuda" else None
     planes = MK.render_phase_a(scene, cfg, tables)
     order, count = coherence_order(planes)
-    return MK.render_phase_b(scene, cfg, order, count, planes[:R.NUM_CH], tables)
+    return MK.render_phase_b(scene, cfg, order, count, planes[:R.NUM_CH], planes[R.CH_HIT:],
+                             tables)

@@ -118,12 +118,13 @@ def _brdf_terms(nrm, view, l_vec, ndotl, f0, roughness, metallic, diffuse_color)
     return diff_brdf, spec_brdf
 
 
-def _hit_context(scene, cfg, state: RayState, traced):
+def _hit_context(scene, cfg, state: RayState, traced, hit=None):
     """The closest hit of each lane's ray and its material (RayGen.hlsl:
     174-281, ClosestHit.hlsl:54-125): what the lighting and the children
     of shade_and_spawn both read. Returns (state, hx, beer): the state with
     a deferred mesh-glass Beer factor in its throughput, the hit context,
-    and that factor (None when the scene resolves no mesh thickness)."""
+    and that factor (None when the scene resolves no mesh thickness).
+    `hit`: the lanes' closest hit when already traced (intersect.Hit)."""
     n = state.origin.shape[0]
     dev = state.origin.device
     ones3 = torch.ones((n, 3), dtype=torch.float32, device=dev)
@@ -138,18 +139,21 @@ def _hit_context(scene, cfg, state: RayState, traced):
     # 650/776 share the origin); the Beer factor the reference applied at
     # spawn multiplies the path here instead, and the product is the same.
     beer = None
+    cls = (state.depth != 0).to(torch.int64)  # walk counts: primary or secondary
     if scene.mesh is not None and cfg.any_absorption:
         thick_inst = torch.where(traced, (state.ray_flags >> 8) - 1, -1)
-        hit = intersect.trace_closest(scene, state.origin, state.direction, tmin, tmax, skip_t,
-                                      skip_i, thick_inst=thick_inst, active=traced)
+        if hit is None:
+            hit = intersect.trace_closest(scene, state.origin, state.direction, tmin, tmax,
+                                          skip_t, skip_i, thick_inst=thick_inst, active=traced,
+                                          count_class=cls)
         t_th = torch.where((thick_inst >= 0) & hit.thick_hit, hit.thick_t, 0.0)
         tscale = t_th * C.GLASS_ABSORPTION_SCALE
         ab = scene.mesh.inst_absorption[torch.clamp(thick_inst, 0, scene.mesh.num_inst - 1)]
         beer = vec.where3(t_th > 0.0, torch.exp(-ab * tscale[:, None]), ones3)
         state = state._replace(throughput=state.throughput * beer)
-    else:
+    elif hit is None:
         hit = intersect.trace_closest(scene, state.origin, state.direction, tmin, tmax, skip_t,
-                                      skip_i, active=traced)
+                                      skip_i, active=traced, count_class=cls)
     hit_mask = hit.hit & traced
     pos, nrm, front_face = intersect.surface_normal(scene, hit, state.origin, state.direction)
 
@@ -283,13 +287,14 @@ def _spawn_children(scene, cfg, px, py, sample_index, state: RayState, hx):
     return children, rays
 
 
-def children_only(scene, cfg, px, py, sample_index, state: RayState, traced):
+def children_only(scene, cfg, px, py, sample_index, state: RayState, traced, hit=None):
     """The children of one WorkItem per lane without its lighting, records
     or shadow rays: the re-derivation of iteration 0 in phase B of the
     two-phase renderer (raytracevs_tpu/ops/pallas/megakernel.py::
     _children_only_k). The same hit, material, RNG and spawn arithmetic as
-    shade_and_spawn, so the children are the same bit for bit."""
-    state, hx, _ = _hit_context(scene, cfg, state, traced)
+    shade_and_spawn, so the children are the same bit for bit. `hit`: the
+    lanes' closest hit as phase A traced it, else traced here."""
+    state, hx, _ = _hit_context(scene, cfg, state, traced, hit)
     return _spawn_children(scene, cfg, px, py, sample_index, state, hx)[0]
 
 

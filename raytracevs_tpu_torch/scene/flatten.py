@@ -316,7 +316,8 @@ def flatten_scene(scene: SceneData, *, frame_index: int = 0,
             put_material(s_cap + p_cap + b_cap + inst_idx, mi.material)
             inst_trans.append(mi.material.transmission)
             inst_absorb.append(np.asarray(mi.material.absorption, np.float64)[:3])
-        mesh = bvh_mod.mesh_arrays(bvh_mod.combine_blas(world_blas), np.asarray(inst_trans, f32),
+        forest = bvh_mod.combine_blas(world_blas, wide=blas_cache.combined_wide(world_blas))
+        mesh = bvh_mod.mesh_arrays(forest, np.asarray(inst_trans, f32),
                                    np.asarray(inst_absorb, f32))
 
     fwd, right, up = camera_basis(scene.camera.position, scene.camera.look_at, scene.camera.up)

@@ -1,111 +1,249 @@
-"""K1 and K1-mesh of this tree against another checkout's, on one CUDA card.
+"""The render kernels K1, K1-mesh, K7 and K8 and the photon trace K5 of this
+tree against another checkout's, on one CUDA card, and the host's scene
+update of both.
 
-Builds the kernel library of this tree and of another checkout of the port
-(for example the parent commit, unpacked with `git archive`), each from cold
-into a directory of its own, and times each build; then builds this tree's
-sources once more with a single nvcc for all files, the other way to build
-them, and times that. It loads both libraries into one process and times
-kernel K1 on the demo scene and K1-mesh on the mesh demo scene
-(chip_smoke.py's scenes) at 1920x1080, spp 2 and spp 1, calling the two
-libraries in turns (other, this, this, other) for `--rounds` rounds: each
-call is one launch on tables packed beforehand, timed by CUDA events. Every
-call's planes must equal the first call's bit for bit. It prints each
-time, the median and range per library, ptxas's registers and stack for
-K1's instantiations in each build, the card's name and power limit, and
-as its last line a JSON object of the results.
+Builds the kernel library of another checkout of the port (for example the
+parent commit, unpacked with `git archive`) and of this tree, each from cold
+into a directory of its own, both builds started together, and times each.
+It loads the other checkout's package under another name beside this one, so
+each library is called through its own wrappers and tables, and times
+(chip_smoke.py's scenes, 1920x1080): K1 on the demo scene and K1-mesh on
+the mesh demo scene at spp 2 and spp 1, K7 and K8 on both at spp 1 (K8 on
+its own tree's K7 planes and sorted order), and K5 on the demo scene at its
+16,384 photons (the launch alone; the frame's wrapper also packs the
+tables), calling the libraries in turns (other, this, then back) for
+`--rounds` rounds: each call is one launch on tables packed beforehand,
+timed by CUDA events. Every call's planes must equal the first call's bit
+for bit.
 
-    python3 scripts/torch_k1_ab.py --other DIR [--rounds 5]
+Then the host, each tree in turns, the device synchronised around each
+call: frame 0 of the mesh demo scene in a new Engine (update_scene with
+the SAH builds, and in this tree the collapse into wide nodes), three
+times; then `--frames` orbiting frames (update_scene, which retransforms,
+and to_device alone), with each frame's difference this - other of their
+sum; then this tree's parts: to_device's uploads and gathers, the
+collapse of the 199,712-triangle BLAS alone, and the wide table's work a
+frame (the kept combined table's check and the box gather).
+
+It prints each time, the median and range per library, ptxas's
+registers, stack and spills of the render kernels in each build, the
+card's name and power limit, and as its last line a JSON object of the
+results.
+
+    python3 scripts/torch_k1_ab.py --other DIR [--rounds 5] [--frames 40]
 
 It needs one CUDA device, nvcc, and the other checkout at DIR.
 """
 import argparse
-import ctypes
+import importlib
+import importlib.util
 import json
 import os
 import statistics
 import subprocess
 import sys
+import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, HERE)
 
-# Run in a checkout: build its library from cold into argv[1], with its own
-# build (mode "own") or with one nvcc for every .cu file ("one_nvcc").
+# Run in a checkout: build its library from cold into argv[1].
 BUILD = r"""
-import json, os, shutil, subprocess, sys, time
+import json, shutil, sys, time
 from raytracevs_tpu_torch.ops.cuda import _build as B
-out, mode = sys.argv[1], sys.argv[2]
+out = sys.argv[1]
 shutil.rmtree(out, ignore_errors=True)
 B.BUILD_DIR = out
-if mode == "one_nvcc":
-    def build(path):
-        os.makedirs(out, exist_ok=True)
-        cus = [p for p in B._sources() if p.endswith(".cu")]
-        subprocess.run([B.find_nvcc(), *B.NVCC_FLAGS, *B.LINK_FLAGS, "-o", path, *cus],
-                       check=True, capture_output=True)
-    B.build = build
 t0 = time.perf_counter()
 B.load_library()
 print(json.dumps({"path": B.library_path(), "s": time.perf_counter() - t0}))
 """
-ENTRIES = ("rtvs_render_accum", "rtvs_render_accum_mesh")
+KERNELS = ("render_accum_kernel", "render_phase_b_kernel", "photon_trace_kernel")
 
 
-def build_lib(tree, name, mode):
+def start_build(tree, name):
     out = os.path.join(tree, "raytracevs_tpu_torch", "_build", f"ab_{name}")
-    r = subprocess.run([sys.executable, "-c", BUILD, out, mode], cwd=tree, capture_output=True,
-                       text=True, check=True)
-    return json.loads(r.stdout.strip().splitlines()[-1])
+    return subprocess.Popen([sys.executable, "-c", BUILD, out], cwd=tree,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def k1_ptxas(log):
-    """(entry, ptxas's line on its registers) for each K1 instantiation."""
-    rows, entry = [], None
+def finish_build(proc):
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"build failed: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def ptxas(log):
+    """(kernel, ptxas's lines on its registers and stack) per render kernel."""
+    rows, entry, props = [], None, ""
     with open(log) as f:
         for line in f:
             if "Compiling entry function" in line:
-                entry = line.split("'")[1] if "render_accum_kernel" in line else None
+                name = line.split("'")[1]
+                entry = name if any(k in name for k in KERNELS) else None
+            elif entry and "Function properties" in line:
+                props = ""
+            elif entry and ("stack frame" in line):
+                props = line.split(":", 1)[-1].strip()
             elif entry and "registers" in line:
-                rows.append((entry, line.split(":", 1)[1].strip()))
+                rows.append((entry, f"{line.split(':', 1)[1].strip()}; {props}"))
                 entry = None
     return rows
 
 
-def load(path):
-    from raytracevs_tpu_torch.ops.cuda import _build
+def load_tree(path, alias):
+    """The port's package of the checkout at `path`, imported as `alias`."""
+    pkg = os.path.join(path, "raytracevs_tpu_torch")
+    spec = importlib.util.spec_from_file_location(alias, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def load_lib(MK, path):
+    import ctypes
 
     lib = ctypes.CDLL(path)
-    for name in ENTRIES:
-        fn = getattr(lib, name)
-        fn.argtypes = list(_build.SIGNATURES[name])
-        fn.restype = ctypes.c_int
+    for name, argtypes in MK._build.SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
 
 
-def launch_ms(MK, R, lib, sc, cfg, flags, tables):
-    """(planes, ms) of one K1 launch from library `lib`, by CUDA events."""
-    out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=torch.float32,
-                      device=sc.cam_pos.device)
+def timed(build, lib, fn):
+    """(fn(), ms) with package module `build` (its ops.cuda._build) handing
+    out library `lib`, by CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    saved = MK._build.load_library
-    MK._build.load_library = lambda: lib
+    saved = build.load_library
+    build.load_library = lambda: lib
     try:
         torch.cuda.synchronize()
         start.record()
-        MK._launch("rtvs_render_accum", sc, cfg, flags, tables, [out.data_ptr()])
+        out = fn()
         end.record()
         torch.cuda.synchronize()
     finally:
-        MK._build.load_library = saved
+        build.load_library = saved
     return out, start.elapsed_time(end)
+
+
+class Tree:
+    """One checkout's package, its scenes on the card and its library."""
+
+    def __init__(self, pkg, CS):
+        self.P = pkg
+        name = pkg.__name__
+        self.MK = importlib.import_module(f"{name}.ops.cuda.megakernel")
+        self.R = importlib.import_module(f"{name}.ops.render")
+        self.TP = importlib.import_module(f"{name}.ops.twophase")
+        self.D = importlib.import_module(f"{name}.scene.data")  # its own scene classes
+        self.PP = importlib.import_module(f"{name}.ops.photon")
+        self.PK = importlib.import_module(f"{name}.ops.cuda.photon_kernels")
+        mc = importlib.import_module(f"{name}.io.mesh_cache")
+        self.meshes = mc.MeshCacheService(".")
+        for mname, (rings, segs, radius) in CS.MESH_DEMO.items():
+            verts, indices = CS.uv_sphere(rings, segs, radius)
+            self.meshes.register(mname, mc.CachedMesh(
+                name=mname, vertices=verts, indices=indices, bounds_min=np.full(3, -radius),
+                bounds_max=np.full(3, radius)))
+        self.cache = pkg.BLASCache()
+        self.lib = None
+
+    def scene(self, CS, build, meshes):
+        P = self.P
+        s = build(self.D, 0)
+        flat = P.flatten_scene(P.sanitize_scene(s), aspect=CS.FULL_W / CS.FULL_H,
+                               mesh_service=self.meshes if meshes else None,
+                               blas_cache=self.cache)
+        return s, P.to_device(flat, torch.device("cuda"))
+
+
+def host_ab(trees, CS, frames):
+    """The host's scene update of each tree in turns (the module
+    docstring's second part), the device synchronised around each call;
+    prints each time and returns them."""
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def show(label, ts):
+        print(f"{label}: median {statistics.median(ts):.3f} ms ({[round(x, 3) for x in ts]})",
+              flush=True)
+
+    engines, first = {}, {tn: [] for tn in trees}
+    for r in range(3):  # frame 0 in a new Engine: the SAH builds (and collapses)
+        for tn in (("other", "this") if r % 2 == 0 else ("this", "other")):
+            tree = trees[tn]
+            eng = tree.P.Engine(CS.FULL_W, CS.FULL_H, device="cuda", mesh_service=tree.meshes)
+            scene0 = CS.mesh_demo_scene(tree.D, 0)
+            first[tn].append(host_ms(lambda: eng.update_scene(scene0, **CS.OVERRIDES)))
+            engines[tn] = eng
+    upd = {tn: [] for tn in trees}
+    dev = {tn: [] for tn in trees}
+    for f in range(1, 1 + frames):
+        for tn in (("other", "this") if f % 2 else ("this", "other")):
+            eng, tree = engines[tn], trees[tn]
+            scene = CS.mesh_demo_scene(tree.D, f)
+            upd[tn].append(host_ms(lambda: eng.update_scene(scene, **CS.OVERRIDES)))
+            dev[tn].append(host_ms(lambda: tree.P.to_device(eng._flat, eng.device)))
+    diff = [(upd["this"][i] + dev["this"][i]) - (upd["other"][i] + dev["other"][i])
+            for i in range(frames)]
+    # this tree's parts: to_device's uploads and gathers, the collapse of
+    # the largest BLAS, the wide table's work a frame
+    import types
+
+    import raytracevs_tpu_torch.ops.bvh as B
+
+    eng = engines["this"]
+    mesh, d = eng._flat.mesh, eng.device
+    big = eng._blas_cache._cache["BigSphere"][1]  # (fingerprint, object-space BLAS)
+    kept = [types.SimpleNamespace(wide=w) for w in eng._blas_cache._combined[0]]
+    dm = B.to_device(mesh, d, 4.0)
+    topo, union = mesh.wide_topology.on(d)
+    parts = {"to_device": lambda: B.to_device(mesh, d, 4.0),
+             "topology upload": lambda: torch.from_numpy(np.concatenate(
+                 [mesh.wide_topology.child, mesh.wide_topology.src], axis=1)).to(d),
+             "fine uploads": lambda: [torch.from_numpy(np.ascontiguousarray(
+                 getattr(mesh, f))).to(d) for f in B.FINE_FIELDS],
+             "wide_table": lambda: B.wide_table(topo, union, dm.bbox_min, dm.bbox_max),
+             "wide work a frame (combined_wide kept + wide_table)": lambda: (
+                 eng._blas_cache.combined_wide(kept),
+                 B.wide_table(*mesh.wide_topology.on(d), dm.bbox_min, dm.bbox_max)),
+             f"collapse of the {len(big.v0)}-triangle BLAS": lambda: B.collapse(
+                 big.tri_start, big.tri_count, big.miss_next)}
+    for name, fn in parts.items():
+        show(f"host this, {name}", [host_ms(fn) for _ in range(10)])
+    host = {}
+    for tn in trees:
+        host[tn] = {"first_update_scene_ms": first[tn], "update_scene_ms": upd[tn],
+                    "to_device_ms": dev[tn]}
+        show(f"host {tn}, frame 0 update_scene (SAH builds)", first[tn])
+        show(f"host {tn}, update_scene", upd[tn])
+        show(f"host {tn}, to_device", dev[tn])
+    q = statistics.quantiles(diff, n=4)
+    print(f"host this - other, update_scene + to_device a frame: median {statistics.median(diff):.3f}"
+          f" ms, quartiles {q[0]:.3f} / {q[2]:.3f} ms over {len(diff)} frames", flush=True)
+    host["diff_ms"] = diff
+    return host
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True, help="another checkout of the repo")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--frames", type=int, default=40, help="orbiting frames a tree")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_ab: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -114,59 +252,111 @@ def main():
     smi = smi.strip().splitlines()[0]
     other = os.path.abspath(args.other)
 
-    builds = {"other": build_lib(other, "other", "own"), "this": build_lib(HERE, "this", "own"),
-              "this_one_nvcc": build_lib(HERE, "this_one_nvcc", "one_nvcc")}
+    names = ["other", "this"]
+    procs = {n: start_build(other if n == "other" else HERE, n) for n in names}
+    builds = {n: finish_build(p) for n, p in procs.items()}
     for name, b in builds.items():
         print(f"build {name}: {b['s']:.1f} s -> {b['path']}", flush=True)
-    for name in ("other", "this"):
-        for entry, regs in k1_ptxas(builds[name]["path"][:-3] + ".log"):
+        for entry, regs in ptxas(b["path"][:-3] + ".log"):
             print(f"ptxas {name} {entry}: {regs}", flush=True)
-    libs = {name: load(builds[name]["path"]) for name in ("other", "this")}
 
     import chip_smoke as CS
-    import raytracevs_tpu_torch as P
-    from raytracevs_tpu_torch.ops import render as R
-    from raytracevs_tpu_torch.ops.cuda import megakernel as MK
-    from raytracevs_tpu_torch.scene import data as D
+    import raytracevs_tpu_torch as this_pkg
 
-    dev = torch.device("cuda")
-    meshes = CS.mesh_service(CS.MESH_DEMO)
-    aspect = CS.FULL_W / CS.FULL_H
-    scenes = {"K1, demo scene": (CS.demo_scene(D, 0), None),
-              "K1-mesh, mesh demo scene": (CS.mesh_demo_scene(D, 0), meshes)}
+    trees = {"other": Tree(load_tree(other, "rtvs_other"), CS), "this": Tree(this_pkg, CS)}
+    for n, tree in trees.items():
+        tree.lib = load_lib(tree.MK, builds[n]["path"])
+
+    cases = []  # (label, entry, build, meshes, overrides)
+    for label, build, meshes in (("demo scene", CS.demo_scene, False),
+                                 ("mesh demo scene", CS.mesh_demo_scene, True)):
+        k1 = "K1-mesh" if meshes else "K1"
+        cases += [(f"{k1}, {label}, spp 2", "rtvs_render_accum", build, meshes, CS.OVERRIDES),
+                  (f"{k1}, {label}, spp 1", "rtvs_render_accum", build, meshes, CS.SPP1),
+                  (f"K7, {label}, spp 1", "rtvs_render_phase_a", build, meshes, CS.SPP1),
+                  (f"K8, {label}, spp 1", "rtvs_render_phase_b", build, meshes, CS.SPP1)]
+    cases.append(("K5, demo scene, 16384 photons", "photon_trace", CS.demo_scene, False,
+                  CS.CAUSTICS))
     results = {}
-    for label, (scene, ms) in scenes.items():
-        sc = P.to_device(P.flatten_scene(P.sanitize_scene(scene), aspect=aspect,
-                                         mesh_service=ms), dev)
-        tables = MK.pack_tables(sc)
-        for over in (CS.OVERRIDES, CS.SPP1):
-            cfg = P.make_config(scene, CS.FULL_W, CS.FULL_H, **over)
-            flags = MK._check(sc, cfg, "torch_k1_ab")
-            case = f"{label}, spp {cfg.samples_per_pixel}"
-            ref, _ = launch_ms(MK, R, libs["other"], sc, cfg, flags, tables)  # warm-up
-            launch_ms(MK, R, libs["this"], sc, cfg, flags, tables)
-            times = {"other": [], "this": []}
-            same = True
-            for _ in range(args.rounds):
-                for name in ("other", "this", "this", "other"):
-                    out, t = launch_ms(MK, R, libs[name], sc, cfg, flags, tables)
-                    same = same and torch.equal(out, ref)
-                    times[name].append(t)
-                    del out
-            del ref
-            if not same:
-                raise AssertionError(f"{case}: the two libraries' planes differ")
-            med = {n: statistics.median(ts) for n, ts in times.items()}
-            for n, ts in times.items():
-                print(f"{case}: {n} median {med[n]:.4f} ms, range {min(ts):.4f}-{max(ts):.4f} "
-                      f"ms over {len(ts)} launches: {[round(x, 4) for x in ts]}", flush=True)
-            print(f"{case}: this / other {med['this'] / med['other']:.4f}; planes bit-equal",
-                  flush=True)
-            results[case] = dict(times, median=med)
-        del sc, tables
+    order = names + names[::-1]
+    for label, entry, build, meshes, over in cases:
+        prep = {}
+        for tn, tree in trees.items():
+            s, sc = tree.scene(CS, build, meshes)
+            cfg = tree.P.make_config(s, CS.FULL_W, CS.FULL_H, **over)
+            flags = tree.MK._check(sc, cfg, "torch_k1_ab")
+            tables = tree.MK.pack_tables(sc)
+            extra = None
+            if entry == "photon_trace":
+                n = cfg.num_photons
+                dev = sc.cam_pos.device
+                em = tree.PP._emit_photons(sc, n)
+                outs = ([torch.empty((n, 3), device=dev) for _ in range(3)]
+                        + [torch.empty((n,), device=dev),
+                           torch.empty((n,), dtype=torch.bool, device=dev)])
+                idx = torch.arange(n, dtype=torch.int32, device=dev)
+                ptrs = [tables[0].data_ptr(), sc.sphere_capacity, sc.plane_capacity,
+                        sc.box_capacity, sc.mat_color.shape[0], sc.light_capacity, n,
+                        *(x.data_ptr() for x in em), idx.data_ptr(),
+                        *(x.data_ptr() for x in outs)]
+                extra = (em + (idx,), outs, ptrs)  # the tensors stay alive with the pointers
+            elif entry == "rtvs_render_phase_b":
+                a = tree.MK.render_phase_a(sc, cfg, tables)
+                o, c = tree.TP.coherence_order(a)
+                # K8 takes K7's hit planes where its tree's K7 writes them
+                hits = [a[tree.R.CH_HIT:]] if hasattr(tree.R, "CH_HIT") else []
+                extra = (a[:tree.R.NUM_CH].clone(), o, c, hits)
+            prep[tn] = (tree, sc, cfg, flags, tables, extra)
+
+        def call(n):
+            tree, sc, cfg, flags, tables, extra = prep[n]
+            R = tree.R
+            if entry == "photon_trace":
+                em, out, ptrs = extra
+                lib = tree.lib
+                _, t = timed(tree.MK._build, lib, lambda: lib.rtvs_photon_trace(
+                    *ptrs, torch.cuda.current_stream().cuda_stream))
+                m = out[4]  # the stored photons' fields (the rest is not written)
+                return torch.cat([out[c][m].reshape(-1) for c in range(4)] + [m.float()]), t
+            if entry == "rtvs_render_phase_b":
+                acc0, o, c, hits = extra
+                out = acc0.clone()
+                lead = [o.data_ptr(), c.data_ptr(), out.data_ptr(), *(h.data_ptr() for h in hits),
+                        o.numel()]
+            else:
+                ch = R.NUM_CH_A if entry == "rtvs_render_phase_a" else R.NUM_CH
+                out = torch.empty((ch, cfg.height, cfg.width), dtype=torch.float32,
+                                  device=sc.cam_pos.device)
+                lead = [out.data_ptr()]
+            return timed(tree.MK._build, tree.lib,
+                         lambda: tree.MK._launch(entry, sc, cfg, flags, tables, lead) or out)
+
+        ref, _ = call(names[0])  # warm-up
+        for n in names[1:]:
+            call(n)
+        times = {n: [] for n in names}
+        same = True
+        for _ in range(args.rounds):
+            for n in order:
+                out, t = call(n)
+                same = same and torch.equal(out[:ref.shape[0]], ref)
+                times[n].append(t)
+                del out
+        if not same:
+            raise AssertionError(f"{label}: the libraries' planes differ")
+        med = {n: statistics.median(ts) for n, ts in times.items()}
+        for n, ts in times.items():
+            print(f"{label}: {n} median {med[n]:.4f} ms, range {min(ts):.4f}-{max(ts):.4f} ms "
+                  f"over {len(ts)} launches", flush=True)
+        print(f"{label}: this / other {med['this'] / med['other']:.4f}; planes bit-equal",
+              flush=True)
+        results[label] = dict(times, median=med)
+        del prep, ref
+
+    host = host_ab(trees, CS, args.frames)
     print(smi)
     print(json.dumps({"card": smi, "build_s": {n: b["s"] for n, b in builds.items()},
-                      "k1": results}))
+                      "kernels": results, "host": host}))
 
 
 if __name__ == "__main__":

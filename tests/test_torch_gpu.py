@@ -1,6 +1,6 @@
 """The port's CUDA kernels K1 (analytic and mesh), K2-K4, the photon
-kernels K5-K6 and the two-phase kernels K7-K8 vs their plain PyTorch
-versions, on the card. Every test needs a CUDA device and skips without one. This file imports no JAX, so it runs where JAX is absent:
+kernels K5-K6, the two-phase kernels K7-K8 and the mesh walks alone vs
+their plain PyTorch versions, on the card. Every test needs a CUDA device and skips without one. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
@@ -9,7 +9,12 @@ of pixels; K2-K4 atol 1e-5 (the kernels round like the plain ops; they
 are built with --fmad=false); K5 store masks equal, store fields within
 tests/test_megakernel.py:190-197's bands; K6 |d| <= 1e-5 * max(1, |plain|);
 K7 and K8 as K1, and K7+K8 against K1 at spp 1: rays, bounce and record
-planes bit-equal, colour within 2e-5 * max(1, |K1|)."""
+planes bit-equal, colour within 2e-5 * max(1, |K1|); the mesh walks alone
+and the counting build's triangle tests and walks bit-equal to the plain
+walks'."""
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,11 +22,15 @@ import torch
 import _torch_scenes as S
 from raytracevs_tpu_torch import Engine
 from raytracevs_tpu_torch.io import mesh_cache as PMC
+from raytracevs_tpu_torch import constants as C
+from raytracevs_tpu_torch.ops import bvh as B
+from raytracevs_tpu_torch.ops import intersect as I
 from raytracevs_tpu_torch.ops import photon as PP
 from raytracevs_tpu_torch.ops import render as R
 from raytracevs_tpu_torch.ops import twophase as TP
 from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
 from raytracevs_tpu_torch.ops.cuda import megakernel as MK
+from raytracevs_tpu_torch.ops.cuda import mesh_walks as MW
 from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
 from raytracevs_tpu_torch.post import denoise as PD_
 from raytracevs_tpu_torch.scene import data as D
@@ -87,6 +96,53 @@ def test_k1_mesh_cuda_matches_plain(name):
     d = (got[0:3] - want[0:3]).abs().amax(0)
     assert float((d <= 2e-4).float().mean()) >= 0.99, float(d.max())
     assert torch.isfinite(got).all()
+
+
+def test_mesh_walks_cuda_match_plain():
+    """The walk-only kernels (rtvs_mesh_closest, rtvs_mesh_shadow) return
+    the plain walks' outputs bit for bit on over a million rays of each
+    walk of the full-size mesh demo scene at 1920x1080 (camera rays,
+    secondary rays from mesh hits with skip-self and thickness queries,
+    shadow rays to both lights; chip_smoke.py::walk_rays) and on the nine
+    instances at 480x270; each wrapper counts its launches."""
+    _need_cuda()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as CS
+
+    rays = 0
+    for build, meshes, (w, h) in ((S.mesh_demo_scene, CS.MESH_DEMO, (1920, 1080)),
+                                  (S.nine_ball_scene, {"Ball": (24, 32, 0.3)}, (480, 270))):
+        scene = build(D)
+        sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h,
+                                     mesh_service=S.mesh_service(PMC, meshes)), "cuda")
+        before = (MW.closest.launches, MW.shadow.launches)
+        n = CS.check_walks(f"{w}x{h}", MW, B, C, sc.mesh,
+                           CS.walk_rays(R, I, C, sc, make_config(scene, w, h), 5))
+        assert (MW.closest.launches, MW.shadow.launches) == (before[0] + 1, before[1] + 1)
+        rays = rays or min(n)
+    assert rays >= 1_000_000
+
+
+def test_counting_build_counts_the_walks():
+    """The counting build (rtvs_render_accum_mesh_count) renders K1-mesh's
+    planes. Per ray class it runs the plain render's walks and tests the
+    same triangles as the threaded walks (the same leaves in the same
+    order), in fewer node fetches."""
+    _need_cuda()
+    build, over, meshes = MESH_SCENES["mesh_demo"]
+    scene = build()
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=72 / 40, frame_index=3,
+                                 mesh_service=S.mesh_service(PMC, meshes)), "cuda")
+    cfg = make_config(scene, 72, 40, **over)
+    counts = torch.zeros((4, 4), dtype=torch.int64, device="cuda")
+    got = MK.render_accum(sc, cfg, counts=counts)
+    assert torch.equal(got, MK.render_accum(sc, cfg))
+    plain = torch.zeros((4, 4), dtype=torch.int64, device="cuda")
+    R.render_accum(sc._replace(mesh=sc.mesh._replace(walk_counts=plain)), cfg)
+    counts, plain = counts.cpu(), plain.cpu()
+    assert torch.equal(counts[:, 0], plain[:, 0]) and torch.equal(counts[:, 3], plain[:, 3])
+    assert int(counts[:, 1].sum()) < int(plain[:, 1].sum())
+    assert (counts[[0, 3], 0] > 0).all()
 
 
 def _inputs(h, w, seed):
@@ -263,12 +319,13 @@ def _two_phase_scene(name):
 
 def _assert_like_plain(got, want):
     """K1's band against the plain version: rays and ids exact, colour 2e-4
-    on >= 99% of the pixels."""
+    on >= 99% of the pixels, the planes finite (but K7's hit planes, which
+    hold int bits)."""
     assert torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
     assert torch.equal(got[R.CH_OBJ_ID], want[R.CH_OBJ_ID])
     d = (got[0:3] - want[0:3]).abs().amax(0)
     assert float((d <= 2e-4).float().mean()) >= 0.99, float(d.max())
-    assert torch.isfinite(got).all()
+    assert torch.isfinite(got[:R.CH_HIT]).all()
 
 
 @pytest.mark.parametrize("name", list(TWO_PHASE_SCENES))
@@ -284,7 +341,9 @@ def test_k7_cuda_matches_plain(name):
     torch.cuda.synchronize()
     assert got.shape == (R.NUM_CH_A, 40, 72)
     _assert_like_plain(got, want)
-    assert torch.equal(got[R.CH_SPAWN_VALID:], want[R.CH_SPAWN_VALID:])
+    # the continuation and the primary's hit (ints as their bits) bit-equal
+    assert torch.equal(got[R.CH_SPAWN_VALID:].view(torch.int32),
+                       want[R.CH_SPAWN_VALID:].view(torch.int32))
     assert int(want[R.CH_SPAWN_VALID].sum()) > 50
 
 
@@ -297,9 +356,10 @@ def test_k8_cuda_matches_plain(name):
     a = R.render_accum_phase_a(sc, cfg)
     order, count = TP.coherence_order(a)
     before = MK.render_phase_b.launches
-    got = MK.render_phase_b(sc, cfg, order, count, a[:R.NUM_CH].clone())
+    got = MK.render_phase_b(sc, cfg, order, count, a[:R.NUM_CH].clone(), a[R.CH_HIT:])
     assert MK.render_phase_b.launches == before + 1
-    want = R.render_accum_phase_b(sc, cfg, order[:int(count)], a[:R.NUM_CH].clone())
+    want = R.render_accum_phase_b(sc, cfg, order[:int(count)], a[:R.NUM_CH].clone(),
+                                  a[R.CH_HIT:])
     torch.cuda.synchronize()
     _assert_like_plain(got, want)
     assert torch.equal(got[R.CH_BOUNCE], want[R.CH_BOUNCE])
@@ -349,7 +409,7 @@ def test_wrappers_reject_bad_inputs():
     a = MK.render_phase_a(sc, cfg)
     order, count = TP.coherence_order(a)
     with pytest.raises(ValueError, match="order"):
-        MK.render_phase_b(sc, cfg, order.long(), count, a[:R.NUM_CH])
+        MK.render_phase_b(sc, cfg, order.long(), count, a[:R.NUM_CH], a[R.CH_HIT:])
     with pytest.raises(ValueError, match="samples_per_pixel"):
         MK.render_phase_a(sc, cfg._replace(samples_per_pixel=2))
     with pytest.raises(ValueError, match="aperture"):

@@ -177,8 +177,15 @@ def test_pack_scene_layout(name):
         mk.pack_scene(pf._replace(mat_color=pf.mat_color[:-1]))
     if pf.mesh is not None:
         assert m == s + p + b + pf.mesh.num_inst
-        node_box, node_link, inst_tbl = mk.pack_mesh(pf.mesh)
-        assert node_box.shape == (pf.mesh.num_nodes, 8) and node_link.dtype == torch.int32
-        np.testing.assert_array_equal(node_box[:, 3:6].numpy(), pf.mesh.bbox_max.numpy())
-        np.testing.assert_array_equal(node_link[:, 1].numpy(), pf.mesh.miss_next.numpy())
+        inst_tbl = mk.pack_mesh(pf.mesh)
         np.testing.assert_array_equal(inst_tbl[:, 4:7].numpy(), pf.mesh.inst_beer.numpy())
+        # the wide nodes the walks read: 32 words a node, slot boxes from
+        # the fine boxes, child words after them
+        wide = pf.mesh.wide
+        topo = pf.mesh.wide_topology
+        assert wide.shape == (topo.child.shape[0], 32) and wide.is_contiguous()
+        assert torch.equal(wide[:, 24:28].view(torch.int32), torch.from_numpy(topo.child))
+        src = torch.from_numpy(topo.src[:, 0]).long()
+        own = src >= 0
+        np.testing.assert_array_equal(wide[own][:, [12, 16, 20]].numpy(),
+                                      pf.mesh.bbox_max[src[own]].numpy())

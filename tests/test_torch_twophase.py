@@ -204,9 +204,9 @@ def test_phase_b_lane_order_does_not_matter(name):
     assert torch.equal(torch.sort(valid).values,
                        torch.nonzero(a[R.CH_SPAWN_VALID].reshape(-1) > 0.5)[:, 0].to(torch.int32))
     perm = torch.from_numpy(np.random.default_rng(7).permutation(valid.numel()))
-    acc = a[:R.NUM_CH]
-    sorted_b = R.render_accum_phase_b(sc, cfg, valid, acc.clone())
-    shuffled_b = R.render_accum_phase_b(sc, cfg, valid[perm], acc.clone())
+    acc, hits = a[:R.NUM_CH], a[R.CH_HIT:]
+    sorted_b = R.render_accum_phase_b(sc, cfg, valid, acc.clone(), hits)
+    shuffled_b = R.render_accum_phase_b(sc, cfg, valid[perm], acc.clone(), hits)
     assert torch.equal(sorted_b, shuffled_b)
     assert torch.equal(sorted_b, r["two"])
 
@@ -221,7 +221,7 @@ def test_wrappers_run_the_plain_versions_on_cpu_tensors():
     assert a.shape == (R.NUM_CH_A, cfg.height, cfg.width)
     order, count = TP.coherence_order(a)
     assert order.dtype == count.dtype == torch.int32 and count.shape == (1,)
-    acc = MK.render_phase_b(sc, cfg, order, count, a[:R.NUM_CH])
+    acc = MK.render_phase_b(sc, cfg, order, count, a[:R.NUM_CH], a[R.CH_HIT:])
     assert torch.equal(acc, r["two"])
     assert (MK.render_phase_a.launches, MK.render_phase_b.launches) == before
 
@@ -323,3 +323,39 @@ def test_two_phase_plain_matches_jax_pallas_two_phase():
                                np.asarray(two.gbuffer.normal_roughness), atol=2e-3)
     np.testing.assert_allclose(_lanes(pout.gbuffer.shadow_data),
                                np.asarray(two.gbuffer.shadow_data), atol=2e-3)
+
+
+@pytest.mark.parametrize("name", ["config3_glass_soft", "glass_ball", "nine_balls"])
+def test_phase_a_hit_planes_hold_the_traced_primary_hits(name, monkeypatch):
+    """Phase A's CH_HIT planes hold each primary ray's closest hit as its
+    one DFS iteration traced it: the hit that iteration's shade_and_spawn
+    took (recorded inside phase A) equals, field by field, the
+    intersect.Hit that phase B rebuilds from the planes (so phase B's
+    children are those of that hit), and the int fields survive as their
+    bits."""
+    from raytracevs_tpu_torch.ops import wavefront
+
+    _, _, sc, cfg = _setup(name, 24, 16)
+    calls = []
+    hit_context = wavefront._hit_context
+
+    def recording(scene, cfg, state, traced, hit=None):
+        out = hit_context(scene, cfg, state, traced, hit)
+        calls.append((state.depth.clone(), traced.clone(), out[1]["hit"]))
+        return out
+
+    monkeypatch.setattr(wavefront, "_hit_context", recording)
+    a = R.render_accum_phase_a(sc, cfg)
+    monkeypatch.undo()
+    assert a.shape == (R.NUM_CH_A, 16, 24) and R.CH_HIT + R.NUM_CH_HIT == R.NUM_CH_A
+    n = cfg.width * cfg.height
+    depth, traced, want = calls[0]  # the iteration's: every pixel's primary ray, in pixel order
+    assert depth.shape == (n,) and bool((depth == 0).all()) and bool(traced.all())
+    got = R.hit_from_planes(sc, a[R.CH_HIT:].reshape(R.NUM_CH_HIT, n))
+    for f, g, w in zip(want._fields, got, want):
+        assert (g is None) == (w is None), f
+        if w is not None:
+            assert torch.equal(g, w), f
+    assert bool(want.hit.any()) and not bool(want.hit.all())
+    if sc.mesh is not None:
+        assert bool((want.obj_type == 3).any())  # a mesh hit rides the planes
