@@ -10,19 +10,28 @@ the mesh demo scene at spp 1 through the two-phase renderer (K7, the
 coherence sort, K8). All at 6 bounces, denoiser on, the camera orbiting 2
 degrees a frame. Before that it builds the CUDA kernels from csrc/ and the
 host BVH builder from csrc/host/, holds each kernel against its plain
-PyTorch version on the card at the main paths' shapes (K2-K4 on the
-G-buffer of a rendered frame; K1-mesh also on nine mesh instances at
-480x270; the photon trace K5 at 16,384 and 131,072 photons and on the mesh
-demo scene's tables; the photon gather K6 at 1920x1080 with both maps; K7
-and K8 at 1920x1080 and spp 1 on the mesh demo scene and the demo scene,
-and together against K1-mesh and K1 there; the mesh walks alone, bit-equal
-to the plain walks on over a million camera, secondary and shadow rays of
-the mesh demo scene and on the nine instances), counts the mesh walks'
-node fetches, box tests and triangle tests by ray class (the kernels'
-counting build at 1080p and 480x270, the plain threaded walks at 480x270),
-times both and computes each kernel's bound (the larger of its bytes over
-the memory rate and its operations over the float32 rate, the walks' box
-and triangle tests included); after each path it checks the
+PyTorch version on the card at the main paths' shapes (K1, K1-mesh, K7 and
+K8 bit for bit; K2-K4 on the G-buffer of a rendered frame; K1-mesh also on
+nine mesh instances at 480x270; the photon trace K5 at 16,384 and 131,072
+photons and on the mesh demo scene's tables; the photon gather K6 at
+1920x1080 with both maps; K7 and K8 at 1920x1080 and spp 1 on the mesh
+demo scene and the demo scene, and together against K1-mesh and K1
+there; the mesh walks alone, bit-equal to the plain walks on over a
+million camera, secondary and shadow rays of the mesh demo scene and on
+the nine instances), renders a mesh whose wide
+table needs more walk stack than the kernels hold through the threaded
+instantiations (K1-mesh, K7, K8 and the walks alone, against their plain
+versions), counts each render kernel's work (the counting build: the mesh
+walks' node fetches, box tests and triangle tests by ray class at 1080p
+and 480x270, the plain threaded walks' at 480x270; the DFS's lane and warp
+iterations, whose ratio is K1's SIMT share, shade calls, shadow and
+thickness rays, hits by kind and the lights their BRDF shades, all but the
+warp figure held equal to the plain version's), times both (K1 and
+K1-mesh as the launch alone, their table packing apart) and computes each
+kernel's bound (the larger of its bytes over the memory rate and its
+operations over the float32 rate: for the render kernels the shading, the
+shadow samples and the intersection tests at the counting build's counts,
+the walks' box and triangle tests included); after each path it checks the
 frames and that every kernel of the path launched; then it compares small
 frames with the CPU's plain pipeline and times each stage of a 1080p frame
 of the scenes. It prints a JSON line of the kernels, the card's name and
@@ -69,8 +78,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Float operations of one intersection test of csrc/closest.cuh
 # (isect_sphere, isect_plane, isect_box), counted by hand from the source;
-# the bounds of K1 and K5 count these tests (every traced ray against every
-# primitive slot), not the shading.
+# every closest hit and every shadow ray needs a test of every valid
+# primitive (the padded slots are not counted), a thickness ray one sphere
+# or box (counted as a sphere's).
 SPHERE_OPS, PLANE_OPS, BOX_OPS = 36, 29, 84
 # ... and of the mesh walks' tests, by hand: a box test (closest.cuh::slab:
 # 6 subtractions, 6 multiplications, 6 min/max of the slab pairs, 3 and 3
@@ -79,6 +89,31 @@ SPHERE_OPS, PLANE_OPS, BOX_OPS = 36, 29, 84
 # plane rows, 5 compares). The bounds of K1-mesh, K7 and K8 add them at the
 # counts of the counting build, which tests fewer boxes than the threaded walk.
 BOX_TEST_OPS, TRI_TEST_OPS = 25, 38
+# The shading of csrc/render.cuh, by hand, each arithmetic operation,
+# compare, sqrt or transcendental one operation, applied at the counting
+# build's counts (render_ops). SKY_OPS: a miss, or an item capped at the
+# depth limit (sky_color: the normalize 10, 4 smoothsteps 32, 5 lerps 45,
+# clamps, haze and ground 14; the radiance and the sums 9). HIT_OPS: a
+# shade call that hits, before its lights (the hit point 6, the cheapest
+# normal, a plane's, 10, the face 8, the colour's clamp, guard and sums
+# 16). Only the valid lights count, and an ambient light only in its
+# ambient term (render_ops): SELECT_OPS a point or directional light of the
+# dominant-light choice among the first 8 (estimate_light 33, the compares
+# 4), LIGHT_OPS one of an opaque hit's lighting loop (light_geom 38, the lit
+# test 2), AMBIENT_OPS an ambient light there (its colour 3, the base 12,
+# the product and sum 6), LIT_OPS a light its BRDF shades (brdf_terms 92,
+# the weights, radiance and sums 33), OPAQUE_OPS an opaque hit's own (f0,
+# the diffuse colour, the SIGMA record, the direct weight: 20).
+# GLASS_LIGHT_OPS a point or directional light of a glass hit's highlight
+# (light_geom 38, the half vector, powf, Fresnel and sum 38),
+# GLASS_CHILD_OPS its reflect and refract children (120). SHADOW_SAMPLE_OPS
+# a shadow ray besides its primitive tests (two u24f, the disc sample, the
+# offset, the direction or the distance, the facing test, the sums: 50).
+# Left out, so the bound stays below the work: the shadow rays' per-light
+# set-up, the metal child, the checker, boxes' normals.
+SKY_OPS, HIT_OPS, OPAQUE_OPS = 110, 40, 20
+SELECT_OPS, LIGHT_OPS, AMBIENT_OPS, LIT_OPS = 37, 40, 21, 125
+GLASS_LIGHT_OPS, GLASS_CHILD_OPS, SHADOW_SAMPLE_OPS = 76, 120, 50
 # per photon bounce besides the closest hit (K5's Russian roulette, Fresnel
 # or metal lobe), and per photon scanned by the gather (K6), by hand
 PHOTON_BOUNCE_OPS, GATHER_PHOTON_OPS = 60, 30
@@ -252,9 +287,21 @@ def bound(nbytes, ops):
 
 
 def closest_ops(sc):
-    """Operations of one closest-hit test against every primitive slot."""
-    return sc.sphere_capacity * SPHERE_OPS + sc.plane_capacity * PLANE_OPS + \
-        sc.box_capacity * BOX_OPS
+    """Operations of one closest-hit test against every valid primitive."""
+    return (int(sc.sph_valid.sum()) * SPHERE_OPS + int(sc.pln_valid.sum()) * PLANE_OPS
+            + int(sc.box_valid.sum()) * BOX_OPS)
+
+
+def light_counts(sc):
+    """(point and directional lights, the first 8 slots' of them, ambient
+    lights) among the scene's valid lights."""
+    from raytracevs_tpu_torch import constants as C
+
+    slots = torch.arange(sc.light_capacity, device=sc.lt_valid.device)
+    valid = sc.lt_valid.bool() & (slots < sc.num_lights)
+    ambient = valid & (sc.lt_type == C.LIGHT_TYPE_AMBIENT)
+    direct = valid & ~ambient
+    return int(direct.sum()), int(direct[:8].sum()), int(ambient.sum())
 
 
 def kernel_row(err, ms, plain_ms, nbytes, ops):
@@ -293,38 +340,46 @@ def assert_like_plain(name, R, cfg, got, want, note=""):
     return err
 
 
-def check_k1(name, MK, R, sc, cfg):
-    """K1 (or K1-mesh) against its plain version on the card: per-pixel ray
-    counts and object ids equal, colour 2e-4 on >= 99% of pixels. Returns
-    (max |d|, kernel ms of the compared launch, plain ms of its run, rays)."""
+def check_k1(name, MK, R, sc, cfg, plain_counts=None):
+    """K1 (or K1-mesh) against its plain version on the card: every plane
+    bit-equal, as the kernel follows the plain version operation for
+    operation (the plain run adds its work to plain_counts). Returns (max
+    |d|, kernel ms of the compared launch, plain ms of its run, rays)."""
     got, k_ms = timed_ms(lambda: MK.render_accum(sc, cfg))
-    want, p_ms = timed_ms(lambda: R.render_accum(sc, cfg))
+    want, p_ms = timed_ms(lambda: R.render_accum(sc, cfg, counts=plain_counts))
+    bits = same_bits(got, want)
     err = assert_like_plain(name, R, cfg, got, want,
-                            f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+                            f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; every plane bit-equal "
+                            f"{bits}")
+    if not bits:
+        raise AssertionError(f"{name}: planes differ from the plain version's in their bits")
     return err, k_ms, p_ms, int(got[R.CH_RAYS].double().sum())
 
 
-def check_phases(label, MK, R, TP, sc, cfg):
+def check_phases(label, MK, R, TP, sc, cfg, plain_counts):
     """K7 against plain phase A, and K8 against plain phase B on the same
-    phase-A planes and their whole sorted order, both in K1's band; K7's
-    spawn planes and K8's bounce plane bit-equal. Returns (K7 max |d|, K8
+    phase-A planes and their whole sorted order: every plane bit-equal
+    (K7's continuation and hit planes included). The plain runs add their
+    work to plain_counts (phase A's, phase B's). Returns (K7 max |d|, K8
     max |d|, plain A ms, plain B ms), the plain times of one run each."""
     got_a = MK.render_phase_a(sc, cfg)
-    want_a, pa_ms = timed_ms(lambda: R.render_accum_phase_a(sc, cfg))
+    want_a, pa_ms = timed_ms(lambda: R.render_accum_phase_a(sc, cfg, plain_counts[0]))
+    bits = same_bits(got_a, want_a)
     err_a = assert_like_plain(f"phase 4 K7 {label}", R, cfg, got_a, want_a,
-                              f"; plain {pa_ms:.3f} ms")
-    if not same_bits(got_a[R.CH_SPAWN_VALID:], want_a[R.CH_SPAWN_VALID:]):
-        raise AssertionError(f"K7 {label}: the spawned continuations or primary hits differ from "
-                             "plain phase A's")
+                              f"; plain {pa_ms:.3f} ms; every plane bit-equal {bits}")
+    if not bits:
+        raise AssertionError(f"K7 {label}: planes differ from plain phase A's in their bits")
     order, count = TP.coherence_order(want_a)
     hits = want_a[R.CH_HIT:]
     got_b = MK.render_phase_b(sc, cfg, order, count, want_a[:R.NUM_CH].clone(), hits)
     want_b, pb_ms = timed_ms(lambda: R.render_accum_phase_b(
-        sc, cfg, order[:int(count)], want_a[:R.NUM_CH].clone(), hits))
+        sc, cfg, order[:int(count)], want_a[:R.NUM_CH].clone(), hits, plain_counts[1]))
+    bits = same_bits(got_b, want_b)
     err_b = assert_like_plain(f"phase 4 K8 {label}", R, cfg, got_b, want_b,
-                              f"; {int(count)} pixels resumed; plain {pb_ms:.3f} ms")
-    if not torch.equal(got_b[R.CH_BOUNCE], want_b[R.CH_BOUNCE]):
-        raise AssertionError(f"K8 {label}: bounce planes differ from plain phase B's")
+                              f"; {int(count)} pixels resumed; plain {pb_ms:.3f} ms; every plane "
+                              f"bit-equal {bits}")
+    if not bits:
+        raise AssertionError(f"K8 {label}: planes differ from plain phase B's in their bits")
     return err_a, err_b, pa_ms, pb_ms
 
 
@@ -715,12 +770,12 @@ def check_walks(label, MW, B, C, mesh, rays):
 
 
 def walk_counts(MK, R, TP, sc, cfg, cfg1):
-    """The counting build's walk counts ([4, 4] int64 on the host, rows
-    ops/bvh.py::WALK_CLASSES, columns walks, node fetches, box tests,
-    triangle tests) of K1-mesh at cfg and of K7 and K8 at cfg1; its planes
-    must equal the plain instantiation's."""
-    dev = sc.cam_pos.device
-    k1, k7, k8 = (torch.zeros((4, 4), dtype=torch.int64, device=dev) for _ in range(3))
+    """The counting build's counts ([len(R.COUNT_ROWS), 4] int64 on the
+    host: the walk rows ops/bvh.py::WALK_CLASSES, columns walks, node
+    fetches, box tests, triangle tests, then the DFS rows) of K1-mesh at
+    cfg and of K7 and K8 at cfg1; its planes must equal the plain
+    instantiation's."""
+    k1, k7, k8 = new_counts(R, 3)
     same = [torch.equal(MK.render_accum(sc, cfg, counts=k1), MK.render_accum(sc, cfg))]
     a = MK.render_phase_a(sc, cfg1, counts=k7)
     same.append(same_bits(a, MK.render_phase_a(sc, cfg1)))
@@ -734,38 +789,182 @@ def walk_counts(MK, R, TP, sc, cfg, cfg1):
 
 
 def plain_walk_counts(R, TP, sc, cfg, cfg1):
-    """The same counts of the plain threaded walks (MeshArrays.walk_counts)
-    in the plain K1-mesh, phase A and phase B."""
-    k1, k7, k8 = (torch.zeros((4, 4), dtype=torch.int64, device=sc.cam_pos.device)
-                  for _ in range(3))
-
-    def counted(k):
-        return sc._replace(mesh=sc.mesh._replace(walk_counts=k))
-
-    R.render_accum(counted(k1), cfg)
-    a = R.render_accum_phase_a(counted(k7), cfg1)
+    """The same counts of the plain versions (the plain threaded walks) in
+    the plain K1-mesh, phase A and phase B."""
+    k1, k7, k8 = new_counts(R, 3)
+    R.render_accum(sc, cfg, counts=k1)
+    a = R.render_accum_phase_a(sc, cfg1, counts=k7)
     order, count = TP.coherence_order(a)
-    R.render_accum_phase_b(counted(k8), cfg1, order[:int(count)], a[:R.NUM_CH].clone(),
-                           a[R.CH_HIT:])
+    R.render_accum_phase_b(sc, cfg1, order[:int(count)], a[:R.NUM_CH].clone(), a[R.CH_HIT:],
+                           counts=k8)
     return k1.cpu(), k7.cpu(), k8.cpu()
 
 
 def print_counts(B, label, counts):
+    """The walk rows of counting-build counts, per walk."""
     for i, name in enumerate(B.WALK_CLASSES):
         walks, fetches, boxes, tris = (int(x) for x in counts[i])
         per = max(walks, 1)
         print(f"phase 4 walk counts {label}, {name}: {walks} walks; per walk {fetches / per:.3f} "
               f"node fetches, {boxes / per:.3f} box tests, {tris / per:.3f} triangle tests",
               flush=True)
-    tot = counts.sum(0)
+    tot = counts[:4].sum(0)
     print(f"phase 4 walk counts {label}, all: {int(tot[0])} walks, {int(tot[1])} node fetches, "
           f"{int(tot[2])} box tests, {int(tot[3])} triangle tests", flush=True)
 
 
 def walk_ops(counts):
-    """Float operations of the walks' box and triangle tests at `counts`."""
-    tot = counts.sum(0)
+    """Float operations of the walks' box and triangle tests at `counts`
+    (the walk rows of the counting build's)."""
+    tot = counts[:4].sum(0)
     return int(tot[2]) * BOX_TEST_OPS + int(tot[3]) * TRI_TEST_OPS
+
+
+def render_ops(R, sc, counts):
+    """Float operations a render kernel needs at the counting build's
+    `counts` (R.COUNT_ROWS): the shading, the shadow samples, the
+    intersection tests of every closest hit, shadow and thickness ray, and
+    the mesh walks' tests."""
+    row = {k: [int(x) for x in counts[i]] for i, k in enumerate(R.COUNT_ROWS)}
+    _, _, capped, _ = row["dfs"]
+    shade0, shade1, shadow, thick = row["rays"]
+    misses, glass, opaque, lit = row["hits"]
+    direct, select, ambient = light_counts(sc)
+    return ((misses + capped) * SKY_OPS + (glass + opaque) * HIT_OPS
+            + glass * (GLASS_CHILD_OPS + direct * GLASS_LIGHT_OPS)
+            + opaque * (OPAQUE_OPS + select * SELECT_OPS + direct * LIGHT_OPS
+                        + ambient * AMBIENT_OPS)
+            + lit * LIT_OPS + shadow * SHADOW_SAMPLE_OPS
+            + (shade0 + shade1 + shadow) * closest_ops(sc) + thick * SPHERE_OPS
+            + walk_ops(counts))
+
+
+def check_counts(R, label, counts, plain, exact_walks=False):
+    """Counting-build counts (R.COUNT_ROWS, on the host) against the plain
+    version's on the same inputs: the DFS rows equal but the warp figure,
+    the walks and triangle tests equal (every walk column with
+    exact_walks: the threaded walks'). Prints the DFS rows and the DFS
+    loop's SIMT share."""
+    counts, plain = counts.cpu(), plain.cpu()
+    dfs = R.COUNT_ROWS.index("dfs")
+    share = int(counts[dfs, 0]) / max(int(counts[dfs, 1]), 1)
+    print(f"phase 4 counts {label}: lane iterations {int(counts[dfs, 0])}, warp iterations x 32 "
+          f"{int(counts[dfs, 1])} (SIMT share {share:.4f}), capped {int(counts[dfs, 2])}, killed "
+          f"{int(counts[dfs, 3])}; shade calls at depth 0 and deeper, shadow and thickness rays "
+          f"{counts[dfs + 1].tolist()}; misses, glass hits, other hits, lights shaded "
+          f"{counts[dfs + 2].tolist()}", flush=True)
+    walks = (counts[:4] == plain[:4]).all() if exact_walks else (
+        counts[:4, [0, 3]] == plain[:4, [0, 3]]).all()
+    same = bool(walks) and torch.equal(counts[dfs + 1:], plain[dfs + 1:]) and torch.equal(
+        counts[dfs, [0, 2, 3]], plain[dfs, [0, 2, 3]])
+    if not same:
+        raise AssertionError(f"the counting build's counts ({label}) differ from the plain "
+                             f"version's:\n{counts}\n{plain}")
+    return counts
+
+
+def counted(MK, R, label, run, plain, exact_walks=False):
+    """check_counts of the counting build's counts of run(counts)."""
+    counts = torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
+    run(counts)
+    return check_counts(R, label, counts, plain, exact_walks)
+
+
+def new_counts(R, n=1):
+    """n zeroed count tables (R.COUNT_ROWS) on the card."""
+    return [torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
+            for _ in range(n)]
+
+
+# a mesh whose binary BVH is a chain 78 deep (tests/_torch_scenes.py::
+# deep_forest): its wide table needs a walk stack of 69 entries, the
+# kernels hold 64, so the kernels walk its fine tree's threaded links
+def deep_forest(levels=78):
+    """One triangle a level, each far out along the next axis in turn,
+    beyond the ones inside it: interleaved vertices [V*8], indices [3T]."""
+    lo, hi = np.zeros(3), np.full(3, 1e-18)
+    centres, sizes = [(lo + hi) / 2], [3e-19]
+    for k in range(levels):
+        a = k % 3
+        ext = hi - lo
+        gap = max(16.5 * ext[a], 1.6 * ext.max())
+        c = (lo + hi) / 2
+        c[a] = lo[a] + gap
+        centres.append(c)
+        sizes.append(0.3 * ext.max())
+        hi[a] = c[a]
+    corners = np.array([[-0.5, -0.5, -0.5], [0.5, -0.5, 0.0], [0.0, 0.5, 0.5]])
+    p = np.asarray(centres)[:, None, :] + np.asarray(sizes)[:, None, None] * corners[None]
+    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    verts = np.zeros((len(p), 3, 8), np.float32)
+    verts[..., 0:3] = p
+    verts[..., 4:7] = n[:, None, :]
+    return verts.reshape(-1), np.arange(3 * len(p), dtype=np.uint32)
+
+
+def deep_forest_scene(D):
+    """Two instances of "DeepForest", opaque and absorbing glass, over the
+    floor (tests/_torch_scenes.py::deep_forest_scene)."""
+    s = D.SceneData()
+    s.camera.position = np.array([1.0, 1.5, 2.0])
+    s.camera.look_at = np.array([0.9, 1.4, 4.7])
+    s.settings.samples_per_pixel = 2
+    s.settings.max_bounces = 4
+    s.objects += [
+        D.MeshObjectData(mesh_name="DeepForest", material=D.MaterialData(
+            base_color=np.array([0.8, 0.5, 0.3, 1.0]), roughness=0.5)),
+        D.MeshObjectData(mesh_name="DeepForest", material=D.MaterialData(**GLASS_BALL),
+                         transform=D.Transform(position=np.array([-0.8, -0.2, -1.5]))),
+        D.PlaneData(),
+    ]
+    s.lights += [
+        D.LightData(type=D.LightType.POINT, position=np.array([2.0, 5.0, -2.0]), intensity=12.0,
+                    radius=0.3, soft_shadow_samples=2.0),
+        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
+    ]
+    return s
+
+
+def check_deep_forest(P, D, MK, MW, R, TP, B, C, I, w, h):
+    """The deep forest through the threaded instantiations at w x h: K1-mesh
+    (spp 2), K7 and K8 (spp 1) and the walks alone, each against its plain
+    version; their counting builds' counts equal the plain versions',
+    node fetches included (both walk the threaded links). Returns the
+    largest colour max |d|."""
+    from raytracevs_tpu_torch.io.mesh_cache import CachedMesh, MeshCacheService
+
+    verts, indices = deep_forest()
+    pos = verts.reshape(-1, 8)[:, :3]
+    ms = MeshCacheService(".")
+    ms.register("DeepForest", CachedMesh(name="DeepForest", vertices=verts, indices=indices,
+                                         bounds_min=pos.min(0), bounds_max=pos.max(0)))
+    scene = deep_forest_scene(D)
+    sc = P.to_device(P.flatten_scene(P.sanitize_scene(scene), aspect=w / h, mesh_service=ms),
+                     "cuda")
+    threaded = MK.check_mesh(sc.mesh, "chip_smoke")
+    print(f"phase 4 deep forest: {sc.mesh.num_tris} triangles, {sc.mesh.num_nodes} nodes, a wide "
+          f"walk stack of {sc.mesh.wide_stack} (the kernels hold {B.WALK_STACK}): threaded walks "
+          f"{threaded}", flush=True)
+    if not threaded:
+        raise AssertionError("the deep forest does not need the threaded walks")
+    cfg = P.make_config(scene, w, h, max_soft_samples=2)
+    plain = new_counts(R)[0]
+    err = check_k1("phase 4 K1-mesh, deep forest,", MK, R, sc, cfg, plain)[0]
+    counted(MK, R, f"K1-mesh, deep forest {w}x{h}",
+            lambda k: MK.render_accum(sc, cfg, counts=k), plain, exact_walks=True)
+    cfg1 = cfg._replace(samples_per_pixel=1)
+    pa, pb = new_counts(R, 2)
+    err = max(err, *check_phases("deep forest", MK, R, TP, sc, cfg1, (pa, pb))[:2])
+    counted(MK, R, f"K7, deep forest {w}x{h}",
+            lambda k: MK.render_phase_a(sc, cfg1, counts=k), pa, exact_walks=True)
+    a = MK.render_phase_a(sc, cfg1)
+    order, count = TP.coherence_order(a)
+    counted(MK, R, f"K8, deep forest {w}x{h}", lambda k: MK.render_phase_b(
+        sc, cfg1, order, count, a[:R.NUM_CH].clone(), a[R.CH_HIT:], counts=k), pb,
+        exact_walks=True)
+    check_walks(f"deep forest {w}x{h}", MW, B, C, sc.mesh, walk_rays(R, I, C, sc, cfg, 4))
+    return err
 
 
 def main():
@@ -816,13 +1015,25 @@ def main():
     flat = P.flatten_scene(P.sanitize_scene(scene), aspect=FULL_W / FULL_H)
     sc = P.to_device(flat, dev)
     cfg = P.make_config(scene, FULL_W, FULL_H, **OVERRIDES)
-    k1_err, _, _, rays = check_k1("phase 4 K1", MK, R, sc, cfg)
-    k1_ms = gpu_ms(lambda: MK.render_accum(sc, cfg), 3)
+    k1_err, k1_counts = None, {}
+    for spp in (2, 1):  # the main path's, then the two-phase renderer's
+        c = cfg._replace(samples_per_pixel=spp)
+        plain = torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device=dev)
+        err = check_k1(f"phase 4 K1 spp {spp}", MK, R, sc, c, plain)[0]
+        k1_err = err if k1_err is None else max(k1_err, err)
+        k1_counts[spp] = counted(MK, R, f"K1, demo scene {FULL_W}x{FULL_H} spp {spp}",
+                                 lambda k, c=c: MK.render_accum(sc, c, counts=k), plain)
+    # the launch alone, the tables packed beforehand, and the packing apart
+    tables = MK.pack_tables(sc)
+    k1_ms = gpu_ms(lambda: MK.render_accum(sc, cfg, tables=tables), 10)
+    pack_ms = gpu_ms(lambda: MK.pack_tables(sc), 10)
     k1_plain_ms = gpu_ms(lambda: R.render_accum(sc, cfg), 1)
-    print(f"  render_accum: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms", flush=True)
+    print(f"  render_accum: kernel {k1_ms:.4f} ms (the launch alone), pack_tables {pack_ms:.4f} "
+          f"ms, plain {k1_plain_ms:.3f} ms", flush=True)
     out_bytes = R.NUM_CH * FULL_H * FULL_W * 4
-    results["render_accum"] = kernel_row(k1_err, k1_ms, k1_plain_ms, out_bytes,
-                                         rays * closest_ops(sc))
+    results["render_accum"] = dict(
+        kernel_row(k1_err, k1_ms, k1_plain_ms, out_bytes, render_ops(R, sc, k1_counts[2])),
+        pack_tables_ms=pack_ms)
 
     # K2-K4 on the G-buffers of two orbiting 1080p frames
     g = []
@@ -897,10 +1108,13 @@ def main():
           f"(retransform only) {(t2 - t1) * 1e3:.1f} ms, to_device with the plane table and the "
           f"wide nodes {(time.perf_counter() - t2) * 1e3:.1f} ms", flush=True)
     mcfg = P.make_config(mscene, FULL_W, FULL_H, **OVERRIDES)
-    mk_err, _, mk_plain_ms, mrays = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg)
-    mk_ms = gpu_ms(lambda: MK.render_accum(msc, mcfg), 3)
-    print(f"  render_accum_mesh: kernel {mk_ms:.3f} ms (mean of 3), plain {mk_plain_ms:.3f} ms "
-          f"(one run)", flush=True)
+    mk_plain_counts = new_counts(R)[0]
+    mk_err, _, mk_plain_ms, _ = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg, mk_plain_counts)
+    mtables = MK.pack_tables(msc)
+    mk_ms = gpu_ms(lambda: MK.render_accum(msc, mcfg, tables=mtables), 5)
+    mpack_ms = gpu_ms(lambda: MK.pack_tables(msc), 10)
+    print(f"  render_accum_mesh: kernel {mk_ms:.4f} ms (the launch alone, mean of 5), "
+          f"pack_tables {mpack_ms:.4f} ms, plain {mk_plain_ms:.3f} ms (one run)", flush=True)
     nscene = nine_ball_scene(D)
     nsc = P.to_device(P.flatten_scene(P.sanitize_scene(nscene), aspect=480 / 270,
                                       mesh_service=mesh_service({"Ball": (24, 32, 0.3)})), dev)
@@ -929,28 +1143,35 @@ def main():
     print(f"  closest walk alone over {npx} camera rays: kernel {w_ms:.4f} ms", flush=True)
     del cam
 
-    # the walks' work by ray class: the counting build at 1080p (the main
-    # paths' frames) and at 480x270, the plain threaded walks at 480x270
+    # a table deeper than the kernels' walk stack (ROADMAP C9), through the
+    # threaded walks
+    deep_err = check_deep_forest(P, D, MK, MW, R, TP, B, C, I, 480, 270)
+
+    # the render kernels' work: the counting build at 1080p (the main
+    # paths' frames) and at 480x270, the plain versions at 480x270 (and at
+    # 1080p those that were run above); walks by ray class, then the DFS's
     mcfg1 = P.make_config(mscene, FULL_W, FULL_H, **SPP1)
     qcfg, qcfg1 = (P.make_config(mscene, 480, 270, **o) for o in (OVERRIDES, SPP1))
+    names = ("K1-mesh spp 2", "K7 spp 1", "K8 spp 1")
     counts = {}
     for res, (c, c1) in (("1920x1080", (mcfg, mcfg1)), ("480x270", (qcfg, qcfg1))):
-        for name, k in zip(("K1-mesh spp 2", "K7 spp 1", "K8 spp 1"),
-                           walk_counts(MK, R, TP, msc, c, c1)):
+        for name, k in zip(names, walk_counts(MK, R, TP, msc, c, c1)):
             counts[(name, res)] = k
             print_counts(B, f"wide walks, {name}, {res}", k)
-    for name, k in zip(("K1-mesh spp 2", "K7 spp 1", "K8 spp 1"),
-                       plain_walk_counts(R, TP, msc, qcfg, qcfg1)):
+    for name, k in zip(names, plain_walk_counts(R, TP, msc, qcfg, qcfg1)):
         print_counts(B, f"threaded walks (plain), {name}, 480x270", k)
+        check_counts(R, f"{name} mesh demo scene 480x270", counts[(name, "480x270")], k)
+    check_counts(R, "K1-mesh spp 2, mesh demo scene 1920x1080",
+                 counts[("K1-mesh spp 2", "1920x1080")], mk_plain_counts)
     k8c = counts[("K8 spp 1", "1920x1080")]
     prim = B.WALK_CLASSES.index("primary")
     print(f"phase 4 walk counts: K8 walks {int(k8c[prim, 0])} primary rays (K7 hands it "
           f"their hits)", flush=True)
     if int(k8c[prim, 0]):
         raise AssertionError("K8 walked primary rays again")
-    results["render_accum_mesh"] = kernel_row(
-        max(mk_err, n_err), mk_ms, mk_plain_ms, out_bytes,
-        mrays * closest_ops(msc) + walk_ops(counts[("K1-mesh spp 2", "1920x1080")]))
+    results["render_accum_mesh"] = dict(kernel_row(
+        max(mk_err, n_err, deep_err), mk_ms, mk_plain_ms, out_bytes,
+        render_ops(R, msc, counts[("K1-mesh spp 2", "1920x1080")])), pack_tables_ms=mpack_ms)
     # K5 on the mesh demo scene's tables: the instance material rows stay,
     # and the light table follows them
     rows.append(check_k5("mesh demo scene", PP, PK, msc, ccfg.num_photons))
@@ -960,35 +1181,43 @@ def main():
     # demo scene (the two-phase main path) and on the demo scene; the two
     # phases against K1-mesh and K1; their times. The kernels' rows are the
     # mesh demo scene's; the demo scene's bounds are printed only.
-    ma_err, mb_err, pa_ms, pb_ms = check_phases("mesh demo scene", MK, R, TP, msc, mcfg1)
+    mpa, mpb = new_counts(R, 2)
+    ma_err, mb_err, pa_ms, pb_ms = check_phases("mesh demo scene", MK, R, TP, msc, mcfg1,
+                                                (mpa, mpb))
+    check_counts(R, "K7 spp 1, mesh demo scene 1920x1080", counts[("K7 spp 1", "1920x1080")],
+                 mpa)
+    check_counts(R, "K8 spp 1, mesh demo scene 1920x1080", k8c, mpb)
     cfg1 = P.make_config(scene, FULL_W, FULL_H, **SPP1)
-    a_err, b_err, _, _ = check_phases("demo scene", MK, R, TP, sc, cfg1)
+    pa, pb = new_counts(R, 2)
+    a_err, b_err, _, _ = check_phases("demo scene", MK, R, TP, sc, cfg1, (pa, pb))
+    k7d = counted(MK, R, "K7, demo scene 1920x1080",
+                  lambda k: MK.render_phase_a(sc, cfg1, counts=k), pa)
+    a = MK.render_phase_a(sc, cfg1)
+    order, count = TP.coherence_order(a)
+    k8d = counted(MK, R, "K8, demo scene 1920x1080", lambda k: MK.render_phase_b(
+        sc, cfg1, order, count, a[:R.NUM_CH].clone(), a[R.CH_HIT:], counts=k), pb)
+    del a, order, count
     mtwo, mrays_a, mresumed = check_two_phase_vs_k1("mesh demo scene", MK, R, TP, msc, mcfg1,
                                                     float(mflat.aperture_size))
     two, rays_a, resumed = check_two_phase_vs_k1("demo scene", MK, R, TP, sc, cfg1,
                                                  float(flat.aperture_size))
     t = time_two_phase("mesh demo scene", MK, R, TP, msc, mcfg1, float(mflat.aperture_size))
     time_two_phase("demo scene", MK, R, TP, sc, cfg1, float(flat.aperture_size))
-    # bounds: K7 writes 46 planes and traces phase A's rays; K8 reads its
-    # pixel id and 7 hit floats and read-modify-writes 5 floats a resumed
-    # pixel, and traces the rest of the rays; both add their mesh walks'
-    # tests at the counting build's counts
-    rays_b = int(mtwo[R.CH_RAYS].double().sum()) - mrays_a
+    # bounds: K7 writes 46 planes; K8 reads its pixel id and 7 hit floats
+    # and read-modify-writes 5 floats a resumed pixel; both do the work of
+    # the counting build's counts
     results["render_phase_a"] = kernel_row(
         max(a_err, ma_err), t["k7"], pa_ms, R.NUM_CH_A * px * 4,
-        mrays_a * closest_ops(msc) + walk_ops(counts[("K7 spp 1", "1920x1080")]))
+        render_ops(R, msc, counts[("K7 spp 1", "1920x1080")]))
     results["render_phase_b"] = kernel_row(
-        max(b_err, mb_err), t["k8"], pb_ms, 4 + 72 * mresumed,
-        rays_b * closest_ops(msc) + walk_ops(k8c))
+        max(b_err, mb_err), t["k8"], pb_ms, 4 + 72 * mresumed, render_ops(R, msc, k8c))
     # the coherence sort between them (a library call, no kernel of the
     # port): its 2,073,600 int32 keys and indices, each read and written
     sort_ms, sort_by = bound(4 * 4 * px, 0)
     print(f"  coherence key + torch.sort: {t['sort']:.4f} ms, bound {sort_ms:.4f} ms by "
           f"{sort_by} ({4 * 4 * px / 1e6:.1f} MB)", flush=True)
-    for name, nbytes, ops in (
-            ("K7", R.NUM_CH_A * px * 4, rays_a * closest_ops(sc)),
-            ("K8", 4 + 72 * resumed, (int(two[R.CH_RAYS].double().sum()) - rays_a)
-             * closest_ops(sc))):
+    for name, nbytes, ops in (("K7", R.NUM_CH_A * px * 4, render_ops(R, sc, k7d)),
+                              ("K8", 4 + 72 * resumed, render_ops(R, sc, k8d))):
         b_ms, b_by = bound(nbytes, ops)
         print(f"  {name} bound on the demo scene at 1080p: {b_ms:.4f} ms by {b_by} "
               f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations)", flush=True)

@@ -14,7 +14,7 @@ constexpr int INVALID = 0x7FFFFFFF;
 constexpr int TYPE_SPHERE = 0, TYPE_PLANE = 1, TYPE_BOX = 2, TYPE_MESH = 3;
 constexpr int LEAF_SIZE = 4, NODE_END = -1;
 constexpr int LIGHT_AMBIENT = 0, LIGHT_DIRECTIONAL = 2;
-constexpr int PATH_FLAG_INSIDE = 1, PATH_FLAG_SPECULAR = 2, RAYFLAG_SKIP_SELF = 1;
+constexpr int PATH_FLAG_INSIDE = 1, PATH_FLAG_SPECULAR = 2;
 constexpr uint32_t SALT_SHADOW = 6, SALT_REFLECT = 7, SALT_REFRACT = 8;
 constexpr float BIG = 1e30f;
 #define RAY_TMIN F(0.001)
@@ -36,35 +36,44 @@ struct Cfg {
   float aspect;
 };
 
-// The mesh tables (ops/cuda/megakernel.py::pack_mesh): wide [W][8] float4,
-// the wide nodes of ops/bvh.py::wide_table (per child slot 0..3 its box's
-// min x, min y, min z, max x, max y, max z, then the four child words as an
-// int4, then the slots' fine nodes, not read: 128 bytes a node); plane [T][3] float4 = the 12 floats
-// of ops/bvh.py::plane_table; n0/n1/n2/e1/e2 [T,3]; inst [T]; inst_tbl [I][8]
-// = (transmission, absorption xyz, shadow Beer factor xyz, 0). counts: the
+// What an instantiation of the render kernels and of the walks traces
+// (template MODE, bits): MODE_MESH the mesh walks, over the wide nodes, or
+// with MODE_THREADED along the fine tree's threaded links (a wide table
+// whose walks need more than WALK_STACK entries); MODE_COUNT the counting
+// build, which adds its work to Scene::counts.
+constexpr int MODE_MESH = 1, MODE_THREADED = 2, MODE_COUNT = 4;
+
+// The mesh tables (ops/cuda/megakernel.py::pack_mesh). nodes: the wide
+// nodes [W][8] float4 of ops/bvh.py::wide_table (per child slot 0..3 its
+// box's min x, min y, min z, max x, max y, max z, then the four child words
+// as an int4, then the slots' fine nodes, not read: 128 bytes a node), or
+// with MODE_THREADED the fine nodes [Nn][2] float4 of ops/cuda/
+// megakernel.py::fine_nodes (min x, min y, min z, max x; max y, max z, the
+// hit word, the miss link; the hit word of a leaf is ~(start << 3 | count),
+// 32 bytes a node); plane [T][3] float4 = the 12 floats of
+// ops/bvh.py::plane_table; n0/n1/n2/e1/e2 [T,3]; inst [T]; inst_tbl [I][8] =
+// (transmission, absorption xyz, shadow Beer factor xyz, 0). counts: the
 // counting build's [4][4] walk counts (WC_* rows; walks, node fetches, box
 // tests, triangle tests), else null.
 struct Mesh {
-  const float4* wide;
+  const float4* nodes;
   const float4* plane;
   const float *n0, *n1, *n2, *e1, *e2;
   const int* inst;
   const float* inst_tbl;
   unsigned long long* counts;
-  int num_tris, num_inst;
+  int num_tris, num_inst, num_nodes;
 };
 
+// counts: the counting build's [COUNT_ROWS][4] table (ops/cuda/
+// megakernel.py::COUNT_ROWS: the walk counts' four rows, then the DFS's),
+// else null; mesh.counts points at its first row.
 struct Scene {
   const float *sph, *pln, *box, *mat, *lts, *par, *bn;
   int num_lights, max_shadow_lights;
   uint32_t frame;
+  unsigned long long* counts;
   Mesh mesh;
-};
-
-struct Ray {
-  V3 o, d, tp;
-  float boost;
-  int depth, flags, rflags, stype, sidx;
 };
 
 struct Hit {
@@ -121,8 +130,11 @@ __device__ __forceinline__ V3 par3(const Scene& sc, int i) { return ld3(sc.par +
 // Tensor cores and TMA have no use here: every load is a per-ray gather.
 // The stack is per-thread local memory (cached in L1): a per-thread slice
 // of shared memory measured slower, K1-mesh at spp 2 by 4.6% and K7-mesh
-// by 46% (PERF.md).
-constexpr int WALK_STACK = 64;  // ops/bvh.py::WALK_STACK; the wrapper checks the table's need
+// by 46% (PERF.md). It holds WALK_STACK entries; a table whose deepest walk
+// needs more (ops/bvh.py::WideTopology.need) is walked along the fine
+// tree's threaded links instead (walk_threaded, the MODE_THREADED
+// instantiations), which need no stack: no table is refused.
+constexpr int WALK_STACK = 64;  // ops/bvh.py::WALK_STACK
 constexpr int CHILD_EMPTY = -1;
 // walk classes of the counting build (ops/bvh.py::WALK_CLASSES)
 constexpr int WC_PRIMARY = 0, WC_SECONDARY = 1, WC_THICK = 2, WC_SHADOW = 3;
@@ -176,8 +188,9 @@ __device__ __forceinline__ int pop(const int* stk_c, const float* stk_t, int& sp
 // (a NaN, or an infinite t on both sides of the slab, or a zero inverse
 // whose slab ends at t <= 0 < tmin), so it visits nothing here either.
 template <typename Bound, typename Leaf>
-__device__ __forceinline__ void walk(const float4* wide, V3 o, V3 d, float tmin, Bound bound,
-                                     Leaf leaf, uint32_t& fetches, uint32_t& boxes) {
+__device__ __forceinline__ void walk_wide(const float4* wide, V3 o, V3 d, float tmin,
+                                          Bound bound, Leaf leaf, uint32_t& fetches,
+                                          uint32_t& boxes) {
   if (!(finite3(o) && finite3(d))) return;
   V3 inv = v3(safe_inv1(d.x), safe_inv1(d.y), safe_inv1(d.z));
   int stk_c[WALK_STACK];
@@ -225,14 +238,62 @@ __device__ __forceinline__ void walk(const float4* wide, V3 o, V3 d, float tmin,
   }
 }
 
+// slab test of a fine node's box (ops/bvh.py::_ray_aabb), NaN-propagating
+// as the plain walk's
+__device__ __forceinline__ bool ray_aabb(V3 o, V3 inv, float4 a, float4 b, float tmin,
+                                         float tmax) {
+  float t0x = (a.x - o.x) * inv.x, t1x = (a.w - o.x) * inv.x;
+  float t0y = (a.y - o.y) * inv.y, t1y = (b.x - o.y) * inv.y;
+  float t0z = (a.z - o.z) * inv.z, t1z = (b.y - o.z) * inv.z;
+  float t_near = maxn(maxn(maxn(minn(t0x, t1x), minn(t0y, t1y)), minn(t0z, t1z)), tmin);
+  float t_far = minn(minn(minn(maxn(t0x, t1x), maxn(t0y, t1y)), maxn(t0z, t1z)), tmax);
+  return t_near <= t_far;
+}
+
+// The stackless walk of the fine tree's threaded links (ops/bvh.py::_walk,
+// the plain walks' order, step bound and box test): a node's box hit leads
+// to its hit link, a miss, and every leaf, to its miss link. It has no
+// stack, so no table is too deep for it; it fetches one 32-byte node per
+// box test where the wide walk fetches one 128-byte node per four. bound()
+// and leaf() as walk_wide's.
+template <typename Bound, typename Leaf>
+__device__ __forceinline__ void walk_threaded(const float4* fine, int num_nodes, V3 o, V3 d,
+                                              float tmin, Bound bound, Leaf leaf,
+                                              uint32_t& fetches, uint32_t& boxes) {
+  V3 inv = v3(safe_inv1(d.x), safe_inv1(d.y), safe_inv1(d.z));
+  int node = 0;
+  for (int step = 0; node != NODE_END && step <= num_nodes; ++step) {
+    float4 a = __ldg(fine + 2 * node), b = __ldg(fine + 2 * node + 1);
+    int word = __float_as_int(b.z), miss = __float_as_int(b.w);
+    bool box_hit = ray_aabb(o, inv, a, b, tmin, bound());
+    fetches += 1;
+    boxes += 1;
+    if (word < 0) {  // a leaf: its hit link is its miss link
+      if (box_hit && leaf(word)) return;
+      node = miss;
+    } else {
+      node = box_hit ? word : miss;
+    }
+  }
+}
+
+template <int MODE, typename Bound, typename Leaf>
+__device__ __forceinline__ void walk(const Mesh& m, V3 o, V3 d, float tmin, Bound bound, Leaf leaf,
+                                     uint32_t& fetches, uint32_t& boxes) {
+  if constexpr ((MODE & MODE_THREADED) != 0)
+    walk_threaded(m.nodes, m.num_nodes, o, d, tmin, bound, leaf, fetches, boxes);
+  else
+    walk_wide(m.nodes, o, d, tmin, bound, leaf, fetches, boxes);
+}
+
 // the triangle range of a leaf's child word
 __device__ __forceinline__ int leaf_start(int word) { return (int)((uint32_t)~word >> 3); }
 __device__ __forceinline__ int leaf_count(int word) { return (int)((uint32_t)~word & 7u); }
 
-template <bool COUNT>
+template <int MODE>
 __device__ __forceinline__ void add_counts(const Mesh& m, int cls, uint32_t fetches,
                                            uint32_t boxes, uint32_t tris) {
-  if constexpr (COUNT) {
+  if constexpr ((MODE & MODE_COUNT) != 0) {
     unsigned long long* c = m.counts + 4 * cls;
     atomicAdd(c, 1ull);
     atomicAdd(c + 1, (unsigned long long)fetches);
@@ -264,7 +325,7 @@ struct MeshHit {
 
 // closest triangle with skip-self by instance and the fused same-instance
 // thickness (ops/bvh.py::traverse_closest); cls: the counting build's class
-template <bool COUNT>
+template <int MODE>
 __device__ __noinline__ MeshHit mesh_closest(Mesh m, V3 o, V3 d, float tmin, float tmax,
                                              bool skip_active, int skip_inst, int thick_inst,
                                              int cls) {
@@ -301,10 +362,10 @@ __device__ __noinline__ MeshHit mesh_closest(Mesh m, V3 o, V3 d, float tmin, flo
     }
     return false;
   };
-  walk(m.wide, o, d, tmin, bound, leaf, fetches, boxes);
+  walk<MODE>(m, o, d, tmin, bound, leaf, fetches, boxes);
   r.hit = r.t < tmax * F(0.9999);
   r.inst = __ldg(m.inst + r.tri);
-  add_counts<COUNT>(m, thick_inst >= 0 ? WC_THICK : cls, fetches, boxes, tris);
+  add_counts<MODE>(m, thick_inst >= 0 ? WC_THICK : cls, fetches, boxes, tris);
   return r;
 }
 
@@ -322,7 +383,7 @@ __device__ __forceinline__ float pow_u8(float base, uint32_t n) {
 // shadow transmission over every triangle crossed (ops/bvh.py::
 // traverse_shadow): per-instance 8-bit crossing counts in two words for up
 // to 8 instances, a product per crossing in walk order beyond
-template <bool COUNT>
+template <int MODE>
 __device__ __noinline__ void mesh_shadow(Mesh m, V3 o, V3 d, float max_dist, bool blocked,
                                          float& vis, V3& color, float& occ) {
   bool count_mode = m.num_inst <= 8;
@@ -356,7 +417,7 @@ __device__ __noinline__ void mesh_shadow(Mesh m, V3 o, V3 d, float max_dist, boo
     }
     return blocked;
   };
-  if (!blocked) walk(m.wide, o, d, RAY_TMIN, bound, leaf, fetches, boxes);
+  if (!blocked) walk<MODE>(m, o, d, RAY_TMIN, bound, leaf, fetches, boxes);
   if (count_mode) {
     float cr = 1.0f, cg = 1.0f, cb = 1.0f;
     for (int i = 0; i < m.num_inst; ++i) {
@@ -375,7 +436,7 @@ __device__ __noinline__ void mesh_shadow(Mesh m, V3 o, V3 d, float max_dist, boo
     vis = 0.0f;
     color = v3(0.0f, 0.0f, 0.0f);
   }
-  add_counts<COUNT>(m, WC_SHADOW, fetches, boxes, tris);
+  add_counts<MODE>(m, WC_SHADOW, fetches, boxes, tris);
 }
 
 // ---- RNG (Common.hlsli:761-797) ---------------------------------------------
@@ -444,10 +505,9 @@ __device__ float isect_box(V3 o, V3 d, float tmin, float tmax, const float* b) {
 }
 
 // closest hit over spheres ++ planes ++ boxes; ties keep the first primitive;
-// then the mesh walk, whose hit wins only when strictly nearer. MESH: 0 no
-// meshes, 1 the mesh walk, 2 the mesh walk adding to the walk counts under
-// class cls (WC_*).
-template <int MESH>
+// then, with MODE_MESH, the mesh walk, whose hit wins only when strictly
+// nearer (the counting build counts it under class cls, WC_*).
+template <int MODE>
 __device__ Hit trace_closest(const Cfg& c, const Scene& sc, V3 o, V3 d, int skip_type,
                              int skip_index, int thick_inst, int cls = WC_SECONDARY) {
   float best_t = BIG;
@@ -479,9 +539,9 @@ __device__ Hit trace_closest(const Cfg& c, const Scene& sc, V3 o, V3 d, int skip
   h.u = h.v = 0.0f;
   h.thick_hit = false;
   h.thick_t = BIG;
-  if constexpr (MESH != 0) {
-    MeshHit mh = mesh_closest<MESH == 2>(sc.mesh, o, d, RAY_TMIN, RAY_TMAX,
-                                         skip_type == TYPE_MESH, skip_index, thick_inst, cls);
+  if constexpr ((MODE & MODE_MESH) != 0) {
+    MeshHit mh = mesh_closest<MODE>(sc.mesh, o, d, RAY_TMIN, RAY_TMAX, skip_type == TYPE_MESH,
+                                    skip_index, thick_inst, cls);
     h.thick_hit = mh.thick_hit;
     h.thick_t = mh.thick_t;
     if (mh.hit && mh.t < best_t) {

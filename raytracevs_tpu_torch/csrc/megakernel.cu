@@ -1,6 +1,8 @@
 // Entry points of the render kernels K1, K7 and K8 (render.cuh) for Hopper
 // (sm_90a), each instantiated without meshes and with them (the wide-node
-// walks of closest.cuh); their counting build is megakernel_count.cu.
+// walks of closest.cuh, or given threaded != 0 the walks of the fine tree's
+// threaded links, instantiated in megakernel_threaded.cu, for a wide table
+// deeper than WALK_STACK); their counting build is megakernel_count.cu.
 // Plain C interface, called through ctypes by ops/cuda/megakernel.py; each
 // returns the launch's cudaError_t.
 
@@ -10,10 +12,7 @@
 // lights, 32 params, the 16x16x4 blue-noise tile); itab: [num_lights,
 // max_shadow_lights, frame]; out: [32, height, width]. flags: bit 0 has_lights,
 // 1 any_glass, 2 any_metal, 3 any_absorption.
-extern "C" int rtvs_render_accum(const float* ftab, const int* itab, float* out, int width,
-                                 int height, int S, int P, int B, int L,
-                                 int spp, int max_bounces, int max_iters, int max_soft,
-                                 int flags, float aspect, void* stream) {
+extern "C" int rtvs_render_accum(ACCUM_PARAMS, void* stream) {
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
   Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
@@ -21,25 +20,21 @@ extern "C" int rtvs_render_accum(const float* ftab, const int* itab, float* out,
 }
 
 // K1-mesh: as rtvs_render_accum, with I mesh instances (material rows
-// S+P+B+i) and the mesh tables of make_mesh_scene.
-extern "C" int rtvs_render_accum_mesh(const float* ftab, const int* itab, float* out, int width,
-                                      int height, int S, int P, int B, int L, int spp,
-                                      int max_bounces, int max_iters, int max_soft, int flags,
-                                      float aspect, MESH_PARAMS, void* stream) {
+// S+P+B+i) and the mesh tables of make_mesh_scene (nodes: the wide table,
+// or given threaded the fine nodes).
+extern "C" int rtvs_render_accum_mesh(ACCUM_PARAMS, MESH_PARAMS, int threaded, void* stream) {
+  if (threaded) return render_accum_threaded(false, ACCUM_ARGS, MESH_ARGS, nullptr, stream);
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, nullptr);
-  return launch_accum<1, false>(c, sc, itab, out, stream);
+  return launch_accum<MODE_MESH, false>(c, sc, itab, out, stream);
 }
 
 // K7: as rtvs_render_accum with spp 1 (anything else is refused), out
 // [46, height, width]: the 32 planes of one iteration, the spawned
 // continuation (valid, origin xyz, direction xyz), then the primary ray's
 // closest hit (hit, t, type, index, triangle, u, v; ints as their bits).
-extern "C" int rtvs_render_phase_a(const float* ftab, const int* itab, float* out, int width,
-                                   int height, int S, int P, int B, int L, int spp,
-                                   int max_bounces, int max_iters, int max_soft, int flags,
-                                   float aspect, void* stream) {
+extern "C" int rtvs_render_phase_a(ACCUM_PARAMS, void* stream) {
   if (spp != 1) return (int)cudaErrorInvalidValue;
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
@@ -48,25 +43,19 @@ extern "C" int rtvs_render_phase_a(const float* ftab, const int* itab, float* ou
 }
 
 // K7 with meshes: the arguments of rtvs_render_accum_mesh, out as K7's.
-extern "C" int rtvs_render_phase_a_mesh(const float* ftab, const int* itab, float* out,
-                                        int width, int height, int S, int P, int B, int L,
-                                        int spp, int max_bounces, int max_iters, int max_soft,
-                                        int flags, float aspect, MESH_PARAMS, void* stream) {
+extern "C" int rtvs_render_phase_a_mesh(ACCUM_PARAMS, MESH_PARAMS, int threaded, void* stream) {
+  if (threaded) return render_accum_threaded(true, ACCUM_ARGS, MESH_ARGS, nullptr, stream);
   if (spp != 1) return (int)cudaErrorInvalidValue;
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, nullptr);
-  return launch_accum<1, true>(c, sc, itab, out, stream);
+  return launch_accum<MODE_MESH, true>(c, sc, itab, out, stream);
 }
 
 // K8: order [lanes] int32 pixel ids, count [1] int32 (lanes past it exit),
 // acc [32, height, width] (K7's first 32 planes), updated in place, hits
 // [7, height, width] (K7's hit planes); the rest as rtvs_render_accum, spp 1.
-extern "C" int rtvs_render_phase_b(const float* ftab, const int* itab, const int* order,
-                                   const int* count, float* acc, const float* hits, int lanes,
-                                   int width, int height, int S, int P, int B, int L, int spp,
-                                   int max_bounces, int max_iters, int max_soft, int flags,
-                                   float aspect, void* stream) {
+extern "C" int rtvs_render_phase_b(PHASE_B_PARAMS, void* stream) {
   if (spp != 1) return (int)cudaErrorInvalidValue;
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
@@ -74,16 +63,14 @@ extern "C" int rtvs_render_phase_b(const float* ftab, const int* itab, const int
   return launch_phase_b<0>(c, sc, itab, order, count, hits, lanes, acc, stream);
 }
 
-// K8 with meshes: rtvs_render_phase_b's arguments, then the mesh tables.
-extern "C" int rtvs_render_phase_b_mesh(const float* ftab, const int* itab, const int* order,
-                                        const int* count, float* acc, const float* hits,
-                                        int lanes, int width, int height, int S, int P, int B,
-                                        int L, int spp, int max_bounces, int max_iters,
-                                        int max_soft, int flags, float aspect, MESH_PARAMS,
+// K8 with meshes: rtvs_render_phase_b's arguments, then the mesh tables
+// and threaded as rtvs_render_accum_mesh's.
+extern "C" int rtvs_render_phase_b_mesh(PHASE_B_PARAMS, MESH_PARAMS, int threaded,
                                         void* stream) {
+  if (threaded) return render_phase_b_threaded(PHASE_B_ARGS, MESH_ARGS, nullptr, stream);
   if (spp != 1) return (int)cudaErrorInvalidValue;
   Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
                    aspect);
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, nullptr);
-  return launch_phase_b<1>(c, sc, itab, order, count, hits, lanes, acc, stream);
+  return launch_phase_b<MODE_MESH>(c, sc, itab, order, count, hits, lanes, acc, stream);
 }

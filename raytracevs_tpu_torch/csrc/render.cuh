@@ -1,7 +1,7 @@
 // The render kernels K1, K7 and K8 for Hopper (sm_90a), shared by the
-// entry points of megakernel.cu and, in their counting build, of
-// megakernel_count.cu. nvcc compiles each .cu on its own (no -rdc), so the
-// device code lives in this header.
+// entry points of megakernel.cu, megakernel_threaded.cu and, in their
+// counting build, megakernel_count.cu. nvcc compiles each .cu on its own
+// (no -rdc), so the device code lives in this header.
 //
 // K1 replaces the Pallas TPU kernel raytracevs_tpu/ops/pallas/megakernel.py::
 // make_kernel (launched by _launch_megakernel): per pixel and per sample a
@@ -17,24 +17,31 @@
 // per-thread local array; on the TPU the stack and the tile's rays were
 // VMEM planes walked in lockstep.
 //
-// What bounds the analytic K1: per-thread control flow and latency, not
-// bytes (the scene tables stay in L1; each pixel writes 32 floats once):
-// registers and local-memory spills of the ray state and the 8 x 15-word
-// stack, and divergence between sky pixels that retire after one ray and
-// glass pixels that run the stack deep.
+// What bounds the analytic K1: per-thread chains of dependent float work
+// (sqrt, sin/cos, tan, exp and divisions among them) and their latency,
+// not bytes (the scene tables stay in L1; each pixel writes 32 floats).
+// So the design buys warps to hide that latency: two 256-thread blocks an
+// SM, which caps ptxas at 128 registers, with no spill. What made the body
+// fit (PERF.md): the sums over samples and the depth-0 records go
+// through to the planes as each sample makes them (Planes) instead of
+// living in registers across the DFS; the shading call decides the
+// continuation and pushes the sibling itself, so no child ray outlives it
+// but those two; a WorkItem is 11 words (Item), its depth, flags, boost,
+// skip-self and skip type packed in one; the shadow rays' disc basis is
+// built for the light that needs it. The DFS loop keeps its warps' lanes
+// busy (a SIMT share of 0.965 on the demo scene at spp 2, counted by the
+// counting build), so lanes are not refilled across pixels.
 //
-// K1-mesh (MESH=1, entry rtvs_render_accum_mesh) adds the triangle meshes:
-// the wide-node preorder walks of closest.cuh replace make_kernel's mesh
-// walks and cover make_kernel(mesh_hbm=True), since every table is read
-// from device memory whatever its size. What bounds K1-mesh: its 23M
-// walks a 1080p frame of the mesh demo scene at spp 2 (70% of them shadow
-// rays) and the kernel around them. The walks fetch 3.2x fewer nodes than
-// the threaded walks did (closest.cuh), which took K1-mesh from 13.1 to
-// 12.0 ms, not further: alone the walks are cheap, and what is left is
-// the megakernel's (248 registers and a 1 KB stack frame a thread, one
-// 256-thread block an SM, the state saved around each walk call,
-// divergence). Two blocks an SM (128 registers) spill and lose 14%
-// (PERF.md); the split into trace and shade kernels is the next step.
+// K1-mesh (MODE_MESH, entry rtvs_render_accum_mesh) adds the triangle
+// meshes: the wide-node preorder walks of closest.cuh replace make_kernel's
+// mesh walks and cover make_kernel(mesh_hbm=True), since every table is
+// read from device memory whatever its size; a wide table deeper than the
+// walks' stack takes the threaded walks instead (MODE_THREADED, built in
+// megakernel_threaded.cu). What bounds K1-mesh: its 23M walks a 1080p frame
+// of the mesh demo scene at spp 2 (70% of them shadow rays) and the kernel
+// around them: one 256-thread block an SM (two spill around the walk
+// calls, which save the caller's state) and divergence; the split into
+// trace and shade kernels is the next step.
 //
 // K7 and K8, the two-phase renderer (spp 1), replace make_kernel(phase_a=
 // True) and make_kernel_b of megakernel.py (render_accum_pallas_twophase),
@@ -52,21 +59,18 @@
 // K8 is what bounds K1 and K1-mesh; K8 adds scattered reads of 7 and
 // read-modify-writes of 5 floats a resumed pixel.
 //
-// MESH: 0 no meshes, 1 the mesh walks, 2 the mesh walks adding their node
-// fetches, box tests and triangle tests by ray class to Mesh::counts (the
-// counting build; the pixels it renders are K1-mesh's).
+// MODE (closest.cuh): MODE_MESH the mesh walks, MODE_THREADED along the
+// threaded links, MODE_COUNT the counting build, which adds the walks'
+// node fetches, box and triangle tests by ray class and the DFS's
+// iterations, shade calls, rays, hits and lit lights to Scene::counts
+// (flush_tally); the pixels it renders are the plain instantiation's.
 #pragma once
 
 #include "common.cuh"
 #include "closest.cuh"
 
-// Block shape of the render kernels: 256 threads a block, and the blocks an
-// SM must hold (__launch_bounds__' second argument), which caps ptxas's
-// registers at 65536 / (256 x blocks). Each takes the shape measured
-// fastest (PERF.md): K1, K1-mesh and the mesh K8 one block (two spill the
-// mesh walks heavily, 128-thread blocks lose more), K7 and the analytic
-// K8 two (a short kernel gains more from the second block than it loses
-// to spills).
+// Threads a block of the render kernels (PERF.md: 128-thread blocks measured
+// slower for K1, K7 and K8)
 constexpr int RENDER_THREADS = 256;
 
 namespace {
@@ -136,7 +140,7 @@ __device__ __forceinline__ float attenuation(const Scene& sc, float dist) {
 
 // shadow transmission along a segment (AnyHit_Shadow.hlsl:10-57), the mesh
 // walk seeded blocked where an opaque analytic hit ended the search
-template <int MESH>
+template <int MODE>
 __device__ void trace_shadow(const Cfg& c, const Scene& sc, V3 o, V3 d, float max_dist,
                              float& vis, V3& color, float& occ) {
   vis = 1.0f;
@@ -170,10 +174,10 @@ __device__ void trace_shadow(const Cfg& c, const Scene& sc, V3 o, V3 d, float ma
     vis = 0.0f;
     color = v3(0.0f, 0.0f, 0.0f);
   }
-  if constexpr (MESH != 0) {
+  if constexpr ((MODE & MODE_MESH) != 0) {
     float mvis, mocc;
     V3 mcol;
-    mesh_shadow<MESH == 2>(sc.mesh, o, d, max_dist, blocked, mvis, mcol, mocc);
+    mesh_shadow<MODE>(sc.mesh, o, d, max_dist, blocked, mvis, mcol, mocc);
     vis = vis * mvis;
     color = mul(color, mcol);
     occ = minn(occ, mocc);
@@ -271,7 +275,7 @@ __device__ __forceinline__ float pen_directional(float d_occ, float tan_ang) {
   return d_occ >= FP16_MAX ? FP16_MAX : minn(radius, F(32768.0));
 }
 
-template <int MESH>
+template <int MODE>
 __device__ Shadow soft_shadow(const Cfg& c, const Scene& sc, V3 pos, V3 nrm, bool active, int lt,
                               V3 lpos, float radius, float samples, uint32_t& seed) {
   Shadow r;
@@ -293,15 +297,14 @@ __device__ Shadow soft_shadow(const Cfg& c, const Scene& sc, V3 pos, V3 nrm, boo
   int num_samples = min(max((int)samples, 1), 16);
   float light_size = radius * 2.0f;
   float tan_ang = tanf(radius);
-  V3 t_p, b_p, t_d, b_d;
-  ortho_basis(normalize(dir_point), t_p, b_p);
-  ortho_basis(l_dir, t_d, b_d);
+  // the sample disc's basis: around the light direction, or around the
+  // direction to the point light (the plain version builds both and picks)
+  V3 t_b, b_b;
+  ortho_basis(is_dir ? l_dir : normalize(dir_point), t_b, b_b);
 
   float vis_sum = 0.0f, pen_sum = 0.0f, min_occ = FP16_MAX;
   int occluded = 0, valid = 0;
   V3 color_sum = v3(0.0f, 0.0f, 0.0f);
-  float vis_h = 1.0f, occ_h = FP16_MAX;
-  V3 color_h = v3(1.0f, 1.0f, 1.0f);
   for (int s = 0; s < c.max_soft; ++s) {
     bool iter_soft = soft && s < num_samples;
     bool iter_hard = !soft && s == 0;
@@ -319,14 +322,12 @@ __device__ Shadow soft_shadow(const Cfg& c, const Scene& sc, V3 pos, V3 nrm, boo
       float dx = rr * cosf(theta), dy = rr * sinf(theta);
       V3 samp_dir;
       float samp_max;
+      V3 off = v3((t_b.x * dx + b_b.x * dy) * radius, (t_b.y * dx + b_b.y * dy) * radius,
+                  (t_b.z * dx + b_b.z * dy) * radius);
       if (is_dir) {
-        V3 off = v3((t_d.x * dx + b_d.x * dy) * radius, (t_d.y * dx + b_d.y * dy) * radius,
-                    (t_d.z * dx + b_d.z * dy) * radius);
         samp_dir = normalize(add(l_dir, off));
         samp_max = F(10000.0);
       } else {
-        V3 off = v3((t_p.x * dx + b_p.x * dy) * radius, (t_p.y * dx + b_p.y * dy) * radius,
-                    (t_p.z * dx + b_p.z * dy) * radius);
         V3 samp_vec = sub(add(lpos, off), pos);
         float samp_dist = length(samp_vec);
         samp_dir = divs(samp_vec, maxn(samp_dist, F(1e-12)));
@@ -339,12 +340,12 @@ __device__ Shadow soft_shadow(const Cfg& c, const Scene& sc, V3 pos, V3 nrm, boo
     }
     float sv, so;
     V3 scol;
-    trace_shadow<MESH>(c, sc, origin, trace_dir, trace_max, sv, scol, so);
+    trace_shadow<MODE>(c, sc, origin, trace_dir, trace_max, sv, scol, so);
     r.rays += 1;
     if (iter_hard) {
-      vis_h = sv;
-      color_h = scol;
-      if (sv < F(0.99)) occ_h = so;
+      r.vis = sv;
+      r.color = scol;
+      if (sv < F(0.99)) r.occ = so;
     } else {
       vis_sum = vis_sum + sv;
       color_sum = add(color_sum, scale(scol, sv));
@@ -362,11 +363,6 @@ __device__ Shadow soft_shadow(const Cfg& c, const Scene& sc, V3 pos, V3 nrm, boo
     r.occ = occluded > 0 ? min_occ : FP16_MAX;
     r.pen = occluded > 0 ? pen_sum / (float)max(occluded, 1) : 0.0f;
     r.color = vis_sum > F(0.01) ? divs(color_sum, maxn(vis_sum, F(1e-12))) : v3(0.0f, 0.0f, 0.0f);
-  } else {
-    r.vis = vis_h;
-    r.occ = occ_h;
-    r.pen = 0.0f;
-    r.color = color_h;
   }
   return r;
 }
@@ -399,49 +395,186 @@ __device__ __forceinline__ void brdf_terms(V3 nrm, V3 view, V3 l, float ndotl, V
             (1.0f - fr.z) * om * dc.z / F(3.14159265359));
 }
 
-// ---- one WorkItem: trace, shade, records, children (RayGen.hlsl:174-848) ----
-struct Shaded {
-  V3 color, diffuse, specular;
-  float hit_distance, svis, spen, sdist;
-  bool hit;
-  V3 normal, albedo, pos;
-  float roughness, metallic, transmission;
-  int obj_id, rays;
-  // children
-  bool glass_spawn, metal_spawn, tir, entering;
-  V3 reflect_dir, refract_dir, metal_dir, reflect_tp, refract_tp, metal_tp;
-  int hit_type, hit_index;
-  int thick_tag;  // refract child's pending mesh thickness: (instance + 1) << 8
-  // the rest of the hit (phase A hands the primary's to phase B)
-  float t, u, v;
-  int tri;
+// ---- the DFS, shared by K1, K7 and K8 ---------------------------------------
+// Accumulator planes of a pixel (ops/render.py::CH_*)
+constexpr int CH_COLOR = 0, CH_PRIMARY = 3, CH_DIFFUSE = 6, CH_SPECULAR = 9, CH_HITDIST = 12,
+              CH_BOUNCE = 13, CH_RAYS = 14, CH_PRIM_HIT = 15, CH_NORMAL = 16, CH_ROUGH = 19,
+              CH_ALBEDO = 20, CH_METALLIC = 23, CH_TRANSMISSION = 24, CH_POS = 25,
+              CH_SHADOW_VIS = 28, CH_SHADOW_PEN = 29, CH_SHADOW_DIST = 30, CH_OBJ_ID = 31,
+              CH_SPAWN = 32, CH_HIT = 39;
+
+// One pixel's planes. The sums over samples and the depth-0 records go
+// through to them as each sample makes them, instead of living in
+// registers across the pixel's DFS: the thread owns its pixel, and each
+// plane takes the plain version's float additions in its order (the first
+// sample adds to 0, later ones to what the plane holds).
+struct Planes {
+  float* o;
+  int plane;
+  __device__ __forceinline__ float get(int ch) const { return o[ch * plane]; }
+  __device__ __forceinline__ void set(int ch, float v) const { o[ch * plane] = v; }
+  __device__ __forceinline__ void add(int ch, float v, bool first) const {
+    set(ch, (first ? 0.0f : get(ch)) + v);
+  }
+  __device__ __forceinline__ void add3(int ch, V3 v, bool first) const {
+    add(ch, v.x, first);
+    add(ch + 1, v.y, first);
+    add(ch + 2, v.z, first);
+  }
+  __device__ __forceinline__ void set3(int ch, V3 v) const {
+    set(ch, v.x);
+    set(ch + 1, v.y);
+    set(ch + 2, v.z);
+  }
 };
 
-// SHADE=false computes the children alone: no lighting, colour, records or
-// shadow rays (phase B's re-derivation of iteration 0, megakernel.py::
-// _children_only_k; ops/wavefront.py::children_only), from the closest hit
-// `given` that phase A traced. The children are the same bit for bit: the
-// hit, material, RNG and spawn arithmetic is shared.
-template <int MESH, bool SHADE = true>
-__device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint32_t py,
-                                uint32_t sample, const Ray& ray, Shaded& out,
-                                const Hit* given = nullptr) {
-  int skip_t = (ray.rflags & RAYFLAG_SKIP_SELF) ? ray.stype : INVALID;
-  int skip_i = (ray.rflags & RAYFLAG_SKIP_SELF) ? ray.sidx : 0;
-  // a refract child tagged with instance+1 in rflags bits 8+ resolves its
-  // mesh-glass thickness in this closest walk; the Beer factor the
-  // reference applied at spawn multiplies the throughput here and the
-  // colour at the end (ops/wavefront.py::shade_and_spawn)
-  int thick_inst = (ray.rflags >> 8) - 1;
+// the primary record of a pixel whose samples all miss (RayGen.hlsl:560-589)
+__device__ __forceinline__ void record_no_primary(const Planes& px) {
+  px.set(CH_PRIM_HIT, 0.0f);
+  px.set3(CH_NORMAL, v3(0.0f, 1.0f, 0.0f));
+  px.set(CH_ROUGH, 1.0f);
+  px.set3(CH_ALBEDO, v3(0.0f, 0.0f, 0.0f));
+  px.set(CH_METALLIC, 0.0f);
+  px.set(CH_TRANSMISSION, 0.0f);
+  px.set3(CH_POS, v3(0.0f, 0.0f, 0.0f));
+  px.set(CH_OBJ_ID, -1.0f);
+}
+
+// a sample's depth-0 records: the radiance records summed over samples,
+// SIGMA's shadow record from the first sample
+__device__ __forceinline__ void record(const Planes& px, bool first, V3 diffuse, V3 specular,
+                                       float hitdist, float svis, float spen, float sdist) {
+  px.add3(CH_DIFFUSE, diffuse, first);
+  px.add3(CH_SPECULAR, specular, first);
+  px.add(CH_HITDIST, hitdist, first);
+  if (first) {
+    px.set(CH_SHADOW_VIS, svis);
+    px.set(CH_SHADOW_PEN, spen);
+    px.set(CH_SHADOW_DIST, sdist);
+  }
+}
+
+// The counting build's tally of a thread's DFS (MODE_COUNT), added to the
+// "dfs", "rays" and "hits" rows of Scene::counts once at its end
+// (flush_tally; ops/render.py::COUNT_ROWS).
+struct Tally {
+  uint32_t lane_iters, warp_iters, capped, killed;  // warp_iters: x 32
+  uint32_t shade0, shade1, shadow, thick;           // shade calls at depth 0 and >= 1
+  uint32_t misses, glass, opaque, lit;              // lit: lights shaded by the BRDF
+};
+constexpr int TALLY_WORDS = 12;
+
+__device__ __forceinline__ uint32_t lane_id() {
+  uint32_t l;
+  asm("mov.u32 %0, %%laneid;" : "=r"(l));
+  return l;
+}
+
+template <int MODE>
+__device__ __forceinline__ void flush_tally(const Scene& sc, const Tally& t) {
+  if constexpr ((MODE & MODE_COUNT) != 0) {
+    uint32_t v[TALLY_WORDS] = {t.lane_iters, t.warp_iters, t.capped, t.killed,
+                               t.shade0,     t.shade1,     t.shadow, t.thick,
+                               t.misses,     t.glass,      t.opaque, t.lit};
+    // an atomic a word a thread: a warp-wide sum would need the warp's
+    // lanes converged here, which nothing guarantees after the DFS
+#pragma unroll
+    for (int k = 0; k < TALLY_WORDS; ++k)
+      if (v[k]) atomicAdd(sc.counts + 16 + k, (unsigned long long)v[k]);
+  }
+}
+
+// A DFS WorkItem (Common.hlsli:194-212) in 11 words: origin, direction,
+// throughput, then `meta` = depth | flags << 16 | boost code << 18 |
+// skip-self << 20 | skip type << 21, and `aux`: the skip index of an item
+// that skips itself, else its pending mesh thickness (instance + 1, 0 for
+// none; only a refract child has one, and it never skips itself).
+constexpr int BOOST_ONE = 0, BOOST_GLASS = 1, BOOST_METAL = 2;  // 1, 1.2, 1.1
+__device__ __forceinline__ int item_meta(int depth, int flags, int boost, bool skip, int stype) {
+  return depth | flags << 16 | boost << 18 | (skip ? 1 : 0) << 20 | (skip ? stype : 0) << 21;
+}
+struct Item {
+  V3 o, d, tp;
+  int meta, aux;
+  __device__ __forceinline__ int depth() const { return meta & 0xFFFF; }
+  __device__ __forceinline__ int flags() const { return (meta >> 16) & 3; }
+  __device__ __forceinline__ float boost() const {
+    int b = (meta >> 18) & 3;
+    return b == BOOST_ONE ? 1.0f : (b == BOOST_GLASS ? F(1.2) : F(1.1));
+  }
+  __device__ __forceinline__ bool skip() const { return (meta >> 20) & 1; }
+  __device__ __forceinline__ int skip_type() const { return skip() ? (meta >> 21) & 7 : INVALID; }
+  __device__ __forceinline__ int skip_index() const { return skip() ? aux : 0; }
+  __device__ __forceinline__ int thick_inst() const { return skip() ? -1 : aux - 1; }
+};
+
+// One sample's DFS state besides its stack: the current WorkItem, whether
+// there is one, the stack's entry count, and the sample's running sums.
+struct Path {
+  Item cur;
+  bool valid;
+  int count;
+  V3 color;
+  int bounce, rays;
+};
+
+// The 8-deep LIFO of deferred siblings, in local memory (only a glass
+// hit's reflect child waits on it).
+struct Stack {
+  float f[STACK_DEPTH][9];
+  int i[STACK_DEPTH][2];
+  __device__ __forceinline__ void push(int k, const Item& r) {
+    float* e = f[k];
+    e[0] = r.o.x; e[1] = r.o.y; e[2] = r.o.z;
+    e[3] = r.d.x; e[4] = r.d.y; e[5] = r.d.z;
+    e[6] = r.tp.x; e[7] = r.tp.y; e[8] = r.tp.z;
+    i[k][0] = r.meta;
+    i[k][1] = r.aux;
+  }
+  __device__ __forceinline__ void pop(int k, Item& r) const {
+    const float* e = f[k];
+    r.o = v3(e[0], e[1], e[2]);
+    r.d = v3(e[3], e[4], e[5]);
+    r.tp = v3(e[6], e[7], e[8]);
+    r.meta = i[k][0];
+    r.aux = i[k][1];
+  }
+};
+
+// ---- one WorkItem: trace, shade, records, children (RayGen.hlsl:174-848) ----
+// Traces and shades p.cur: its radiance into p.color and p.rays and, at
+// depth 0, its records into the pixel's planes; then decides its
+// continuation (RayGen.hlsl:697-846: refract > unpushed reflect > metal),
+// which replaces p.cur, and pushes the reflect child when the refract child
+// continues (against the full STACK_DEPTH capacity). Returns whether there
+// is a continuation. So no child ray outlives this call but the one that
+// continues and the one pushed. SHADE=false computes the children alone:
+// no lighting, radiance, records or rays (phase B's re-derivation of
+// iteration 0, megakernel.py::_children_only_k; ops/wavefront.py::
+// children_only), from the closest hit `given` that phase A traced. The
+// children are the same bit for bit: the hit, material, RNG and spawn
+// arithmetic is shared. `hit`, when given, gets the traced closest hit.
+template <int MODE, bool SHADE = true>
+__device__ bool shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint32_t py, int s,
+                                Path& p, Stack& st, const Planes& pl, bool& prim_hit, Tally& tl,
+                                Hit* hit = nullptr, const Hit* given = nullptr) {
+  const Item& ray = p.cur;  // read until the continuation replaces it
+  int skip_t = ray.skip_type(), skip_i = ray.skip_index();
+  // a refract child tagged with its mesh instance resolves its mesh-glass
+  // thickness in this closest walk; the Beer factor the reference applied
+  // at spawn multiplies the throughput here and the colour at the end
+  // (ops/wavefront.py::shade_and_spawn)
+  int thick_inst = ray.thick_inst();
   Hit h;
   if constexpr (SHADE)
-    h = trace_closest<MESH>(c, sc, ray.o, ray.d, skip_t, skip_i, thick_inst,
-                            ray.depth == 0 ? WC_PRIMARY : WC_SECONDARY);
+    h = trace_closest<MODE>(c, sc, ray.o, ray.d, skip_t, skip_i, thick_inst,
+                            ray.depth() == 0 ? WC_PRIMARY : WC_SECONDARY);
   else
     h = *given;
+  if (hit) *hit = h;
   V3 tp = ray.tp;
   V3 beer = v3(1.0f, 1.0f, 1.0f);
-  bool fused = MESH != 0 && c.any_absorption;
+  bool fused = (MODE & MODE_MESH) != 0 && c.any_absorption;
   if (fused) {
     float t_th = (thick_inst >= 0 && h.thick_hit) ? h.thick_t : 0.0f;
     float tscale = t_th * F(0.6);
@@ -450,32 +583,31 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
       beer = v3(expf(-ab.x * tscale), expf(-ab.y * tscale), expf(-ab.z * tscale));
     tp = mul(tp, beer);
   }
-  out.hit = h.hit;
-  out.rays = 0;
-  out.glass_spawn = out.metal_spawn = out.tir = false;
-  out.hit_type = h.type;
-  out.hit_index = h.index;
-  out.thick_tag = 0;
-  out.t = h.t;
-  out.u = h.u;
-  out.v = h.v;
-  out.tri = h.tri;
+  bool depth0 = ray.depth() == 0, first = s == 0;
+  if constexpr (SHADE) {
+    if constexpr ((MODE & MODE_COUNT) != 0) {
+      if (depth0) tl.shade0 += 1;
+      else tl.shade1 += 1;
+    }
+  }
   if (!h.hit) {
     if constexpr (SHADE) {
+      if constexpr ((MODE & MODE_COUNT) != 0) tl.misses += 1;
       V3 sky = sky_color(ray.d);
-      V3 col = scale(sky, ray.boost);
+      V3 col = scale(sky, ray.boost());
       if (!finite3(col)) col = mul(tp, sky);
       if (fused) col = mul(col, beer);
-      out.color = col;
-      out.diffuse = scale(sky, ray.boost);
-      out.specular = v3(0.0f, 0.0f, 0.0f);
-      out.hit_distance = F(10000.0);
-      out.svis = 1.0f;
-      out.spen = 0.0f;
-      out.sdist = FP16_MAX;
-      out.obj_id = -1;
+      V3 contrib = mul(ray.tp, col);
+      p.color = add(p.color, contrib);
+      p.rays += 1;
+      if (depth0) {
+        pl.add3(CH_PRIMARY, add(v3(0.0f, 0.0f, 0.0f), contrib), first);
+        record(pl, first, scale(sky, ray.boost()), v3(0.0f, 0.0f, 0.0f), F(10000.0), 1.0f, 0.0f,
+               FP16_MAX);
+        if (first) record_no_primary(pl);
+      }
     }
-    return;
+    return false;
   }
   V3 pos = add(ray.o, scale(ray.d, h.t));
   V3 n;
@@ -484,11 +616,11 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     n = normalize(sub(pos, ld3(sc.sph + SPH_W * min(max(h.index, 0), c.S - 1))));
   } else if (h.type == TYPE_PLANE) {
     n = normalize(ld3(sc.pln + PLN_W * min(max(h.index, 0), c.P - 1) + 3));
-  } else if (MESH == 0 || h.type == TYPE_BOX) {
+  } else if ((MODE & MODE_MESH) == 0 || h.type == TYPE_BOX) {
     n = box_face_normal(pos, sc.box + BOX_W * min(max(h.index, 0), c.B - 1));
   }
   V3 nrm;
-  if (MESH != 0 && h.type == TYPE_MESH) {
+  if ((MODE & MODE_MESH) != 0 && h.type == TYPE_MESH) {
     // barycentric smooth normal; the geometric normal decides the face
     // (ClosestHit_Triangle.hlsl:14-136, ops/bvh.py::shading_normal)
     int ti = h.tri;
@@ -504,14 +636,14 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     nrm = front ? n : neg(n);
   }
 
-  // material fetch (ClosestHit.hlsl:54-125)
+  // material fetch (ClosestHit.hlsl:54-125); emission and absorption are
+  // read where they are used
   const float* mt = sc.mat + MAT_W * h.slot;
   V3 albedo = ld3(mt);
   float metallic = __ldg(mt + 3), roughness = __ldg(mt + 4), transmission = __ldg(mt + 5);
   float ior = __ldg(mt + 6), specular = __ldg(mt + 7);
-  V3 emission = ld3(mt + 9), absorption = ld3(mt + 12);
-  V3 cam_pos = par3(sc, P_CAMPOS), cam_fwd = par3(sc, P_FWD);
   if (h.type == TYPE_PLANE) {
+    V3 cam_pos = par3(sc, P_CAMPOS), cam_fwd = par3(sc, P_FWD);
     float vz = maxn(dot(sub(pos, cam_pos), cam_fwd), 0.0f);
     float fade = expf(-vz / F(50.0));
     float contrast = F(0.3) + F(1.0 - 0.3) * fade;
@@ -524,20 +656,21 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     ior = F(1.5);
   }
   bool is_glass = transmission > F(0.01);
-
-  float f0_from_ior = (ior - 1.0f) / (ior + 1.0f);
-  f0_from_ior = f0_from_ior * f0_from_ior;
-  float spec_blend = clampn(specular, 0.0f, 1.0f);
-  float f0_glass = f0_from_ior + (spec_blend - f0_from_ior) * spec_blend;
-  V3 f0 = v3(F(0.04) + (albedo.x - F(0.04)) * metallic, F(0.04) + (albedo.y - F(0.04)) * metallic,
-             F(0.04) + (albedo.z - F(0.04)) * metallic);
-  uint32_t sample_rng = sample + (uint32_t)ray.depth * 4096u;
-  int rays = 0;
+  uint32_t sample_rng = (uint32_t)s + (uint32_t)ray.depth() * 4096u;
+  int shadow_rays = 0;
   if constexpr (SHADE) {
+    if constexpr ((MODE & MODE_COUNT) != 0) {
+      if (is_glass) tl.glass += 1;
+      else tl.opaque += 1;
+    }
     V3 view = neg(ray.d);
+    float spec_blend = clampn(specular, 0.0f, 1.0f);
     V3 highlight = v3(0.0f, 0.0f, 0.0f);
     if (is_glass && c.any_glass && c.has_lights) {
       // glass: specular highlights only (RayGen.hlsl:283-334)
+      float f0_from_ior = (ior - 1.0f) / (ior + 1.0f);
+      f0_from_ior = f0_from_ior * f0_from_ior;
+      float f0_glass = f0_from_ior + (spec_blend - f0_from_ior) * spec_blend;
       for (int li = 0; li < c.L; ++li) {
         const float* lt = sc.lts + LT_W * li;
         int type = (int)__ldg(lt);
@@ -556,7 +689,6 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     }
 
     // non-glass: PBR direct lighting (RayGen.hlsl:336-539)
-    V3 dc = scale(albedo, 1.0f - metallic);
     V3 ambient = v3(0.0f, 0.0f, 0.0f), ddiff = ambient, dspec = ambient;
     float best_vis = 1.0f, best_pen = 0.0f, best_dist = FP16_MAX;
     if (!is_glass && c.has_lights) {
@@ -593,10 +725,14 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
         LightGeom g = light_geom(sc, pos, nrm, type, lpos);
         int samples = shadow_samples(__ldg(lt + 9), t0i, t0c, t1i, t1c, idx);
         bool active = selm && g.ndotl > 0.0f;
-        res[w] = soft_shadow<MESH>(c, sc, pos, nrm, active, type, lpos, __ldg(lt + 8),
-                                       (float)samples, seed);
-        if (active) rays += res[w].rays;
+        res[w] = soft_shadow<MODE>(c, sc, pos, nrm, active, type, lpos, __ldg(lt + 8),
+                                   (float)samples, seed);
+        if (active) shadow_rays += res[w].rays;
       }
+      V3 dc = scale(albedo, 1.0f - metallic);
+      V3 f0 = v3(F(0.04) + (albedo.x - F(0.04)) * metallic,
+                 F(0.04) + (albedo.y - F(0.04)) * metallic,
+                 F(0.04) + (albedo.z - F(0.04)) * metallic);
       float best_w = -1.0f;
       float strength = par(sc, P_SHADOW_STRENGTH);
       for (int li = 0; li < c.L; ++li) {
@@ -616,13 +752,14 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
         }
         bool lit = lv && !is_amb && g.ndotl > 0.0f;
         if (!lit) continue;
+        if constexpr ((MODE & MODE_COUNT) != 0) tl.lit += 1;
         bool use_a = a_idx == li && a_sel, use_b = b_idx == li && b_sel;
         const Shadow& rs = res[use_a ? 0 : 1];
         bool use = use_a || use_b;
         float vis = use ? rs.vis : 1.0f;
         V3 scol = use ? rs.color : v3(1.0f, 1.0f, 1.0f);
         float w = g.ndotl * g.atten * lint;
-        if (ray.depth == 0 && w > best_w) {
+        if (depth0 && w > best_w) {
           best_w = w;
           best_vis = vis;
           best_pen = use ? rs.pen : 0.0f;
@@ -636,7 +773,7 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
         ddiff = add(ddiff, scale(mul(db, radiance), g.ndotl));
         dspec = add(dspec, scale(mul(sb, radiance), g.ndotl));
       }
-    } else if (!is_glass && ray.depth == 0) {
+    } else if (!is_glass && depth0) {
       // no-light fallback (RayGen.hlsl:452-501): legacy point light + flat
       // ambient, only at depth 0
       V3 to_l = sub(v3(3.0f, 5.0f, -3.0f), pos);
@@ -646,13 +783,18 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
       float fb_ndotl = maxn(dot(nrm, fb_l), 0.0f);
       float fb_vis, fb_occ;
       V3 fb_scol;
-      trace_shadow<MESH>(c, sc, add(pos, scale(nrm, F(0.001))), fb_l, fb_dist, fb_vis,
-                             fb_scol, fb_occ);
-      rays += 1;
+      trace_shadow<MODE>(c, sc, add(pos, scale(nrm, F(0.001))), fb_l, fb_dist, fb_vis, fb_scol,
+                         fb_occ);
+      shadow_rays += 1;
+      V3 dc = scale(albedo, 1.0f - metallic);
+      V3 f0 = v3(F(0.04) + (albedo.x - F(0.04)) * metallic,
+                 F(0.04) + (albedo.y - F(0.04)) * metallic,
+                 F(0.04) + (albedo.z - F(0.04)) * metallic);
       float fb_amount = clampn((1.0f - fb_vis) * par(sc, P_SHADOW_STRENGTH), 0.0f, 1.0f);
       float k = F(1.5) * fb_atten * (1.0f - fb_amount);
       V3 fb_rad = v3(k * fb_scol.x, k * fb_scol.y, k * fb_scol.z);
       if (fb_ndotl > 0.0f) {
+        if constexpr ((MODE & MODE_COUNT) != 0) tl.lit += 1;
         V3 db, sb;
         brdf_terms(nrm, view, fb_l, fb_ndotl, f0, roughness, metallic, dc, db, sb);
         ddiff = scale(mul(db, fb_rad), fb_ndotl);
@@ -666,6 +808,7 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
       best_dist = fb_vis < F(0.99) ? fb_occ : FP16_MAX;
     }
 
+    V3 emission = ld3(mt + 9);
     float reflection_weight = metallic * (1.0f - roughness * 0.5f);
     float direct_weight = 1.0f - reflection_weight * 0.5f;
     V3 diff_lit = add(ambient, scale(ddiff, direct_weight));
@@ -673,25 +816,39 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
                       : clamp3(add(add(diff_lit, dspec), emission), 0.0f, INFINITY);
     if (!finite3(col)) col = mul(tp, sky_color(ray.d));  // NaN/Inf guard (RayGen.hlsl:250-260)
     if (fused) col = mul(col, beer);
-    out.color = col;
-    out.diffuse = is_glass ? v3(0.0f, 0.0f, 0.0f) : add(diff_lit, emission);
-    out.specular = is_glass ? highlight : dspec;
-    out.hit_distance = h.t;
-    out.svis = is_glass ? 1.0f : best_vis;
-    out.spen = is_glass ? 0.0f : best_pen;
-    out.sdist = is_glass ? FP16_MAX : best_dist;
-    out.albedo = albedo;
-    out.roughness = roughness;
-    out.metallic = metallic;
-    out.transmission = transmission;
-    out.obj_id = h.type * 65536 + h.index;
+    V3 contrib = mul(ray.tp, col);
+    p.color = add(p.color, contrib);
+    if (depth0) {
+      // depth-0 records (RayGen.hlsl:560-589): each sample records once;
+      // SIGMA takes the first sample's, the primary record the first hit
+      pl.add3(CH_PRIMARY, add(v3(0.0f, 0.0f, 0.0f), contrib), first);
+      record(pl, first, is_glass ? v3(0.0f, 0.0f, 0.0f) : add(diff_lit, emission),
+             is_glass ? highlight : dspec, h.t, is_glass ? 1.0f : best_vis,
+             is_glass ? 0.0f : best_pen, is_glass ? FP16_MAX : best_dist);
+      if (!prim_hit) {
+        prim_hit = true;
+        pl.set(CH_PRIM_HIT, 1.0f);
+        pl.set3(CH_NORMAL, nrm);
+        pl.set(CH_ROUGH, roughness);
+        pl.set3(CH_ALBEDO, albedo);
+        pl.set(CH_METALLIC, metallic);
+        pl.set(CH_TRANSMISSION, transmission);
+        pl.set3(CH_POS, pos);
+        pl.set(CH_OBJ_ID, (float)(h.type * 65536 + h.index));
+      }
+    }
   }
-  out.normal = nrm;
-  out.pos = pos;
-  out.entering = front;
 
-  // ---- children (RayGen.hlsl:591-847) ----
+  // ---- children and the continuation (RayGen.hlsl:591-847) ----
+  int next_depth = ray.depth() + 1;
+  int spec_flags = ray.flags() | PATH_FLAG_SPECULAR;
+  int thick_rays = 0;
+  bool cont = false;
   if (c.any_glass && is_glass) {
+    float f0_from_ior = (ior - 1.0f) / (ior + 1.0f);
+    f0_from_ior = f0_from_ior * f0_from_ior;
+    float spec_blend = clampn(specular, 0.0f, 1.0f);
+    float f0_glass = f0_from_ior + (spec_blend - f0_from_ior) * spec_blend;
     float eta = front ? 1.0f / ior : ior;
     V3 reflect0 = normalize(sub(ray.d, scale(nrm, 2.0f * dot(ray.d, nrm))));
     float cosi = dot(nrm, ray.d);
@@ -703,7 +860,7 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
                         eta * ray.d.z - m * nrm.z);
     refract_dir = tir ? v3(0.0f, 0.0f, 0.0f) : normalize(refract_dir);
     V3 g_reflect = reflect0, g_refract = refract_dir;
-    if (roughness > F(0.01) && ray.depth == 0) {
+    if (roughness > F(0.01) && depth0) {
       // roughness perturbation at depth 0 (RayGen.hlsl:613-623)
       g_reflect = perturb_reflection(reflect0, nrm, roughness,
                                      rng_init(px, py, sc.frame, sample_rng, SALT_REFLECT));
@@ -720,82 +877,81 @@ __device__ void shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     float ft = (1.0f - fresnel) * clampn(transmission, 0.0f, 1.0f);
     V3 refract_tp = clamp3(v3(ft * tint.x, ft * tint.y, ft * tint.z), 0.0f, 1.0f);
     V3 absorb = v3(1.0f, 1.0f, 1.0f);
+    int thick_tag = 0;  // the refract child's pending mesh thickness: instance + 1
     if (c.any_absorption && !tir) {
       // thickness ray for Beer-Lambert absorption (RayGen.hlsl:646-678);
       // on a mesh it finds nothing here: the refract child's closest walk
-      // resolves it (tagged below)
-      if (MESH != 0 && h.type == TYPE_MESH &&
+      // resolves it (tagged)
+      V3 absorption = ld3(mt + 12);
+      if ((MODE & MODE_MESH) != 0 && h.type == TYPE_MESH &&
           (absorption.x > 0.0f || absorption.y > 0.0f || absorption.z > 0.0f))
-        out.thick_tag = (h.index + 1) << 8;
+        thick_tag = h.index + 1;
       float th_t;
       bool th_hit = trace_thickness(c, sc, add(pos, scale(g_refract, F(0.002))), g_refract,
                                     h.type, h.index, th_t);
-      rays += 1;
+      thick_rays += 1;
       float thickness = th_hit ? th_t : 0.0f;
       if (thickness > 0.0f) {
         float ts = thickness * F(0.6);
         absorb = v3(expf(-absorption.x * ts), expf(-absorption.y * ts), expf(-absorption.z * ts));
       }
     }
-    out.glass_spawn = true;
-    out.tir = tir;
-    out.reflect_dir = g_reflect;
-    out.refract_dir = g_refract;
-    out.reflect_tp = v3(rtp * tp.x, rtp * tp.y, rtp * tp.z);
-    out.refract_tp = mul(mul(refract_tp, absorb), tp);
-  }
-  if (c.any_metal && !is_glass && metallic > F(0.1)) {
+    V3 reflect_tp = v3(rtp * tp.x, rtp * tp.y, rtp * tp.z);
+    bool push_reflect = p.count < STACK_DEPTH;
+    bool refract_ok = !tir && p.count + (push_reflect ? 1 : 0) < STACK_DEPTH;
+    Item refl;
+    refl.o = add(pos, scale(nrm, F(0.002)));
+    refl.d = g_reflect;
+    refl.tp = reflect_tp;
+    refl.meta = item_meta(next_depth, spec_flags, BOOST_GLASS, true, h.type);
+    refl.aux = h.index;
+    if (push_reflect && refract_ok) {
+      st.push(p.count, refl);
+      p.count += 1;
+    }
+    if (refract_ok) {
+      V3 next_tp = mul(mul(refract_tp, absorb), tp);
+      int flags = front ? (spec_flags | PATH_FLAG_INSIDE) : (spec_flags & ~PATH_FLAG_INSIDE);
+      p.cur.o = add(pos, scale(g_refract, F(0.002)));
+      p.cur.d = g_refract;
+      p.cur.tp = next_tp;
+      p.cur.meta = item_meta(next_depth, flags, BOOST_GLASS, false, 0);
+      p.cur.aux = thick_tag;
+      cont = true;
+    } else if (push_reflect) {
+      p.cur = refl;
+      cont = true;
+    }
+  } else if (c.any_metal && !is_glass && metallic > F(0.1)) {
     // metal child (RayGen.hlsl:806-846)
     V3 reflect_m = sub(ray.d, scale(nrm, 2.0f * dot(ray.d, nrm)));
-    out.metal_dir = perturb_reflection(reflect_m, nrm, roughness,
-                                       rng_init(px, py, sc.frame, sample_rng, SALT_REFLECT));
+    V3 metal_dir = perturb_reflection(reflect_m, nrm, roughness,
+                                      rng_init(px, py, sc.frame, sample_rng, SALT_REFLECT));
     float ndotv_m = clampn(dot(nrm, neg(ray.d)), 0.0f, 1.0f);
+    V3 f0 = v3(F(0.04) + (albedo.x - F(0.04)) * metallic,
+               F(0.04) + (albedo.y - F(0.04)) * metallic,
+               F(0.04) + (albedo.z - F(0.04)) * metallic);
     V3 f_metal = fresnel_schlick3(ndotv_m, f0);
     float reflect_scale = 1.0f - roughness * 0.5f;
-    float boost = ray.depth > 0 ? F(1.5) : 1.0f;
-    out.metal_tp = mul(scale(f_metal, reflect_scale * boost), tp);
-    out.metal_spawn = true;
+    float boost = ray.depth() > 0 ? F(1.5) : 1.0f;
+    V3 metal_tp = mul(scale(f_metal, reflect_scale * boost), tp);
+    bool inside = (spec_flags & PATH_FLAG_INSIDE) != 0;
+    p.cur.o = add(pos, scale(nrm, F(0.002)));
+    p.cur.d = metal_dir;
+    p.cur.tp = metal_tp;
+    p.cur.meta = item_meta(next_depth, spec_flags, BOOST_METAL, !inside, h.type);
+    p.cur.aux = inside ? 0 : h.index;
+    cont = true;
   }
-  out.rays = rays;
+  if constexpr (SHADE) {
+    p.rays += 1 + shadow_rays + thick_rays;
+    if constexpr ((MODE & MODE_COUNT) != 0) {
+      tl.shadow += shadow_rays;
+      tl.thick += thick_rays;
+    }
+  }
+  return cont;
 }
-
-// ---- the DFS, shared by K1, K7 and K8 ---------------------------------------
-// A pixel's depth-0 records across its samples (RayGen.hlsl:560-589)
-struct Records {
-  V3 diffuse, specular;
-  float hitdist, svis, spen, sdist;
-  bool prim_hit;
-  V3 pnormal, palbedo, ppos;
-  float prough, pmetal, ptrans;
-  int pobj;
-};
-
-__device__ __forceinline__ void init_records(Records& r) {
-  r.diffuse = r.specular = v3(0.0f, 0.0f, 0.0f);
-  r.hitdist = 0.0f;
-  r.svis = 1.0f;
-  r.spen = 0.0f;
-  r.sdist = FP16_MAX;
-  r.prim_hit = false;
-  r.pnormal = v3(0.0f, 1.0f, 0.0f);
-  r.palbedo = r.ppos = v3(0.0f, 0.0f, 0.0f);
-  r.prough = 1.0f;
-  r.pmetal = r.ptrans = 0.0f;
-  r.pobj = -1;
-}
-
-// One sample's DFS state besides its stack: the current WorkItem, whether
-// there is one, the stack's entry count, and the sample's running sums.
-struct Path {
-  Ray cur;
-  bool valid;
-  int count;
-  V3 color, primary;
-  int bounce, rays;
-};
-// the 8-deep LIFO of deferred siblings, in local memory
-typedef float StackF[STACK_DEPTH][10];
-typedef int StackI[STACK_DEPTH][5];
 
 // sample s's primary ray (RayGen.hlsl:107-172): blue-noise AA + thin-lens
 // DoF, offsets 0.5 at spp 1; a fresh path
@@ -826,170 +982,83 @@ __device__ __forceinline__ void start_path(const Cfg& c, const Scene& sc, uint32
   p.cur.o = o;
   p.cur.d = d;
   p.cur.tp = v3(1.0f, 1.0f, 1.0f);
-  p.cur.boost = 1.0f;
-  p.cur.depth = p.cur.flags = p.cur.rflags = p.cur.sidx = 0;
-  p.cur.stype = INVALID;
+  p.cur.meta = item_meta(0, 0, BOOST_ONE, false, 0);
+  p.cur.aux = 0;
   p.valid = true;
   p.count = 0;
-  p.color = p.primary = v3(0.0f, 0.0f, 0.0f);
+  p.color = v3(0.0f, 0.0f, 0.0f);
   p.bounce = p.rays = 0;
 }
 
-// the continuation of a traced WorkItem (RayGen.hlsl:697-846): refract >
-// unpushed reflect > metal; the reflect child is pushed when refract
-// continues, against the full STACK_DEPTH capacity. Returns whether there
-// is one (in `next`).
-__device__ __forceinline__ bool spawn(const Shaded& sh, Path& p, StackF& sf, StackI& si,
-                                      Ray& next) {
-  int next_depth = p.cur.depth + 1;
-  int spec_flags = p.cur.flags | PATH_FLAG_SPECULAR;
-  bool push_reflect = sh.glass_spawn && p.count < STACK_DEPTH;
-  bool refract_ok =
-      sh.glass_spawn && !sh.tir && p.count + (push_reflect ? 1 : 0) < STACK_DEPTH;
-  Ray refl;
-  refl.o = add(sh.pos, scale(sh.normal, F(0.002)));
-  refl.d = sh.reflect_dir;
-  refl.tp = sh.reflect_tp;
-  refl.boost = F(1.2);
-  refl.depth = next_depth;
-  refl.flags = spec_flags;
-  refl.rflags = RAYFLAG_SKIP_SELF;
-  refl.stype = sh.hit_type;
-  refl.sidx = sh.hit_index;
-  if (push_reflect && refract_ok) {
-    float* f = sf[p.count];
-    f[0] = refl.o.x; f[1] = refl.o.y; f[2] = refl.o.z;
-    f[3] = refl.d.x; f[4] = refl.d.y; f[5] = refl.d.z;
-    f[6] = refl.tp.x; f[7] = refl.tp.y; f[8] = refl.tp.z;
-    f[9] = refl.boost;
-    int* iv = si[p.count];
-    iv[0] = refl.depth; iv[1] = refl.flags; iv[2] = refl.rflags;
-    iv[3] = refl.stype; iv[4] = refl.sidx;
-    p.count += 1;
-  }
-  if (refract_ok) {
-    next.o = add(sh.pos, scale(sh.refract_dir, F(0.002)));
-    next.d = sh.refract_dir;
-    next.tp = sh.refract_tp;
-    next.boost = F(1.2);
-    next.depth = next_depth;
-    next.flags = sh.entering ? (spec_flags | PATH_FLAG_INSIDE)
-                             : (spec_flags & ~PATH_FLAG_INSIDE);
-    next.rflags = sh.thick_tag;
-    next.stype = INVALID;
-    next.sidx = 0;
-    return true;
-  }
-  if (push_reflect) {
-    next = refl;
-    return true;
-  }
-  if (sh.metal_spawn) {
-    bool inside = (spec_flags & PATH_FLAG_INSIDE) != 0;
-    next.o = add(sh.pos, scale(sh.normal, F(0.002)));
-    next.d = sh.metal_dir;
-    next.tp = sh.metal_tp;
-    next.boost = F(1.1);
-    next.depth = next_depth;
-    next.flags = spec_flags;
-    next.rflags = inside ? 0 : RAYFLAG_SKIP_SELF;
-    next.stype = inside ? INVALID : sh.hit_type;
-    next.sidx = inside ? 0 : sh.hit_index;
-    return true;
-  }
-  return false;
-}
-
-// the next WorkItem: the continuation, else the deferred sibling popped,
-// else none
-__device__ __forceinline__ void next_item(Path& p, bool has_cont, const Ray& next,
-                                          const StackF& sf, const StackI& si) {
+// the next WorkItem: the continuation (already in p.cur), else the
+// deferred sibling popped, else none
+__device__ __forceinline__ void next_item(Path& p, bool has_cont, const Stack& st) {
   if (has_cont) {
-    p.cur = next;
     p.valid = true;
   } else if (p.count > 0) {
     p.count -= 1;
-    const float* f = sf[p.count];
-    const int* iv = si[p.count];
-    p.cur.o = v3(f[0], f[1], f[2]);
-    p.cur.d = v3(f[3], f[4], f[5]);
-    p.cur.tp = v3(f[6], f[7], f[8]);
-    p.cur.boost = f[9];
-    p.cur.depth = iv[0]; p.cur.flags = iv[1]; p.cur.rflags = iv[2];
-    p.cur.stype = iv[3]; p.cur.sidx = iv[4];
+    st.pop(p.count, p.cur);
     p.valid = true;
   } else {
     p.valid = false;
   }
 }
 
-// one DFS iteration of sample s (RayGen.hlsl:174-846): the current WorkItem
-// capped at the depth limit, killed by its throughput, or traced and
-// shaded; its depth-0 records; the next WorkItem. `hit`, when given, gets
-// the traced WorkItem's closest hit.
-template <int MESH>
+// one DFS iteration of sample s (RayGen.hlsl:174-846) on a current
+// WorkItem: capped at the depth limit, killed by its throughput, or traced
+// and shaded; then the next WorkItem. `hit`, when given, gets the traced
+// WorkItem's closest hit.
+template <int MODE>
 __device__ __forceinline__ void dfs_iteration(const Cfg& c, const Scene& sc, uint32_t px,
-                                              uint32_t py, int s, Path& p, StackF& sf,
-                                              StackI& si, Records& rec, Hit* hit = nullptr) {
-  if (p.valid) p.bounce = max(p.bounce, p.cur.depth + 1);
+                                              uint32_t py, int s, Path& p, Stack& st,
+                                              const Planes& pl, bool& prim_hit, Tally& tl,
+                                              Hit* hit = nullptr) {
+  if constexpr ((MODE & MODE_COUNT) != 0) {
+    // the loop's SIMT share: lane iterations against the warp's
+    uint32_t active = __activemask();
+    tl.lane_iters += 1;
+    if (lane_id() == (uint32_t)(__ffs(active) - 1)) tl.warp_iters += 32;
+  }
+  int depth = p.cur.depth();
+  p.bounce = max(p.bounce, depth + 1);
   bool has_cont = false;
-  Ray next;
-  if (p.valid && p.cur.depth >= c.max_bounces) {
+  if (depth >= c.max_bounces) {
     // depth cap -> sky fallback without boost (RayGen.hlsl:184-193)
     V3 cap = mul(p.cur.tp, sky_color(p.cur.d));
     p.color = add(p.color, cap);
-    if (p.cur.depth == 0) p.primary = add(p.primary, cap);
-  } else if (p.valid && !(maxn(maxn(p.cur.tp.x, p.cur.tp.y), p.cur.tp.z) < F(0.01) &&
-                          (p.cur.flags & PATH_FLAG_SPECULAR) == 0)) {
-    Shaded sh;
-    shade_and_spawn<MESH>(c, sc, px, py, (uint32_t)s, p.cur, sh);
-    if (hit) {
-      hit->hit = sh.hit;
-      hit->t = sh.t;
-      hit->type = sh.hit_type;
-      hit->index = sh.hit_index;
-      hit->tri = sh.tri;
-      hit->u = sh.u;
-      hit->v = sh.v;
-    }
-    p.rays += 1 + sh.rays;
-    V3 contrib = mul(p.cur.tp, sh.color);
-    p.color = add(p.color, contrib);
-    if (p.cur.depth == 0) {
-      p.primary = add(p.primary, contrib);
-      // depth-0 records (RayGen.hlsl:560-589): each sample records once;
-      // SIGMA takes the first sample's, the primary record the first hit
-      rec.diffuse = add(rec.diffuse, sh.diffuse);
-      rec.specular = add(rec.specular, sh.specular);
-      rec.hitdist = rec.hitdist + sh.hit_distance;
-      if (s == 0) {
-        rec.svis = sh.svis;
-        rec.spen = sh.spen;
-        rec.sdist = sh.sdist;
-      }
-      if (sh.hit && !rec.prim_hit) {
-        rec.prim_hit = true;
-        rec.pnormal = sh.normal;
-        rec.prough = sh.roughness;
-        rec.palbedo = sh.albedo;
-        rec.pmetal = sh.metallic;
-        rec.ptrans = sh.transmission;
-        rec.ppos = sh.pos;
-        rec.pobj = sh.obj_id;
-      }
-    }
-    has_cont = spawn(sh, p, sf, si, next);
+    if (depth == 0) pl.add3(CH_PRIMARY, add(v3(0.0f, 0.0f, 0.0f), cap), s == 0);
+    if constexpr ((MODE & MODE_COUNT) != 0) tl.capped += 1;
+  } else if (!(maxn(maxn(p.cur.tp.x, p.cur.tp.y), p.cur.tp.z) < F(0.01) &&
+               (p.cur.flags() & PATH_FLAG_SPECULAR) == 0)) {
+    has_cont = shade_and_spawn<MODE>(c, sc, px, py, s, p, st, pl, prim_hit, tl, hit);
+  } else if constexpr ((MODE & MODE_COUNT) != 0) {
+    tl.killed += 1;
   }
-  next_item(p, has_cont, next, sf, si);
+  next_item(p, has_cont, st);
 }
+
+// a sample's sums into the pixel's planes (after its DFS)
+__device__ __forceinline__ void finish_sample(const Planes& pl, bool first, const Path& p) {
+  pl.add3(CH_COLOR, p.color, first);
+  pl.add(CH_BOUNCE, (float)p.bounce, first);
+  pl.add(CH_RAYS, (float)p.rays, first);
+}
+
+// Blocks an SM each render kernel asks ptxas to fit (__launch_bounds__'
+// second argument, which caps its registers at 65536 / (RENDER_THREADS x
+// blocks)), each the shape measured fastest (PERF.md): K1-mesh and the
+// mesh K8 one, whose mesh walks spill at two; K1, K7 and the analytic K8
+// two (K1 at two: 0.76x its time at one, 0.89x at three).
+constexpr int MESH_BLOCKS = 1, SLIM_BLOCKS = 2;
 
 // ---- K1 and K7: one thread per pixel ----------------------------------------
 // PHASE_A (K7, spp 1): exactly one iteration, then the continuation it
 // spawned in 7 more planes (megakernel.py:2557-2564), then the primary ray's
 // closest hit in 7 more (ops/render.py::CH_HIT: hit, t, type, index and
 // triangle as int bits, u, v; no hit where the primary is not traced).
-template <int MESH, bool PHASE_A>
-__global__ void __launch_bounds__(RENDER_THREADS, PHASE_A ? 2 : 1)
+template <int MODE, bool PHASE_A>
+__global__ void __launch_bounds__(RENDER_THREADS,
+                                  (MODE & MODE_MESH) != 0 && !PHASE_A ? MESH_BLOCKS : SLIM_BLOCKS)
     render_accum_kernel(Cfg c, Scene sc, const int* __restrict__ itab, float* __restrict__ out) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -999,14 +1068,11 @@ __global__ void __launch_bounds__(RENDER_THREADS, PHASE_A ? 2 : 1)
   sc.max_shadow_lights = __ldg(itab + 1);
   sc.frame = (uint32_t)__ldg(itab + 2);
   uint32_t px = (uint32_t)x, py = (uint32_t)y;
-
-  V3 color = v3(0.0f, 0.0f, 0.0f), primary = color;
-  float bounce_f = 0.0f, rays_f = 0.0f;
-  Records rec;
-  init_records(rec);
+  Planes pl = {out + (size_t)y * c.width + x, c.height * c.width};
+  Tally tl = {};
+  bool prim_hit = false;
   Path p;
-  StackF sf;
-  StackI si;
+  Stack st;
   int max_iters = PHASE_A ? 1 : c.max_iters;
   Hit prim;
   prim.hit = false;
@@ -1016,38 +1082,30 @@ __global__ void __launch_bounds__(RENDER_THREADS, PHASE_A ? 2 : 1)
   prim.u = prim.v = 0.0f;
   for (int s = 0; s < c.spp; ++s) {
     start_path(c, sc, px, py, s, p);
-    for (int it = 0; it < max_iters && (p.valid || p.count > 0); ++it)
-      dfs_iteration<MESH>(c, sc, px, py, s, p, sf, si, rec, PHASE_A ? &prim : nullptr);
-    color = add(color, p.color);
-    primary = add(primary, p.primary);
-    bounce_f = bounce_f + (float)p.bounce;
-    rays_f = rays_f + (float)p.rays;
+    for (int it = 0; it < max_iters && p.valid; ++it)
+      dfs_iteration<MODE>(c, sc, px, py, s, p, st, pl, prim_hit, tl, PHASE_A ? &prim : nullptr);
+    finish_sample(pl, s == 0, p);
   }
-
-  size_t plane = (size_t)c.height * c.width;
-  float* o = out + (size_t)y * c.width + x;
-  float vals[32] = {color.x, color.y, color.z, primary.x, primary.y, primary.z,
-                    rec.diffuse.x, rec.diffuse.y, rec.diffuse.z,
-                    rec.specular.x, rec.specular.y, rec.specular.z,
-                    rec.hitdist, bounce_f, rays_f, rec.prim_hit ? 1.0f : 0.0f,
-                    rec.pnormal.x, rec.pnormal.y, rec.pnormal.z, rec.prough,
-                    rec.palbedo.x, rec.palbedo.y, rec.palbedo.z, rec.pmetal, rec.ptrans,
-                    rec.ppos.x, rec.ppos.y, rec.ppos.z, rec.svis, rec.spen, rec.sdist,
-                    (float)rec.pobj};
-#pragma unroll
-  for (int ch = 0; ch < 32; ++ch) o[ch * plane] = vals[ch];
+  if (c.max_bounces <= 0 || max_iters <= 0) {
+    // every primary was capped, or no iteration ran: no sample recorded
+    if (max_iters <= 0) pl.set3(CH_PRIMARY, v3(0.0f, 0.0f, 0.0f));
+    record(pl, true, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f), 0.0f, 1.0f, 0.0f, FP16_MAX);
+    record_no_primary(pl);
+  }
   if constexpr (PHASE_A) {
     // no continuation: origin 0 and direction +z, as the plain version's
-    V3 so = p.valid ? p.cur.o : v3(0.0f, 0.0f, 0.0f);
-    V3 sd = p.valid ? p.cur.d : v3(0.0f, 0.0f, 1.0f);
-    float spawn[7] = {p.valid ? 1.0f : 0.0f, so.x, so.y, so.z, sd.x, sd.y, sd.z};
-#pragma unroll
-    for (int ch = 0; ch < 7; ++ch) o[(32 + ch) * plane] = spawn[ch];
-    float hit[7] = {prim.hit ? 1.0f : 0.0f, prim.t, __int_as_float(prim.type),
-                    __int_as_float(prim.index), __int_as_float(prim.tri), prim.u, prim.v};
-#pragma unroll
-    for (int ch = 0; ch < 7; ++ch) o[(39 + ch) * plane] = hit[ch];
+    pl.set(CH_SPAWN, p.valid ? 1.0f : 0.0f);
+    pl.set3(CH_SPAWN + 1, p.valid ? p.cur.o : v3(0.0f, 0.0f, 0.0f));
+    pl.set3(CH_SPAWN + 4, p.valid ? p.cur.d : v3(0.0f, 0.0f, 1.0f));
+    pl.set(CH_HIT, prim.hit ? 1.0f : 0.0f);
+    pl.set(CH_HIT + 1, prim.t);
+    pl.set(CH_HIT + 2, __int_as_float(prim.type));
+    pl.set(CH_HIT + 3, __int_as_float(prim.index));
+    pl.set(CH_HIT + 4, __int_as_float(prim.tri));
+    pl.set(CH_HIT + 5, prim.u);
+    pl.set(CH_HIT + 6, prim.v);
   }
+  flush_tally<MODE>(sc, tl);
 }
 
 // the material row of a hit (trace_closest's slot)
@@ -1069,8 +1127,9 @@ __device__ __forceinline__ int hit_slot(const Cfg& c, int type, int index) {
 // folds the subtree into the pixel's accumulator planes: colour +=, rays
 // +=, bounce = max. Pixel ids are unique, so the read-modify-write needs
 // no atomics.
-template <int MESH>
-__global__ void __launch_bounds__(RENDER_THREADS, MESH ? 1 : 2)
+template <int MODE>
+__global__ void __launch_bounds__(RENDER_THREADS,
+                                  (MODE & MODE_MESH) != 0 ? MESH_BLOCKS : SLIM_BLOCKS)
     render_phase_b_kernel(Cfg c, Scene sc, const int* __restrict__ itab,
                           const int* __restrict__ order, const int* __restrict__ count,
                           const float* __restrict__ hits, int lanes, float* __restrict__ acc) {
@@ -1082,11 +1141,12 @@ __global__ void __launch_bounds__(RENDER_THREADS, MESH ? 1 : 2)
   sc.frame = (uint32_t)__ldg(itab + 2);
   uint32_t px = (uint32_t)(pix % c.width), py = (uint32_t)(pix / c.width);
 
-  Records rec;  // the subtree is at depth >= 1: it records nothing
-  init_records(rec);
+  // the subtree is at depth >= 1: it records nothing, so it has no planes
+  Planes none = {nullptr, 0};
+  Tally tl = {};
+  bool prim_hit = true;
   Path p;
-  StackF sf;
-  StackI si;
+  Stack st;
   start_path(c, sc, px, py, 0, p);
   size_t plane = (size_t)c.height * c.width;
   const float* hp = hits + pix;
@@ -1101,13 +1161,11 @@ __global__ void __launch_bounds__(RENDER_THREADS, MESH ? 1 : 2)
   h.slot = hit_slot(c, h.type, h.index);
   h.thick_hit = false;  // a primary ray asks no thickness query
   h.thick_t = BIG;
-  Shaded sh;
-  shade_and_spawn<MESH, false>(c, sc, px, py, 0u, p.cur, sh, &h);
-  Ray next;
-  bool has_cont = spawn(sh, p, sf, si, next);
-  next_item(p, has_cont, next, sf, si);
-  for (int it = 1; it < c.max_iters && (p.valid || p.count > 0); ++it)
-    dfs_iteration<MESH>(c, sc, px, py, 0, p, sf, si, rec);
+  bool has_cont = shade_and_spawn<MODE, false>(c, sc, px, py, 0, p, st, none, prim_hit, tl,
+                                               nullptr, &h);
+  next_item(p, has_cont, st);
+  for (int it = 1; it < c.max_iters && p.valid; ++it)
+    dfs_iteration<MODE>(c, sc, px, py, 0, p, st, none, prim_hit, tl);
 
   float* a = acc + pix;
   a[0] = a[0] + p.color.x;
@@ -1115,39 +1173,41 @@ __global__ void __launch_bounds__(RENDER_THREADS, MESH ? 1 : 2)
   a[2 * plane] = a[2 * plane] + p.color.z;
   a[13 * plane] = maxn(a[13 * plane], (float)p.bounce);
   a[14 * plane] = a[14 * plane] + (float)p.rays;
+  flush_tally<MODE>(sc, tl);
 }
 
-template <int MESH, bool PHASE_A>
+template <int MODE, bool PHASE_A>
 int launch_accum(const Cfg& c, const Scene& sc, const int* itab, float* out, void* stream) {
   constexpr int rows = RENDER_THREADS / 16;
   dim3 block(16, rows);
   dim3 grid((c.width + 15) / 16, (c.height + rows - 1) / rows);
-  render_accum_kernel<MESH, PHASE_A><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab,
-                                                                                   out);
+  render_accum_kernel<MODE, PHASE_A><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab, out);
   return (int)cudaGetLastError();
 }
 
-template <int MESH>
+template <int MODE>
 int launch_phase_b(const Cfg& c, const Scene& sc, const int* itab, const int* order,
                    const int* count, const float* hits, int lanes, float* acc, void* stream) {
   if (lanes <= 0) return 0;
   constexpr int threads = RENDER_THREADS;
-  render_phase_b_kernel<MESH><<<(lanes + threads - 1) / threads, threads, 0,
-                                (cudaStream_t)stream>>>(
-      c, sc, itab, order, count, hits, lanes, acc);
+  render_phase_b_kernel<MODE><<<(lanes + threads - 1) / threads, threads, 0,
+                                (cudaStream_t)stream>>>(c, sc, itab, order, count, hits, lanes,
+                                                        acc);
   return (int)cudaGetLastError();
 }
 
 // The scene of a mesh entry point: ftab's tables and the mesh tables of
-// ops/cuda/megakernel.py::pack_mesh (wide [W,32], plane [T,12],
-// n0/n1/n2/e1/e2 [T,3], inst [T] int32, inst_tbl [I,8]), the material table
-// holding S+P+B+I rows; counts: the counting build's walk counts, or null.
-Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float* wide,
+// ops/cuda/megakernel.py::pack_tables (nodes: wide [W,32], or for the
+// threaded instantiations fine [Nn,8]; plane [T,12]; n0/n1/n2/e1/e2 [T,3];
+// inst [T] int32; inst_tbl [I,8]), the material table holding S+P+B+I
+// rows; counts: the counting build's [COUNT_ROWS][4] counts, or null.
+Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float* nodes,
                       const float* plane, const float* n0, const float* n1, const float* n2,
                       const float* e1, const float* e2, const int* inst, const float* inst_tbl,
-                      int num_tris, int num_inst, unsigned long long* counts) {
+                      int num_tris, int num_inst, int num_nodes, unsigned long long* counts) {
   Scene sc = make_scene(ftab, S, P, B, S + P + B + num_inst > 0 ? S + P + B + num_inst : 1, L);
-  sc.mesh.wide = reinterpret_cast<const float4*>(wide);
+  sc.counts = counts;
+  sc.mesh.nodes = reinterpret_cast<const float4*>(nodes);
   sc.mesh.plane = reinterpret_cast<const float4*>(plane);
   sc.mesh.n0 = n0;
   sc.mesh.n1 = n1;
@@ -1159,14 +1219,38 @@ Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float
   sc.mesh.counts = counts;
   sc.mesh.num_tris = num_tris;
   sc.mesh.num_inst = num_inst;
+  sc.mesh.num_nodes = num_nodes;
   return sc;
 }
 
 }  // namespace
 
-// the mesh tables of a _mesh entry point, as make_mesh_scene takes them
+// The entry points' arguments (megakernel.cu documents them): K1's and
+// K7's, K8's, and the mesh tables of a _mesh entry, as make_mesh_scene
+// takes them.
+#define ACCUM_PARAMS                                                                          \
+  const float *ftab, const int *itab, float *out, int width, int height, int S, int P, int B, \
+      int L, int spp, int max_bounces, int max_iters, int max_soft, int flags, float aspect
+#define ACCUM_ARGS \
+  ftab, itab, out, width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags, aspect
+#define PHASE_B_PARAMS                                                                         \
+  const float *ftab, const int *itab, const int *order, const int *count, float *acc,           \
+      const float *hits, int lanes, int width, int height, int S, int P, int B, int L, int spp, \
+      int max_bounces, int max_iters, int max_soft, int flags, float aspect
+#define PHASE_B_ARGS                                                                      \
+  ftab, itab, order, count, acc, hits, lanes, width, height, S, P, B, L, spp, max_bounces, \
+      max_iters, max_soft, flags, aspect
 #define MESH_PARAMS                                                                    \
-  const float *wide, const float *plane, const float *n0, const float *n1,            \
+  const float *nodes, const float *plane, const float *n0, const float *n1,           \
       const float *n2, const float *e1, const float *e2, const int *inst,             \
-      const float *inst_tbl, int num_tris, int num_inst
-#define MESH_ARGS wide, plane, n0, n1, n2, e1, e2, inst, inst_tbl, num_tris, num_inst
+      const float *inst_tbl, int num_tris, int num_inst, int num_nodes
+#define MESH_ARGS nodes, plane, n0, n1, n2, e1, e2, inst, inst_tbl, num_tris, num_inst, num_nodes
+
+// The mesh instantiations whose walks follow the fine tree's threaded links
+// (megakernel_threaded.cu), which a _mesh entry calls given threaded != 0:
+// K1-mesh, or K7-mesh with phase_a, and K8-mesh; their counting build given
+// counts (else null).
+int render_accum_threaded(bool phase_a, ACCUM_PARAMS, MESH_PARAMS, unsigned long long* counts,
+                          void* stream);
+int render_phase_b_threaded(PHASE_B_PARAMS, MESH_PARAMS, unsigned long long* counts,
+                            void* stream);

@@ -34,31 +34,38 @@ LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points: (argtypes), all return int
 # (a cudaError_t; 0 is success).
-_MESH = (_P,) * 9 + (_I,) * 2  # wide, plane, n0, n1, n2, e1, e2, inst, inst_tbl, T, I
+# nodes, plane, n0, n1, n2, e1, e2, inst, inst_tbl, T, I, Nn, threaded
+_MESH = (_P,) * 9 + (_I,) * 4
+# ftab, itab, out, width, height, S, P, B, L, spp, max_bounces, max_iters,
+# max_soft, flags, aspect
+_ACCUM = (_P, _P, _P) + (_I,) * 11 + (_F,)
+# ftab, itab, order, count, acc, hits, lanes, then as _ACCUM from width
+_PHASE_B = (_P,) * 6 + (_I,) * 12 + (_F,)
 SIGNATURES = {
-    # ftab, itab, out, width, height, S, P, B, L, spp, max_bounces,
-    # max_iters, max_soft, flags, aspect, stream
-    "rtvs_render_accum": (_P, _P, _P) + (_I,) * 11 + (_F, _P),
-    # ... as rtvs_render_accum up to aspect, then the mesh tables, stream
-    "rtvs_render_accum_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P,),
-    # K7: as rtvs_render_accum / rtvs_render_accum_mesh (out [39, H, W])
-    "rtvs_render_phase_a": (_P, _P, _P) + (_I,) * 11 + (_F, _P),
-    "rtvs_render_phase_a_mesh": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P,),
-    # K8: ftab, itab, order, count, acc, hits, lanes, then as
-    # rtvs_render_accum from width (and the mesh tables of
-    # rtvs_render_accum_mesh)
-    "rtvs_render_phase_b": (_P,) * 6 + (_I,) * 12 + (_F, _P),
-    "rtvs_render_phase_b_mesh": (_P,) * 6 + (_I,) * 12 + (_F,) + _MESH + (_P,),
-    # the counting build: the _mesh entries' arguments, then counts, stream
-    "rtvs_render_accum_mesh_count": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P, _P),
-    "rtvs_render_phase_a_mesh_count": (_P, _P, _P) + (_I,) * 11 + (_F,) + _MESH + (_P, _P),
-    "rtvs_render_phase_b_mesh_count": (_P,) * 6 + (_I,) * 12 + (_F,) + _MESH + (_P, _P),
-    # wide, plane, inst, inst_tbl, T, I, n, o, d, tmin, tmax, skip_active,
-    # skip_inst, thick_inst, t, tri, u, v, inst, hit, thick_hit, thick_t, stream
-    "rtvs_mesh_closest": (_P,) * 4 + (_I,) * 3 + (_P, _P, _F, _F) + (_P,) * 12,
-    # wide, plane, inst, inst_tbl, T, I, n, o, d, max_dist, blocked, vis,
-    # color, occ, stream
-    "rtvs_mesh_shadow": (_P,) * 4 + (_I,) * 3 + (_P,) * 8,
+    # K1 and K7 (out [46, H, W]), then the stream
+    "rtvs_render_accum": _ACCUM + (_P,),
+    "rtvs_render_phase_a": _ACCUM + (_P,),
+    # K8
+    "rtvs_render_phase_b": _PHASE_B + (_P,),
+    # the counting build: then counts [COUNT_ROWS, 4], stream
+    "rtvs_render_accum_count": _ACCUM + (_P, _P),
+    "rtvs_render_phase_a_count": _ACCUM + (_P, _P),
+    "rtvs_render_phase_b_count": _PHASE_B + (_P, _P),
+    # with meshes: the mesh tables after the configuration (the wide nodes,
+    # or given threaded the fine nodes)
+    "rtvs_render_accum_mesh": _ACCUM + _MESH + (_P,),
+    "rtvs_render_phase_a_mesh": _ACCUM + _MESH + (_P,),
+    "rtvs_render_phase_b_mesh": _PHASE_B + _MESH + (_P,),
+    "rtvs_render_accum_mesh_count": _ACCUM + _MESH + (_P, _P),
+    "rtvs_render_phase_a_mesh_count": _ACCUM + _MESH + (_P, _P),
+    "rtvs_render_phase_b_mesh_count": _PHASE_B + _MESH + (_P, _P),
+    # nodes, plane, inst, inst_tbl, T, I, Nn, threaded, n, o, d, tmin, tmax,
+    # skip_active, skip_inst, thick_inst, t, tri, u, v, inst, hit, thick_hit,
+    # thick_t, stream
+    "rtvs_mesh_closest": (_P,) * 4 + (_I,) * 5 + (_P, _P, _F, _F) + (_P,) * 12,
+    # nodes, plane, inst, inst_tbl, T, I, Nn, threaded, n, o, d, max_dist,
+    # blocked, vis, color, occ, stream
+    "rtvs_mesh_shadow": (_P,) * 4 + (_I,) * 5 + (_P,) * 8,
     # state, curr, motion, motion_spec, view_z, roughness, out, H, W, stream
     "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 2 + (_P,),
     # img6, out6, H, W, stream

@@ -8,12 +8,17 @@ raises: the analytic instantiation for a scene without meshes, and K1-mesh
 (``render_accum_mesh``, entry rtvs_render_accum_mesh) for a scene with a
 mesh leaf. ``render_phase_a`` and ``render_phase_b`` do the same for K7
 and K8 (ops/render.py::render_accum_phase_a/_b; entries
-rtvs_render_phase_a/_b and their _mesh forms; K8 takes K7's hit planes). Each wrapper's
-``.launches`` counts its launches. Given ``counts`` (a [4, 4] int64 CUDA
-tensor), the mesh wrappers launch the counting build instead (the
-``_count`` entries of csrc/megakernel_count.cu, the same pixels) and add
-their walks' work to it by ray class (ops/bvh.py::WALK_CLASSES: walks,
-node fetches, box tests, triangle tests).
+rtvs_render_phase_a/_b and their _mesh forms; K8 takes K7's hit planes).
+For a mesh whose wide table needs a deeper walk stack than the kernels
+hold (``check_mesh``), the _mesh entries take threaded = 1 and the fine
+tree's nodes (``fine_nodes``) and run the instantiations of
+csrc/megakernel_threaded.cu, whose walks follow its threaded links. A
+frame too large for the kernels' 32-bit plane index (``check_size``)
+raises. Each wrapper's ``.launches`` counts its launches.
+Given ``counts`` (a [len(R.COUNT_ROWS), 4] int64 CUDA tensor), the wrappers
+launch the counting build instead (the ``_count`` entries, the same
+pixels) and add their work to it: the mesh walks' by ray class, then the
+DFS's (ops/render.py::COUNT_ROWS).
 """
 from __future__ import annotations
 
@@ -85,34 +90,68 @@ def pack_mesh(mesh):
     return inst_tbl.contiguous()
 
 
-def mesh_args(mesh, inst_tbl):
-    """The mesh tables as the _mesh entry points take them (render.cuh
-    MESH_PARAMS)."""
-    return [mesh.wide.data_ptr(), mesh.plane.data_ptr(), mesh.n0.data_ptr(), mesh.n1.data_ptr(),
+def fine_nodes(mesh):
+    """[Nn,8] f32 the fine tree as the threaded walks read it
+    (csrc/closest.cuh::walk_threaded), 32 bytes a node: min x, min y, min
+    z, max x, max y, max z, then as int32 bits the hit word (hit_next; a
+    leaf's ~(tri_start << 3 | tri_count), its hit link being its miss link)
+    and miss_next."""
+    leaf = mesh.tri_count > 0
+    word = torch.where(leaf, ~((mesh.tri_start << 3) | mesh.tri_count), mesh.hit_next)
+    links = torch.stack([word, mesh.miss_next], dim=1).to(torch.int32).view(_F32)
+    return torch.cat([mesh.bbox_min, mesh.bbox_max, links], dim=1).contiguous()
+
+
+def mesh_args(mesh, mesh_tables):
+    """The mesh tables and the threaded flag as the _mesh entry points take
+    them (render.cuh MESH_PARAMS, then threaded); mesh_tables: pack_tables'
+    (inst_tbl, nodes, threaded)."""
+    inst_tbl, nodes, threaded = mesh_tables
+    return [nodes.data_ptr(), mesh.plane.data_ptr(), mesh.n0.data_ptr(), mesh.n1.data_ptr(),
             mesh.n2.data_ptr(), mesh.edge1.data_ptr(), mesh.edge2.data_ptr(),
-            mesh.inst.data_ptr(), inst_tbl.data_ptr(), mesh.num_tris, mesh.num_inst]
+            mesh.inst.data_ptr(), inst_tbl.data_ptr(), mesh.num_tris, mesh.num_inst,
+            mesh.num_nodes, int(threaded)]
 
 
-def check_mesh(mesh, name):
-    """Raise unless the mesh tables are what the walks take: contiguous
-    float32/int32 tables and a wide table whose deepest walk fits the
-    kernels' stack."""
+def check_mesh(mesh, name) -> bool:
+    """Raise unless the mesh tables are what the walks take (contiguous
+    float32/int32 tables); return whether the walks follow the fine tree's
+    threaded links, which need no stack, because the wide table's deepest
+    walk needs more stack entries than the kernels hold (bvh.WALK_STACK)."""
     for n in ("wide", "plane", "n0", "n1", "n2", "edge1", "edge2", "inst"):
         if not getattr(mesh, n).is_contiguous():
             raise ValueError(f"{name}: mesh.{n} is not contiguous")
     if mesh.inst.dtype != torch.int32 or mesh.plane.dtype != _F32 or mesh.wide.dtype != _F32:
         raise ValueError(f"{name}: mesh dtypes {mesh.inst.dtype}, {mesh.plane.dtype}, "
                          f"{mesh.wide.dtype}")
-    if mesh.wide_stack > bvh.WALK_STACK:
-        raise ValueError(f"{name}: the wide BVH needs a walk stack of {mesh.wide_stack} "
-                         f"entries, the kernels hold {bvh.WALK_STACK}")
+    return mesh.wide_stack > bvh.WALK_STACK
+
+
+def walk_nodes(mesh, name):
+    """(nodes, threaded): the node table the mesh walks read, the wide
+    table or, where check_mesh sends the walks along the threaded links,
+    fine_nodes."""
+    threaded = check_mesh(mesh, name)
+    return (fine_nodes(mesh) if threaded else mesh.wide), threaded
 
 
 def pack_tables(scene):
     """Everything the render kernels read of a scene, packed once:
-    (ftab, itab) of pack_scene and pack_mesh's tables (None without a mesh)."""
+    (ftab, itab) of pack_scene, then (inst_tbl, nodes, threaded) of
+    pack_mesh and walk_nodes (None without a mesh)."""
     ftab, itab = pack_scene(scene)
-    return ftab, itab, None if scene.mesh is None else pack_mesh(scene.mesh)
+    if scene.mesh is None:
+        return ftab, itab, None
+    return ftab, itab, (pack_mesh(scene.mesh), *walk_nodes(scene.mesh, "pack_tables"))
+
+
+def check_size(cfg, channels, name):
+    """Raise unless the kernel's `channels` planes of the frame can be
+    indexed in 32 bits (csrc/render.cuh::Planes keeps its plane stride as
+    an int, which keeps K1 and K7 within their registers)."""
+    if channels * cfg.width * cfg.height >= 2**31:
+        raise ValueError(f"{name}: {channels} planes of {cfg.width}x{cfg.height} pixels pass "
+                         "2**31 floats, beyond the kernels' 32-bit plane index")
 
 
 def _check(scene, cfg, name):
@@ -138,23 +177,22 @@ def _check(scene, cfg, name):
 
 def _launch(entry, scene, cfg, flags, tables, lead, counts=None):
     """Call the library's `entry` (its _mesh form for a scene with meshes,
-    its _mesh_count form given `counts`) on the current stream: the packed
+    then its _count form given `counts`) on the current stream: the packed
     tables, the `lead` arguments, the configuration, then the mesh tables."""
-    ftab, itab, inst_tbl = tables
+    ftab, itab, mesh_tables = tables
     args = [ftab.data_ptr(), itab.data_ptr(), *lead, cfg.width, cfg.height,
             scene.sphere_capacity, scene.plane_capacity, scene.box_capacity,
             scene.light_capacity, cfg.samples_per_pixel, cfg.max_bounces, cfg.max_queue_iters,
             cfg.max_soft_samples, flags, float(cfg.aspect_ratio)]
     if scene.mesh is not None:
         entry += "_mesh"
-        args += mesh_args(scene.mesh, inst_tbl)
+        args += mesh_args(scene.mesh, mesh_tables)
     if counts is not None:
-        if scene.mesh is None:
-            raise ValueError(f"{entry}: walk counts need a scene with meshes")
         if (counts.device != scene.cam_pos.device or counts.dtype != torch.int64
-                or tuple(counts.shape) != (len(bvh.WALK_CLASSES), 4)):
+                or tuple(counts.shape) != (len(R.COUNT_ROWS), 4)):
             raise ValueError(f"{entry}: counts {counts.dtype} {tuple(counts.shape)} on "
-                             f"{counts.device}, expected int64 (4, 4) on the scene's device")
+                             f"{counts.device}, expected int64 ({len(R.COUNT_ROWS)}, 4) on the "
+                             "scene's device")
         entry += "_count"
         args.append(counts.data_ptr())
     lib = _build.load_library()
@@ -164,29 +202,34 @@ def _launch(entry, scene, cfg, flags, tables, lead, counts=None):
     _build.check(err, entry)
 
 
-def render_accum(scene, cfg, counts=None) -> torch.Tensor:
+def render_accum(scene, cfg, counts=None, tables=None) -> torch.Tensor:
     """K1: the [NUM_CH, height, width] accumulator planes of the frame
-    (K1-mesh when the scene has meshes)."""
+    (K1-mesh when the scene has meshes). `tables`: pack_tables(scene),
+    when the caller packed them already; `counts`: see the module."""
     if scene.cam_pos.device.type == "cpu":
-        return R.render_accum(scene, cfg)
+        return R.render_accum(scene, cfg, counts)
     if scene.mesh is not None:
-        return render_accum_mesh(scene, cfg, counts)
+        return render_accum_mesh(scene, cfg, counts, tables)
     flags = _check(scene, cfg, "render_accum")
+    check_size(cfg, R.NUM_CH, "render_accum")
     out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
-    _launch("rtvs_render_accum", scene, cfg, flags, pack_tables(scene), [out.data_ptr()])
+    _launch("rtvs_render_accum", scene, cfg, flags,
+            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts)
     render_accum.launches += 1
     return out
 
 
-def render_accum_mesh(scene, cfg, counts=None) -> torch.Tensor:
+def render_accum_mesh(scene, cfg, counts=None, tables=None) -> torch.Tensor:
     """K1-mesh: render_accum for a scene with triangle meshes."""
     if scene.cam_pos.device.type == "cpu":
-        return R.render_accum(scene, cfg)
+        return R.render_accum(scene, cfg, counts)
     if scene.mesh is None:
         raise ValueError("render_accum_mesh: the scene has no mesh leaf")
     flags = _check(scene, cfg, "render_accum_mesh")
+    check_size(cfg, R.NUM_CH, "render_accum_mesh")
     out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
-    _launch("rtvs_render_accum", scene, cfg, flags, pack_tables(scene), [out.data_ptr()], counts)
+    _launch("rtvs_render_accum", scene, cfg, flags,
+            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts)
     render_accum_mesh.launches += 1
     return out
 
@@ -197,10 +240,11 @@ def render_phase_a(scene, cfg, tables=None, counts=None) -> torch.Tensor:
     continuation it spawned. `tables`: pack_tables(scene), when the caller
     packed them already."""
     if scene.cam_pos.device.type == "cpu":
-        return R.render_accum_phase_a(scene, cfg)
+        return R.render_accum_phase_a(scene, cfg, counts)
     if cfg.samples_per_pixel != 1:
         raise ValueError(f"render_phase_a: samples_per_pixel {cfg.samples_per_pixel}, not 1")
     flags = _check(scene, cfg, "render_phase_a")
+    check_size(cfg, R.NUM_CH_A, "render_phase_a")
     out = torch.empty((R.NUM_CH_A, cfg.height, cfg.width), dtype=_F32,
                       device=scene.cam_pos.device)
     _launch("rtvs_render_phase_a", scene, cfg, flags,
@@ -219,7 +263,7 @@ def render_phase_b(scene, cfg, order, count, acc, hits, tables=None,
     count stays on the device: the kernel reads it, so the launch needs no
     host sync."""
     if scene.cam_pos.device.type == "cpu":
-        return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc, hits)
+        return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc, hits, counts)
     if cfg.samples_per_pixel != 1:
         raise ValueError(f"render_phase_b: samples_per_pixel {cfg.samples_per_pixel}, not 1")
     flags = _check(scene, cfg, "render_phase_b")

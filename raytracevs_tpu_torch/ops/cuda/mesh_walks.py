@@ -6,8 +6,10 @@ returns what ops/bvh.py::traverse_closest returns (a TriHit), and
 ``shadow(mesh, o, d, max_dist, blocked0)`` what traverse_shadow returns
 (visibility, colour, occluder distance), bit for bit. On CPU tensors they
 run those plain walks; on CUDA tensors they launch the kernel or raise.
-Each wrapper's ``.launches`` counts its launches. They are not on a render
-path: they hold the walks against the plain ones on many rays.
+Each wrapper's ``.launches`` counts its launches. A mesh whose wide table
+needs a deeper stack than the kernels hold walks the fine tree's threaded
+links, as the render kernels do (megakernel.py::walk_nodes). They are not
+on a render path: they hold the walks against the plain ones on many rays.
 """
 from __future__ import annotations
 
@@ -15,7 +17,7 @@ import torch
 
 from .. import bvh
 from . import _build
-from .megakernel import check_mesh, pack_mesh
+from .megakernel import pack_mesh, walk_nodes
 
 
 def _check_lanes(name, dev, **tensors):
@@ -28,10 +30,12 @@ def _check_lanes(name, dev, **tensors):
 
 
 def _tables(mesh, name):
-    check_mesh(mesh, name)
+    """(the tensors to keep alive, the entry's table arguments)."""
+    nodes, threaded = walk_nodes(mesh, name)
     inst_tbl = pack_mesh(mesh)
-    return inst_tbl, [mesh.wide.data_ptr(), mesh.plane.data_ptr(), mesh.inst.data_ptr(),
-                      inst_tbl.data_ptr(), mesh.num_tris, mesh.num_inst]
+    return (inst_tbl, nodes), [nodes.data_ptr(), mesh.plane.data_ptr(), mesh.inst.data_ptr(),
+                               inst_tbl.data_ptr(), mesh.num_tris, mesh.num_inst,
+                               mesh.num_nodes, int(threaded)]
 
 
 def _call(entry, dev, args):
@@ -54,7 +58,7 @@ def closest(mesh, o, d, tmin: float, tmax: float, skip_active, skip_inst,
     _check_lanes("closest", dev, o=(o, f32, (n, 3)), d=(d, f32, (n, 3)),
                  skip_active=(skip_active, torch.bool, (n,)), skip_inst=(skip_inst, i32, (n,)),
                  thick_inst=(thick_inst, i32, (n,)))
-    inst_tbl, tables = _tables(mesh, "closest")
+    keep, tables = _tables(mesh, "closest")
     t, u, v, thick_t = (torch.empty((n,), dtype=f32, device=dev) for _ in range(4))
     tri, inst = (torch.empty((n,), dtype=i32, device=dev) for _ in range(2))
     hit, thick_hit = (torch.empty((n,), dtype=torch.bool, device=dev) for _ in range(2))
@@ -78,7 +82,7 @@ def shadow(mesh, o, d, max_dist, blocked0):
     f32 = torch.float32
     _check_lanes("shadow", dev, o=(o, f32, (n, 3)), d=(d, f32, (n, 3)),
                  max_dist=(max_dist, f32, (n,)), blocked0=(blocked0, torch.bool, (n,)))
-    inst_tbl, tables = _tables(mesh, "shadow")
+    keep, tables = _tables(mesh, "shadow")
     vis, occ = (torch.empty((n,), dtype=f32, device=dev) for _ in range(2))
     color = torch.empty((n, 3), dtype=f32, device=dev)
     _call("rtvs_mesh_shadow", dev, tables + [

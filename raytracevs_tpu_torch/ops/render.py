@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants as C
-from . import intersect, sampling, vec, wavefront
+from . import bvh, intersect, sampling, vec, wavefront
 
 # Accumulator planes [NUM_CH, H, W] (megakernel.py:118-136)
 CH_COLOR = 0  # 3
@@ -44,6 +44,19 @@ CH_SPAWN_D = 36  # 3
 CH_HIT = 39  # 7
 NUM_CH_HIT = 7
 NUM_CH_A = 46
+# Rows of the counts that the render kernels' counting build adds up
+# (csrc/megakernel_count.cu) and that the plain versions here add up given
+# counts= ([len(COUNT_ROWS), 4] int64): the mesh walks' rows
+# (bvh.WALK_CLASSES: walks, node fetches, box tests, triangle tests; the
+# plain threaded walk fetches and tests one node a step), then the DFS's:
+# "dfs" = lane iterations, warp iterations x 32 (the kernels' alone: their
+# ratio is the loop's SIMT share; the plain version leaves it 0), items
+# capped at the depth limit, items killed by their throughput; "rays" =
+# shade calls at depth 0, shade calls deeper, shadow rays, thickness rays
+# (their sum is the CH_RAYS plane's); "hits" = shade calls that miss (the
+# sky), that hit glass, that hit anything else, and the lights those last
+# shade by their BRDF.
+COUNT_ROWS = bvh.WALK_CLASSES + ("dfs", "rays", "hits")
 # Phase B pads its lanes to a multiple of this, so PyTorch's CPU loops run
 # every lane in their vector body: a lane's arithmetic then does not depend
 # on where it sits (a scalar tail can round torch.pow differently)
@@ -89,10 +102,25 @@ def primary_rays(scene, cfg, px, py, sample_index, tile) -> wavefront.RayState:
         throughput=torch.ones((n, 3), dtype=torch.float32, device=dev))
 
 
-def _render_samples(scene, cfg, max_iters=None):
+def counted(scene, counts):
+    """(the scene whose mesh walks add to the walk rows of `counts`, the
+    DFS rows of `counts`), or (scene, None) without counts."""
+    if counts is None:
+        return scene, None
+    if counts.dtype != torch.int64 or tuple(counts.shape) != (len(COUNT_ROWS), 4):
+        raise ValueError(f"counts {counts.dtype} {tuple(counts.shape)}, expected int64 "
+                         f"({len(COUNT_ROWS)}, 4)")
+    nw = len(bvh.WALK_CLASSES)
+    if scene.mesh is not None:
+        scene = scene._replace(mesh=scene.mesh._replace(walk_counts=counts[:nw]))
+    return scene, counts[nw:]
+
+
+def _render_samples(scene, cfg, max_iters=None, counts=None):
     """Every sample's DFS (up to `max_iters` iterations each), summed into
     the [NUM_CH, height, width] accumulator planes. Returns (planes, the
-    last sample's current rays where its DFS stopped)."""
+    last sample's current rays where its DFS stopped). counts: the DFS rows
+    of COUNT_ROWS to add to."""
     dev = scene.cam_pos.device
     w, h = cfg.width, cfg.height
     n = w * h
@@ -113,7 +141,8 @@ def _render_samples(scene, cfg, max_iters=None):
         primary = primary_rays(scene, cfg, px, py, s, tile)
         prev_hit = prim["prim_hit"] if prim is not None else torch.zeros(
             (n,), dtype=torch.bool, device=dev)
-        a, cur = wavefront.run_sample(scene, cfg, px, py, s, primary, prev_hit, max_iters)
+        a, cur = wavefront.run_sample(scene, cfg, px, py, s, primary, prev_hit, max_iters,
+                                      counts)
         for k in ("color", "primary", "diffuse", "specular", "hitdist"):
             out[k] = out[k] + a[k]
         out["bounce"] = out["bounce"] + a["bounce"].to(f32)
@@ -148,12 +177,14 @@ def _render_samples(scene, cfg, max_iters=None):
     return torch.cat(chans, dim=0).contiguous(), cur
 
 
-def render_accum(scene, cfg) -> torch.Tensor:
+def render_accum(scene, cfg, counts=None) -> torch.Tensor:
     """Render the frame: every sample's DFS, summed into the
     [NUM_CH, height, width] float32 accumulator planes
     (colour sums over samples, first-sample SIGMA shadow record, first-hit
-    primary record). Runs on the device of the scene tensors."""
-    return _render_samples(scene, cfg)[0]
+    primary record). Runs on the device of the scene tensors. Given
+    `counts`, adds its work to it (COUNT_ROWS)."""
+    scene, dfs_counts = counted(scene, counts)
+    return _render_samples(scene, cfg, counts=dfs_counts)[0]
 
 
 def _require_spp1(cfg, name):
@@ -208,16 +239,19 @@ def hit_from_planes(scene, planes):
                          obj_index=obj_index, mat_slot=slot, **mesh)
 
 
-def render_accum_phase_a(scene, cfg) -> torch.Tensor:
+def render_accum_phase_a(scene, cfg, counts=None) -> torch.Tensor:
     """Phase A of the two-phase renderer, the plain version of kernel K7
     (raytracevs_tpu/ops/pallas/megakernel.py::make_kernel(phase_a=True)),
     spp 1: one DFS iteration per pixel (the primary ray traced and shaded,
     its depth-0 records, its children). Returns [NUM_CH_A, height, width]:
     the NUM_CH accumulator planes of that iteration, the continuation it
     spawned (valid, origin, direction; (0,0,0) and (0,0,1) where none),
-    then the primary ray's closest hit (CH_HIT)."""
+    then the primary ray's closest hit (CH_HIT). Given `counts`, adds
+    the iteration's work to it (COUNT_ROWS; the hit planes' own trace of
+    the primaries is not counted)."""
     _require_spp1(cfg, "render_accum_phase_a")
-    planes, cur = _render_samples(scene, cfg, max_iters=1)
+    counted_scene, dfs_counts = counted(scene, counts)
+    planes, cur = _render_samples(counted_scene, cfg, max_iters=1, counts=dfs_counts)
     h, w = cfg.height, cfg.width
     spawn = torch.cat([cur.valid.to(torch.float32)[None], cur.origin.T, cur.direction.T])
     return torch.cat([planes, spawn.reshape(7, h, w),
@@ -225,7 +259,7 @@ def render_accum_phase_a(scene, cfg) -> torch.Tensor:
                      dim=0).contiguous()
 
 
-def render_accum_phase_b(scene, cfg, order, acc, hits) -> torch.Tensor:
+def render_accum_phase_b(scene, cfg, order, acc, hits, counts=None) -> torch.Tensor:
     """Phase B of the two-phase renderer, the plain version of kernel K8
     (megakernel.py::make_kernel_b), spp 1. Resumes each pixel listed in
     `order` ([M] row-major pixel ids whose phase A spawned a continuation,
@@ -235,8 +269,10 @@ def render_accum_phase_b(scene, cfg, order, acc, hits) -> torch.Tensor:
     from iteration 1, and folds the subtree into the phase-A planes `acc`
     ([NUM_CH, height, width], updated in place and returned): colour
     added, rays added, bounce the maximum. Nothing else changes: the
-    records are depth-0 only and the primary ray is not counted again."""
+    records are depth-0 only and the primary ray is not counted again.
+    Given `counts`, adds the resumed DFS's work to it (COUNT_ROWS)."""
     _require_spp1(cfg, "render_accum_phase_b")
+    scene, dfs_counts = counted(scene, counts)
     dev = scene.cam_pos.device
     m = order.numel()
     n = -(-m // LANE_PAD) * LANE_PAD
@@ -254,7 +290,7 @@ def render_accum_phase_b(scene, cfg, order, acc, hits) -> torch.Tensor:
     sub, _, _ = wavefront.dfs(scene, cfg, px, py, 0, cur, stack,
                               wavefront.new_accumulators(n, dev),
                               torch.zeros((n,), dtype=torch.bool, device=dev), 1,
-                              cfg.max_queue_iters)
+                              cfg.max_queue_iters, dfs_counts)
     flat = acc.view(NUM_CH, -1)
     ids = pix[:m]
     flat[CH_COLOR:CH_COLOR + 3, ids] = flat[CH_COLOR:CH_COLOR + 3, ids] + sub["color"][:m].T

@@ -300,7 +300,8 @@ def children_only(scene, cfg, px, py, sample_index, state: RayState, traced, hit
 
 def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     """Trace + shade one WorkItem per lane (RayGen.hlsl:174-848).
-    Returns (color, records, children, extra_rays)."""
+    Returns (color, records, children, extra_rays, thickness_rays): the
+    extra rays are the shadow and thickness rays."""
     n = px.shape[0]
     dev = px.device
     f32 = torch.float32
@@ -346,6 +347,7 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     best_pen = torch.zeros((n,), dtype=f32, device=dev)
     best_dist = torch.full((n,), C.NRD_FP16_MAX, dtype=f32, device=dev)
     ray_count = torch.zeros((n,), dtype=torch.int64, device=dev)
+    lit_lights = torch.zeros((n,), dtype=torch.int64, device=dev)  # shaded by the BRDF
 
     if cfg.has_lights:
         top0_i, top0_c, top1_i, top1_c, top_count = shade.select_dominant_lights(scene, pos, nrm)
@@ -385,6 +387,7 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
             ambient = ambient + torch.where(lv & is_ambient, 1.0, 0.0) * amb
 
             lit = lv & ~is_ambient & (ndotl > 0.0)
+            lit_lights = lit_lights + (lit & shade_mask).to(torch.int64)
             use_a = (a_idx == li) & a_sel
             use_b = (b_idx == li) & b_sel
             vis = torch.where(use_a, res_a.visibility, torch.where(use_b, res_b.visibility, 1.0))
@@ -428,6 +431,7 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
         fb_diff, fb_spec = _brdf_terms(nrm, view, fb_l, fb_ndotl, f0, roughness, metallic,
                                        diffuse_color)
         fb_lit = ((fb_ndotl > 0.0) & fb_needed)[:, None]
+        lit_lights = (fb_lit[:, 0] & shade_mask).to(torch.int64)
         direct_diffuse = torch.where(fb_lit, fb_diff * fb_radiance * fb_ndotl[:, None], 0.0)
         direct_specular = torch.where(fb_lit, fb_spec * fb_radiance * fb_ndotl[:, None], 0.0)
         fb_amb = (diffuse_color + (albedo * 0.3 - diffuse_color) * metallic[:, None]) * 0.2
@@ -470,6 +474,8 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
         "transmission": transmission,
         "position": pos,
         "obj_id": torch.where(hit_mask, hit.obj_type * 65536 + hit.obj_index, -1),
+        "is_glass": is_glass,
+        "lit_lights": lit_lights,
     }
 
     children, thickness_rays = _spawn_children(scene, cfg, px, py, sample_index, state, hx)
@@ -479,7 +485,7 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
         # so the deferred factor rides the radiance; tagged lanes have
         # depth >= 1 and never record
         color = color * beer
-    return color, records, children, ray_count
+    return color, records, children, ray_count, thickness_rays
 
 
 def new_accumulators(n, device) -> dict:
@@ -598,11 +604,13 @@ def advance(cur: RayState, ch, traced, stack: Stack):
 
 
 def dfs(scene, cfg, px, py, sample_index, cur: RayState, stack: Stack, acc, prev_prim_hit,
-        first_iteration, max_iters):
+        first_iteration, max_iters, counts=None):
     """The DFS from iteration `first_iteration` with the given current ray,
     stack and accumulators, until every lane's current ray and stack are
     empty or at iteration `max_iters` (raytracevs_tpu/ops/pallas/
-    megakernel.py::_dfs_from_k). Returns (acc, cur, stack) as it stopped."""
+    megakernel.py::_dfs_from_k). Returns (acc, cur, stack) as it stopped.
+    counts: the "dfs", "rays" and "hits" rows of ops/render.py::COUNT_ROWS
+    ([3, 4] int64) to add the iterations' work to (no warp figure)."""
     i64 = torch.int64
     it = first_iteration
     while it < max_iters and bool(torch.any(cur.valid | (stack.count > 0))):
@@ -620,8 +628,20 @@ def dfs(scene, cfg, px, py, sample_index, cur: RayState, stack: Stack, acc, prev
                   & ((cur.flags & C.PATH_FLAG_SPECULAR) == 0))
         traced = active & ~capped & ~killed
 
-        color, rec, ch, extra_rays = shade_and_spawn(scene, cfg, px, py, sample_index, cur, traced)
+        color, rec, ch, extra_rays, thick_rays = shade_and_spawn(scene, cfg, px, py, sample_index,
+                                                                 cur, traced)
         acc["rays"] = acc["rays"] + traced.to(i64) + torch.where(traced, extra_rays, 0)
+        if counts is not None:
+            deeper = cur.depth != 0
+            thick = torch.where(traced, thick_rays, 0).sum()
+            hit = traced & rec["hit_mask"]
+            counts.add_(torch.stack([
+                active.sum(), torch.zeros_like(thick), capped.sum(), killed.sum(),
+                (traced & ~deeper).sum(), (traced & deeper).sum(),
+                torch.where(traced, extra_rays, 0).sum() - thick, thick,
+                (traced & ~rec["hit_mask"]).sum(), (hit & rec["is_glass"]).sum(),
+                (hit & ~rec["is_glass"]).sum(),
+                torch.where(traced, rec["lit_lights"], 0).sum()]).reshape(3, 4))
         contrib = cur.throughput * color
         acc["color"] = acc["color"] + torch.where(traced[:, None], contrib, 0.0)
         acc["primary"] = acc["primary"] + torch.where(
@@ -648,14 +668,14 @@ def dfs(scene, cfg, px, py, sample_index, cur: RayState, stack: Stack, acc, prev
 
 
 def run_sample(scene, cfg, px, py, sample_index, primary: RayState, prev_prim_hit,
-               max_iters=None):
+               max_iters=None, counts=None):
     """Run one sample's DFS from its primary rays, up to cfg.max_queue_iters
     iterations (or `max_iters`). Returns (acc, cur): the lane accumulators
     and the current rays where the loop stopped; after one iteration (phase
     A of the two-phase renderer, max_iters=1) cur holds the continuation
-    that iteration spawned."""
+    that iteration spawned. counts: as dfs's."""
     n = px.shape[0]
     acc, cur, _ = dfs(scene, cfg, px, py, sample_index, primary, empty_stack(n, px.device),
                       new_accumulators(n, px.device), prev_prim_hit, 0,
-                      cfg.max_queue_iters if max_iters is None else max_iters)
+                      cfg.max_queue_iters if max_iters is None else max_iters, counts)
     return acc, cur

@@ -281,3 +281,67 @@ def nine_ball_scene(D):
         D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
     ]
     return s
+
+
+def deep_forest(levels=78):
+    """A mesh whose binary BVH is a chain `levels` deep, as interleaved
+    vertices [V*8] f32 and indices [3T] u32: one triangle a level, each
+    placed far out along the next axis in turn (x, y, z, x, ...) beyond the
+    triangles inside it, so that binned SAH can split it off only alone
+    (every other triangle's centroid falls in its first bin). Collapsed into
+    wide nodes the chain needs a walk stack of 69 entries, more than the
+    kernels' 64 (csrc/closest.cuh::WALK_STACK). The extents grow ~2.6x a
+    level from 1e-18 to 1e14, inside float32's range of box areas."""
+    lo, hi = np.zeros(3), np.full(3, 1e-18)
+    centres, sizes = [(lo + hi) / 2], [3e-19]
+    for k in range(levels):
+        a = k % 3
+        ext = hi - lo
+        gap = max(16.5 * ext[a], 1.6 * ext.max())
+        c = (lo + hi) / 2
+        c[a] = lo[a] + gap
+        centres.append(c)
+        sizes.append(0.3 * ext.max())
+        hi[a] = c[a]
+    corners = np.array([[-0.5, -0.5, -0.5], [0.5, -0.5, 0.0], [0.0, 0.5, 0.5]])
+    p = np.asarray(centres)[:, None, :] + np.asarray(sizes)[:, None, None] * corners[None]
+    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    verts = np.zeros((len(p), 3, 8), np.float32)
+    verts[..., 0:3] = p
+    verts[..., 4:7] = n[:, None, :]
+    return verts.reshape(-1), np.arange(3 * len(p), dtype=np.uint32)
+
+
+def deep_forest_service(MC):
+    """A MeshCacheService of `MC` serving "DeepForest" (deep_forest())."""
+    verts, indices = deep_forest()
+    pos = verts.reshape(-1, 8)[:, :3]
+    ms = MC.MeshCacheService(".")
+    ms.register("DeepForest", MC.CachedMesh(name="DeepForest", vertices=verts, indices=indices,
+                                            bounds_min=pos.min(0), bounds_max=pos.max(0)))
+    return ms
+
+
+def deep_forest_scene(D):
+    """Two instances of "DeepForest" (an opaque one and an absorbing glass
+    one in front of it) over the checker floor, seen where its triangles
+    are a unit across; a soft point light and an ambient light. Render with
+    a deep_forest_service and {"max_soft_samples": 2}."""
+    s = D.SceneData()
+    s.camera.position = np.array([1.0, 1.5, 2.0])
+    s.camera.look_at = np.array([0.9, 1.4, 4.7])
+    s.settings.samples_per_pixel = 2
+    s.settings.max_bounces = 4
+    s.objects += [
+        D.MeshObjectData(mesh_name="DeepForest", material=D.MaterialData(**BIG_SPHERE)),
+        D.MeshObjectData(mesh_name="DeepForest", material=D.MaterialData(**GLASS_BALL),
+                         transform=D.Transform(position=np.array([-0.8, -0.2, -1.5]))),
+        D.PlaneData(),
+    ]
+    s.lights += [
+        D.LightData(type=D.LightType.POINT, position=np.array([2.0, 5.0, -2.0]), intensity=12.0,
+                    radius=0.3, soft_shadow_samples=2.0),
+        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
+    ]
+    return s

@@ -11,7 +11,10 @@ tests/test_megakernel.py:190-197's bands; K6 |d| <= 1e-5 * max(1, |plain|);
 K7 and K8 as K1, and K7+K8 against K1 at spp 1: rays, bounce and record
 planes bit-equal, colour within 2e-5 * max(1, |K1|); the mesh walks alone
 and the counting build's triangle tests and walks bit-equal to the plain
-walks'."""
+walks'. K1 and K7 also bit for bit, with K7's continuation and hit planes,
+at odd sizes and sample counts; the counting build's counts equal the plain
+version's; a mesh deeper than the kernels' walk stack renders through the
+threaded instantiations as its plain version does."""
 import os
 import sys
 
@@ -127,22 +130,157 @@ def test_counting_build_counts_the_walks():
     """The counting build (rtvs_render_accum_mesh_count) renders K1-mesh's
     planes. Per ray class it runs the plain render's walks and tests the
     same triangles as the threaded walks (the same leaves in the same
-    order), in fewer node fetches."""
+    order), in fewer node fetches; its DFS counts are the plain render's."""
     _need_cuda()
     build, over, meshes = MESH_SCENES["mesh_demo"]
     scene = build()
     sc = to_device(flatten_scene(sanitize_scene(scene), aspect=72 / 40, frame_index=3,
                                  mesh_service=S.mesh_service(PMC, meshes)), "cuda")
     cfg = make_config(scene, 72, 40, **over)
-    counts = torch.zeros((4, 4), dtype=torch.int64, device="cuda")
+    counts = torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
     got = MK.render_accum(sc, cfg, counts=counts)
     assert torch.equal(got, MK.render_accum(sc, cfg))
-    plain = torch.zeros((4, 4), dtype=torch.int64, device="cuda")
-    R.render_accum(sc._replace(mesh=sc.mesh._replace(walk_counts=plain)), cfg)
-    counts, plain = counts.cpu(), plain.cpu()
+    plain = torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
+    R.render_accum(sc, cfg, counts=plain)
+    counts, plain = counts[:4].cpu(), plain[:4].cpu()
     assert torch.equal(counts[:, 0], plain[:, 0]) and torch.equal(counts[:, 3], plain[:, 3])
     assert int(counts[:, 1].sum()) < int(plain[:, 1].sum())
     assert (counts[[0, 3], 0] > 0).all()
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("spp", [1, 2, 4])
+@pytest.mark.parametrize("size", [(1, 1), (17, 9), (97, 61)])
+def test_k1_bit_equal_to_plain(size, spp):
+    """K1 on the demo scene, every plane bit for bit, at sizes the 16x16
+    blocks do not divide and at several sample counts."""
+    _need_cuda()
+    w, h = size
+    scene, over = S.scene_and_overrides(D, "demo")
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3), "cuda")
+    cfg = make_config(scene, w, h, **dict(over, samples_per_pixel=spp))
+    got = MK.render_accum(sc, cfg)
+    want = R.render_accum(sc, cfg)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("size", [(1, 1), (17, 9), (97, 61)])
+def test_k7_bit_equal_to_plain(size):
+    """K7 on the demo scene (spp 1), its continuation and hit planes
+    included, bit for bit."""
+    _need_cuda()
+    w, h = size
+    scene, over = S.scene_and_overrides(D, "demo")
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3), "cuda")
+    cfg = make_config(scene, w, h, **dict(over, samples_per_pixel=1))
+    got = MK.render_phase_a(sc, cfg)
+    want = R.render_accum_phase_a(sc, cfg)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["demo", "glass_ball"])
+def test_k1_bit_equal_to_plain_without_dfs_iterations(name):
+    """max_queue_iters 0: K1 (K1-mesh for the glass ball) traces no sample
+    and writes the planes of no sample, bit for bit as the plain version."""
+    _need_cuda()
+    if name == "glass_ball":
+        scene, over = S.glass_ball_scene(D), {"max_soft_samples": 2}
+        ms = S.mesh_service(PMC, {"GlassBall": (9, 9, 0.7)})
+    else:
+        (scene, over), ms = S.scene_and_overrides(D, name), None
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=17 / 9, frame_index=3,
+                                 mesh_service=ms), "cuda")
+    cfg = make_config(scene, 17, 9, **dict(over, max_queue_iters=0))
+    got = MK.render_accum(sc, cfg)
+    want = R.render_accum(sc, cfg)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    assert int(got[R.CH_RAYS].sum()) == 0
+
+
+def test_wrappers_refuse_frames_past_the_plane_index():
+    """K1 and K7 index their planes in 32 bits: an 8192x8192 frame raises
+    before anything is allocated or launched."""
+    _need_cuda()
+    sc, cfg = _two_phase_scene("demo")
+    big = cfg._replace(width=8192, height=8192)
+    before = (MK.render_accum.launches, MK.render_phase_a.launches)
+    with pytest.raises(ValueError, match="32-bit"):
+        MK.render_accum(sc, big)
+    with pytest.raises(ValueError, match="32-bit"):
+        MK.render_phase_a(sc, big)
+    assert (MK.render_accum.launches, MK.render_phase_a.launches) == before
+
+
+@pytest.mark.parametrize("name", ["demo", "config6_soft_shadows", "glass_ball"])
+def test_counting_build_counts_equal_plain(name):
+    """The counting build of K1 (without and with meshes) renders the
+    kernel's planes and counts what the plain version counts: the DFS's
+    iterations, shade calls, shadow and thickness rays, hits and lights
+    (all but the warp figure), the walks and their triangle tests."""
+    _need_cuda()
+    if name == "glass_ball":
+        scene, over = S.glass_ball_scene(D), {"max_soft_samples": 2}
+        ms = S.mesh_service(PMC, {"GlassBall": (9, 9, 0.7)})
+    else:
+        (scene, over), ms = S.scene_and_overrides(D, name), None
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=72 / 40, frame_index=3,
+                                 mesh_service=ms), "cuda")
+    cfg = make_config(scene, 72, 40, **over)
+    counts, plain = (torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
+                     for _ in range(2))
+    assert _bits_equal(MK.render_accum(sc, cfg, counts=counts), MK.render_accum(sc, cfg))
+    R.render_accum(sc, cfg, counts=plain)
+    counts, plain = counts.cpu(), plain.cpu()
+    dfs = R.COUNT_ROWS.index("dfs")
+    assert torch.equal(counts[dfs + 1:], plain[dfs + 1:])
+    assert torch.equal(counts[dfs, [0, 2, 3]], plain[dfs, [0, 2, 3]])
+    assert int(counts[dfs, 1]) >= int(counts[dfs, 0]) > 0  # warp slots cover the lanes
+    assert torch.equal(counts[:4, [0, 3]], plain[:4, [0, 3]])
+
+
+def test_deep_forest_through_the_threaded_walks():
+    """A mesh whose wide table needs more stack than the kernels hold: K1-mesh,
+    K7 and K8 take the threaded instantiations and render what the plain
+    version renders, bit for bit, and the walks alone return the plain
+    walks' results; their counting build counts the plain walks' node
+    fetches."""
+    _need_cuda()
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as CS
+
+    scene = S.deep_forest_scene(D)
+    w, h = 97, 61
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3,
+                                 mesh_service=S.deep_forest_service(PMC)), "cuda")
+    assert sc.mesh.wide_stack > B.WALK_STACK and MK.check_mesh(sc.mesh, "test")
+    cfg = make_config(scene, w, h, max_soft_samples=2)
+    before = MK.render_accum_mesh.launches
+    got = MK.render_accum(sc, cfg)
+    assert MK.render_accum_mesh.launches == before + 1
+    assert _bits_equal(got, R.render_accum(sc, cfg))
+    assert bool((got[R.CH_OBJ_ID] >= 3 * 65536).any())
+    cfg1 = cfg._replace(samples_per_pixel=1)
+    a = MK.render_phase_a(sc, cfg1)
+    want_a = R.render_accum_phase_a(sc, cfg1)
+    assert _bits_equal(a, want_a)
+    order, count = TP.coherence_order(want_a)
+    b = MK.render_phase_b(sc, cfg1, order, count, want_a[:R.NUM_CH].clone(), want_a[R.CH_HIT:])
+    want_b = R.render_accum_phase_b(sc, cfg1, order[:int(count)], want_a[:R.NUM_CH].clone(),
+                                    want_a[R.CH_HIT:])
+    assert _bits_equal(b, want_b)
+    counts, plain = (torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
+                     for _ in range(2))
+    MK.render_accum(sc, cfg, counts=counts)
+    R.render_accum(sc, cfg, counts=plain)
+    dfs = R.COUNT_ROWS.index("dfs")
+    assert torch.equal(counts[:dfs], plain[:dfs])
+    CS.check_walks("deep forest", MW, B, C, sc.mesh, CS.walk_rays(R, I, C, sc, cfg, 6))
 
 
 def _inputs(h, w, seed):

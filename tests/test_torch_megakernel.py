@@ -138,6 +138,41 @@ def test_assemble_frame_cf_matches_jax_on_same_accumulators():
     np.testing.assert_array_equal(pout.gbuffer.obj_id.numpy(), np.asarray(jout.gbuffer.obj_id))
 
 
+def test_k1_plain_without_dfs_iterations_matches_jax():
+    """max_queue_iters 0: no sample is traced, so the planes hold the
+    records of no sample (the kernels write the same, tests/test_torch_gpu.py),
+    and the frame equals the JAX package's."""
+    js, jo = S.scene_and_overrides(JD, "demo")
+    ps, po = S.scene_and_overrides(PD, "demo")
+    jf = j_flatten(j_sanitize(js), aspect=1.0, frame_index=3)
+    pf = to_device(flatten_scene(sanitize_scene(ps), aspect=1.0, frame_index=3), "cpu")
+    w = h = 16
+    jout = j_render_rows(jf, j_make_config(js, w, h, **dict(jo, max_queue_iters=0)),
+                         jnp.int32(0), h, backend="jnp")
+    pc = make_config(ps, w, h, **dict(po, max_queue_iters=0))
+    acc = R.render_accum(pf, pc)
+    for ch, v in ((R.CH_COLOR, 0.0), (R.CH_RAYS, 0.0), (R.CH_PRIM_HIT, 0.0),
+                  (R.CH_SHADOW_VIS, 1.0), (R.CH_OBJ_ID, -1.0)):
+        assert bool((acc[ch] == v).all()), ch
+    pout = render_rows_cf(pf, pc)
+    assert int(pout.rays) == int(jout.rays) == 0
+    np.testing.assert_array_equal(_lanes(pout.color), np.asarray(jout.color))
+    for f in GBUF_FIELDS + ("view_z", "obj_id"):
+        np.testing.assert_array_equal(_lanes(getattr(pout.gbuffer, f)),
+                                      np.asarray(getattr(jout.gbuffer, f)), err_msg=f)
+
+
+def test_check_size_refuses_frames_past_the_plane_index():
+    """K1's 32 and K7's 46 planes are indexed in 32 bits (csrc/render.cuh::
+    Planes): 8K UHD passes, 8192x8192 raises for both."""
+    scene, _ = S.scene_and_overrides(PD, "demo")
+    uhd, big = make_config(scene, 7680, 4320), make_config(scene, 8192, 8192)
+    for channels in (R.NUM_CH, R.NUM_CH_A):
+        mk.check_size(uhd, channels, "render")
+        with pytest.raises(ValueError, match="32-bit"):
+            mk.check_size(big, channels, "render")
+
+
 @pytest.mark.parametrize("name", ["config2_obb_mirror", "glass_ball"])
 def test_render_accum_cpu_runs_plain_version_without_launch(name):
     _, _, pf, pc = _setup(name)
