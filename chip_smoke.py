@@ -11,7 +11,8 @@ coherence sort, K8). All at 6 bounces, denoiser on, the camera orbiting 2
 degrees a frame. Before that it builds the CUDA kernels from csrc/ and the
 host BVH builder from csrc/host/, holds each kernel against its plain
 PyTorch version on the card at the main paths' shapes (K1, K1-mesh, K7 and
-K8 bit for bit; K2-K4 on the G-buffer of a rendered frame; K1-mesh also on
+K8 bit for bit; K2 within 1e-5, K3 and K4 bit for bit, on the G-buffer of a
+rendered 1080p frame, K3 and K4 also on it cut to 1917x1079; K1-mesh also on
 nine mesh instances at 480x270; the photon trace K5 at 16,384 and 131,072
 photons and on the mesh demo scene's tables; the photon gather K6 at
 1920x1080 with both maps; K7 and K8 at 1920x1080 and spp 1 on the mesh
@@ -35,13 +36,15 @@ the walks' box and triangle tests included); after each path it checks the
 frames and that every kernel of the path launched; then it compares small
 frames with the CPU's plain pipeline and times each stage of a 1080p frame
 of the scenes. It prints a JSON line of the kernels, the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}.
+power limit, and as its last line {"ok": true, "device": {...}}. Each
+path launches K2, K3 and K4 once a frame.
 
     python3 chip_smoke.py
 
 It needs one CUDA device and exits non-zero without one. Nothing in it
 catches an error: any failed phase ends the run with a traceback.
 """
+import ctypes
 import json
 import math
 import subprocess
@@ -306,8 +309,8 @@ def light_counts(sc):
 
 def kernel_row(err, ms, plain_ms, nbytes, ops):
     b_ms, b_by = bound(nbytes, ops)
-    print(f"  bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations)",
-          flush=True)
+    print(f"  bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations)"
+          f"; the kernel reaches {b_ms / ms:.4f} of it", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None)
 
@@ -316,6 +319,20 @@ def same_bits(a, b):
     """Whether float tensors a and b hold the same bits (K7's hit planes
     hold ints as their bits, some of them NaN patterns)."""
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_denoise_bits(name, kern, plain, args):
+    """A denoiser kernel (K3, K4) against its plain version on the same
+    inputs: every output bit equal. Returns the max |d| (0)."""
+    got, want = kern(*args), plain(*args)
+    err = float((got - want).abs().max())
+    same = same_bits(got, want)
+    h, w = args[1].shape  # view_z (K3), obj_id (K4)
+    print(f"phase 4 {name} {w}x{h}: bit-equal to the plain version {same}, max |d| {err:.3g}",
+          flush=True)
+    if not same:
+        raise AssertionError(f"{name} {w}x{h}: output differs from the plain version's bits")
+    return err
 
 
 def assert_like_plain(name, R, cfg, got, want, note=""):
@@ -611,7 +628,7 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
         state = PD.DenoiserStateCF(packed=packed)
         normal, guide = stage("decode normals + guide planes (plain torch)", lambda: (
             PD.decode_oct_cf(gb.normal_roughness), PD.guide_cf(packed, gb.view_z, sqrt_rough)))
-        ds = stage("K3 atrous: anti-firefly + 3 passes", lambda: K.atrous(
+        ds = stage("K3 atrous (anti-firefly and 3 passes, one launch)", lambda: K.atrous(
             torch.cat([packed[0:3], packed[4:7]]), gb.view_z, normal, guide))
         stage("K4 shadow_denoise", lambda: K.shadow_denoise(gb.shadow_data, gb.obj_id, gb.view_z,
                                                             normal))
@@ -652,6 +669,10 @@ def run_engine(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, t
               f"{eng.last_mrays_per_s:.1f} Mrays/s (update_scene {upd:.1f} ms)", flush=True)
     launches = {name: c.launches for name, c in counters.items()}
     print(f"phase 5 {label} launches: {launches}", flush=True)
+    for name in ("reproject_accumulate", "atrous", "shadow_denoise"):
+        if launches[name] != FRAMES:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times in {FRAMES} "
+                                 "frames, not once a frame")
     for img in imgs:
         if img.shape != (FULL_H, FULL_W, 4) or img.dtype != np.uint8:
             raise AssertionError(f"frame shape {img.shape} {img.dtype}")
@@ -967,6 +988,35 @@ def check_deep_forest(P, D, MK, MW, R, TP, B, C, I, w, h):
     return err
 
 
+def denoise_inputs(P, D, PD, K, dev):
+    """The denoiser kernels' inputs at 1080p: the G-buffer of the second of
+    two orbiting demo frames, with the first frame's denoised history.
+    Returns (K2's arguments, K2's output, K3's arguments, built on that
+    output, K4's arguments)."""
+    from raytracevs_tpu_torch.ops.render_cf import render_rows_cf
+
+    g = []
+    for f in range(2):
+        s = demo_scene(D, f)
+        prev = None if f == 0 else P.flatten_scene(P.sanitize_scene(demo_scene(D, 0)),
+                                                   aspect=FULL_W / FULL_H).view_proj
+        st = P.to_device(P.flatten_scene(P.sanitize_scene(s), frame_index=f,
+                                         aspect=FULL_W / FULL_H, prev_view_proj=prev), dev)
+        g.append(render_rows_cf(st, P.make_config(s, FULL_W, FULL_H, **OVERRIDES)).gbuffer)
+    state = PD.denoise_frame_cf(g[0], PD.init_state_cf(FULL_H, FULL_W, dev))[3].packed
+    gb = g[1]
+    sqrt_rough = gb.normal_roughness[3]
+    curr = PD.reblur_prepass(torch.cat([gb.diffuse_hitdist, gb.specular_hitdist]), gb.view_z,
+                             sqrt_rough)
+    k2_args = (state, curr, gb.motion, gb.view_z, torch.square(sqrt_rough), gb.motion_spec)
+    new_state = K.reproject_accumulate(*k2_args)
+    normal = PD.decode_oct_cf(gb.normal_roughness)
+    guide = PD.guide_cf(new_state, gb.view_z, sqrt_rough)
+    k3_args = (torch.cat([new_state[0:3], new_state[4:7]]).contiguous(), gb.view_z, normal, guide)
+    k4_args = (gb.shadow_data, gb.obj_id, gb.view_z, normal)
+    return k2_args, new_state, k3_args, k4_args
+
+
 def main():
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -987,7 +1037,6 @@ def main():
     from raytracevs_tpu_torch.ops.cuda import _build
     from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
     from raytracevs_tpu_torch.ops.cuda import megakernel as MK
-    from raytracevs_tpu_torch.ops.render_cf import render_rows_cf
     from raytracevs_tpu_torch.post import denoise as PD
     from raytracevs_tpu_torch.scene import data as D
 
@@ -999,6 +1048,10 @@ def main():
             if ("Compiling entry function" in line or "registers" in line or "spill" in line
                     or "stack frame" in line):
                 print("  ptxas:", line.strip())
+    occ = (ctypes.c_int * 3)()
+    _build.check(_build.load_library().rtvs_denoise_occupancy(occ), "rtvs_denoise_occupancy")
+    print(f"  K3 atrous_kernel: {occ[0]} bytes of dynamic shared memory a block, {occ[1]} blocks "
+          f"an SM; K4 shadow_kernel: {occ[2]} blocks an SM", flush=True)
     t0 = time.perf_counter()
     native.load_library()
     print(f"phase 3 host BVH builder: {time.perf_counter() - t0:.1f} s -> "
@@ -1036,33 +1089,24 @@ def main():
         pack_tables_ms=pack_ms)
 
     # K2-K4 on the G-buffers of two orbiting 1080p frames
-    g = []
-    for f in range(2):
-        s = demo_scene(D, f)
-        prev = None if f == 0 else P.flatten_scene(P.sanitize_scene(demo_scene(D, 0)),
-                                                   aspect=FULL_W / FULL_H).view_proj
-        st = P.to_device(P.flatten_scene(P.sanitize_scene(s), frame_index=f,
-                                         aspect=FULL_W / FULL_H, prev_view_proj=prev), dev)
-        g.append(render_rows_cf(st, P.make_config(s, FULL_W, FULL_H, **OVERRIDES)).gbuffer)
-    state = PD.denoise_frame_cf(g[0], PD.init_state_cf(FULL_H, FULL_W, dev))[3].packed
-    gb = g[1]
-    sqrt_rough = gb.normal_roughness[3]
-    curr = PD.reblur_prepass(torch.cat([gb.diffuse_hitdist, gb.specular_hitdist]), gb.view_z,
-                             sqrt_rough)
-    k2_args = (state, curr, gb.motion, gb.view_z, torch.square(sqrt_rough), gb.motion_spec)
-    new_state = K.reproject_accumulate(*k2_args)
+    k2_args, new_state, k3_args, k4_args = denoise_inputs(P, D, PD, K, dev)
     k2_err = float((new_state - PD.temporal_accumulate(*k2_args)).abs().max())
-    normal = PD.decode_oct_cf(gb.normal_roughness)
-    guide = PD.guide_cf(new_state, gb.view_z, sqrt_rough)
-    k3_args = (torch.cat([new_state[0:3], new_state[4:7]]).contiguous(), gb.view_z, normal, guide)
-    k3_err = float((K.atrous(*k3_args) - PD.atrous(*k3_args)).abs().max())
-    k4_args = (gb.shadow_data, gb.obj_id, gb.view_z, normal)
-    k4_err = float((K.shadow_denoise(*k4_args) - PD.shadow_denoise(*k4_args)).abs().max())
     frames_kept = float((new_state[14] > 0).float().mean())
-    print(f"phase 4 K2-K4 {FULL_W}x{FULL_H}: max |d| K2 {k2_err:.3g} K3 {k3_err:.3g} "
-          f"K4 {k4_err:.3g}; history kept on {frames_kept:.3f} of pixels", flush=True)
-    if max(k2_err, k3_err, k4_err) > 1e-5:
-        raise AssertionError("K2-K4 disagree with their plain versions beyond atol 1e-5")
+    print(f"phase 4 K2 {FULL_W}x{FULL_H}: max |d| {k2_err:.3g}; history kept on "
+          f"{frames_kept:.3f} of pixels", flush=True)
+    if k2_err > 1e-5:
+        raise AssertionError("K2 disagrees with its plain version beyond atol 1e-5")
+    # K3 and K4 bit for bit, at 1080p and on the same planes cut to an odd
+    # size (ragged against both kernels' tiles)
+    k3_err = k4_err = 0.0
+    for cut in (None, (FULL_H - 1, FULL_W - 3)):
+        a3, a4 = k3_args, k4_args
+        if cut:
+            a3, a4 = ([a[..., :cut[0], :cut[1]].contiguous() for a in args]
+                      for args in (k3_args, k4_args))
+        k3_err = max(k3_err, check_denoise_bits("K3 atrous", K.atrous, PD.atrous, a3))
+        k4_err = max(k4_err, check_denoise_bits("K4 shadow_denoise", K.shadow_denoise,
+                                                PD.shadow_denoise, a4))
     px = FULL_W * FULL_H
     for name, err, kern, plain, args, out_planes, ops in (
             ("reproject_accumulate", k2_err, K.reproject_accumulate, PD.temporal_accumulate,
@@ -1075,7 +1119,7 @@ def main():
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         nbytes = sum(a.nbytes for a in args) + out_planes * px * 4
         results[name] = kernel_row(err, ms, plain_ms, nbytes, px * ops)
-    del g, state, gb, curr, k2_args, new_state, normal, guide, k3_args, k4_args
+    del k2_args, new_state, k3_args, k4_args
 
     # K5 on the demo scene at its budget and at the reference's safe cap;
     # K6 at 1080p on the primary planes of a caustics demo frame, both maps
@@ -1230,19 +1274,17 @@ def main():
                 "photon_trace": PK.trace_photons, "photon_gather": PK.gather,
                 "render_phase_a": MK.render_phase_a, "render_phase_b": MK.render_phase_b}
     launches, aeng = run_engine(P, D, "analytic", demo_scene, counters)
-    for name in ("render_accum", "reproject_accumulate", "atrous", "shadow_denoise"):
-        if launches[name] < FRAMES:
-            raise AssertionError(f"{name} launched {launches[name]} times in {FRAMES} frames")
+    if launches["render_accum"] < FRAMES:
+        raise AssertionError(f"render_accum launched {launches['render_accum']} times in "
+                             f"{FRAMES} frames")
     mesh_launches, _ = run_engine(P, D, "mesh", mesh_demo_scene, counters, MESH_DEMO)
-    for name in ("render_accum_mesh", "reproject_accumulate", "atrous", "shadow_denoise"):
-        if mesh_launches[name] < FRAMES:
-            raise AssertionError(f"{name} launched {mesh_launches[name]} times in {FRAMES} "
-                                 "mesh frames")
+    if mesh_launches["render_accum_mesh"] < FRAMES:
+        raise AssertionError(f"render_accum_mesh launched {mesh_launches['render_accum_mesh']} "
+                             f"times in {FRAMES} mesh frames")
     launches["render_accum_mesh"] = mesh_launches["render_accum_mesh"]
     caustics_launches, ceng = run_engine(P, D, "caustics", demo_scene, counters,
                                          overrides=CAUSTICS)
-    for name in ("render_accum", "reproject_accumulate", "atrous", "shadow_denoise",
-                 "photon_trace", "photon_gather"):
+    for name in ("render_accum", "photon_trace", "photon_gather"):
         if caustics_launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {caustics_launches[name]} times in {FRAMES} "
                                  "caustics frames")
@@ -1276,8 +1318,7 @@ def main():
     del csc, ceng, aeng, pmap, acc, hdr, ahdr, want, plain
     tp_launches, _ = run_engine(P, D, "two-phase mesh", mesh_demo_scene, counters, MESH_DEMO,
                                 overrides=SPP1, two_phase=True)
-    for name in ("render_phase_a", "render_phase_b", "reproject_accumulate", "atrous",
-                 "shadow_denoise"):
+    for name in ("render_phase_a", "render_phase_b"):
         if tp_launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {tp_launches[name]} times in {FRAMES} "
                                  "two-phase frames")

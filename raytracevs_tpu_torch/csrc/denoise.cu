@@ -1,10 +1,11 @@
-// K2-K4: the denoiser's stencil kernels for Hopper (sm_90a), one thread per
-// pixel, edge-clamped reads. Each follows its plain PyTorch version in
+// K2-K4: the denoiser's stencil kernels for Hopper (sm_90a), edge-clamped
+// reads. Each follows its plain PyTorch version in
 // raytracevs_tpu_torch/post/denoise.py operation for operation (see
-// common.cuh).
+// common.cuh), so each is bit-equal to it on the card.
 //
 // K2 rtvs_reproject_accumulate replaces the Pallas TPU kernel
-//   raytracevs_tpu/ops/pallas/denoise_kernels.py::_reproject_kernel.
+//   raytracevs_tpu/ops/pallas/denoise_kernels.py::_reproject_kernel, one
+//   thread per pixel.
 //   The TPU kernel quantizes motion per tile to fetch 2x2 block windows by
 //   DMA; here each pixel gathers its own four bilinear taps, which is the
 //   jnp oracle's semantics (post/denoise.py::temporal_accumulate), so under
@@ -15,17 +16,42 @@
 //   L1/L2 absorb most of the gather; the state is read and written
 //   ping-pong (never in place).
 //
-// K3 rtvs_atrous_pass (+ rtvs_anti_firefly) replaces
-//   denoise_kernels.py::_atrous_fused_kernel (and _atrous_pass_kernel): one
-//   edge-stopping pass with a stride argument, launched once per pass
-//   between two buffers. The anti-firefly 3x3 luminance clamp is a separate
-//   small kernel on the pass-0 input. Bound: memory, 9 taps x 10-12
-//   channels per pixel per pass, mostly cache hits; fusing the passes in
-//   shared memory (as the TPU kernel fused them in VMEM) is later work.
+// K3 rtvs_atrous replaces denoise_kernels.py::_atrous_fused_kernel (and
+//   _atrous_pass_kernel): the anti-firefly 3x3 luminance clamp and the
+//   three guided edge-stopping passes (strides 1, 2, 4) in one launch. A
+//   block owns an AT_W x AT_H tile of output pixels and runs the chain
+//   over shrinking windows in shared memory: luminance on the tile +- 8,
+//   the clamp, view_z and the normal on +- 7, pass 0 on +- 6, pass 1 on
+//   +- 4, pass 2 on the tile, written to device memory. Device memory sees
+//   the 6 input planes, z, normal and guide once (plus the halo's
+//   re-reads) and the 6 output planes once: the fused function's bytes
+//   (149 MB at 1080p, 0.045 ms at 3.35 TB/s), where one launch a pass
+//   moved about 550 MB. What bounds it then is the instruction stream on
+//   the SM: 4.73 pixel-passes an output pixel (the halo's recompute) of 8
+//   taps, each a division and an expf kept exact (the fast intrinsics
+//   would save about a fifth, and change bits) and ~40 float operations;
+//   a zero dividend skips the exact division's slow path (div0).
+//   So a tap reads its neighbour with three vector loads from per-pixel
+//   interleaved windows, and a tile whose reach stays inside the frame
+//   (most of them) reads at constant offsets, without clamps. The stages
+//   stay exact at the frame's edges: each stage is stored by frame
+//   coordinate, computed for in-frame pixels only, and every read clamps
+//   its frame coordinate before it maps into the window, as the plain
+//   version's edge padding of each pass's output does. The depth divide
+//   stays a division at every tap (a hoisted reciprocal would change
+//   bits).
 //
 // K4 rtvs_shadow_denoise replaces denoise_kernels.py::_shadow_kernel: the
 //   ShadowDenoise.hlsl 5x5 filter with an exact int32 object-id match.
-//   Bound: memory and the 25 expf per pixel.
+//   A block loads its SH_W x SH_H tile and a 2-pixel halo of the 7 input
+//   planes (2 shadow, the id, z, 3 normal; edge-clamped, per pixel in two
+//   float4s) into shared memory once and runs the 25 taps from there; the
+//   25 spatial weights are computed once a block. Bound: the instruction
+//   stream of the 25 taps, each an exact expf and division (div0; device
+//   memory: 74.6 MB at 1080p, 0.022 ms); the tile shape and occupancy
+//   moved nothing.
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -39,6 +65,22 @@ constexpr int SHADOW_RADIUS = 2;
 #define SHADOW_DEPTH_THRESHOLD F(0.1)
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+// a / b, bit for bit. The exact division takes a slow path (a call) for a
+// zero dividend; a zero over a positive divisor is that signed zero, so it
+// skips the division. Depth taps within a surface of one depth (the sky's
+// every tap) and black pixels give zero dividends: on the demo scene's
+// 1080p G-buffer this took K3 from 0.407 to 0.360 ms and K4 from 0.176 to
+// 0.160 ms (scripts/torch_k1_ab.py, this file with and without it).
+__device__ __forceinline__ float div0(float a, float b) {
+  const bool zero = a == 0.0f && b > 0.0f;
+  float n = zero ? 1.0f : a;
+#ifdef __CUDA_ARCH__
+  asm("" : "+f"(n));  // an opaque dividend, or the compiler divides a itself
+#endif
+  const float q = n / b;
+  return zero ? a : q;
+}
 
 // bilinear taps of `nch` planes (channel list `chans`) at (xf, yf)
 __device__ __forceinline__ void bilinear(const float* __restrict__ img, const int* chans, int nch,
@@ -123,94 +165,276 @@ __device__ __forceinline__ float lum(const float* p, size_t plane, size_t i) {
          __ldg(p + 2 * plane + i) * F(0.0722);
 }
 
-__global__ void anti_firefly_kernel(const float* __restrict__ img, float* __restrict__ out, int H,
-                                    int W) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  size_t plane = (size_t)H * W, i = (size_t)y * W + x;
-  for (int g = 0; g < 6; g += 3) {
-    const float* grp = img + g * plane;
-    float m = 0.0f;
-    bool first = true;
-    for (int dy = -1; dy <= 1; ++dy)
-      for (int dx = -1; dx <= 1; ++dx) {
-        if (dy == 0 && dx == 0) continue;
-        size_t q = (size_t)clampi(y + dy, 0, H - 1) * W + clampi(x + dx, 0, W - 1);
-        float l = lum(grp, plane, q);
-        m = first ? l : maxn(m, l);
-        first = false;
-      }
-    float s = minn(m / maxn(lum(grp, plane, i), F(1e-6)), 1.0f);
-    for (int k = 0; k < 3; ++k) out[(g + k) * plane + i] = __ldg(grp + k * plane + i) * s;
+// K3's tile: AT_W x AT_H output pixels a block, AT_THREADS threads, two
+// blocks an SM: 107,936 bytes of shared memory a block, the largest tile
+// of 32-pixel rows of which two fit the SM's 228 KB. Its halo costs 4.73
+// pixel-passes an output pixel (5.28 at 32x16, 4.45 at 32x32, which fits
+// one block an SM and ran slower); the thread count moved nothing. A block
+// marching down a 32-column strip with a ring of rows for each stage (3.8
+// pixel-passes) ran 8% slower at two blocks an SM and level at three: its
+// steps leave each thread one pixel or two between barriers.
+constexpr int AT_W = 32, AT_H = 24, AT_THREADS = 512, AT_BLOCKS = 2;
+// the halo each stage is computed over, from the strides 1, 2, 4 inwards
+constexpr int HALO_LUM = 8, HALO_FF = 7, HALO_P0 = 6, HALO_P1 = 4;
+
+// A window of the tile +- HALO, row-major, by frame coordinate.
+template <int HALO>
+struct Win {
+  static constexpr int P = AT_W + 2 * HALO, N = P * (AT_H + 2 * HALO);
+  // the slot of in-window frame pixel (x, y) of the tile at (x0, y0)
+  static __device__ __forceinline__ int at(int x, int y, int x0, int y0) {
+    return (y - y0 + HALO) * P + (x - x0 + HALO);
+  }
+  // the slot of the edge-clamped neighbour (x + dx, y + dy) of the pixel
+  // in slot c; inside the frame (EDGE false) a constant offset
+  template <bool EDGE>
+  static __device__ __forceinline__ int tap(int c, int x, int y, int dx, int dy, int x0, int y0,
+                                            int H, int W) {
+    if (EDGE) return at(clampi(x + dx, 0, W - 1), clampi(y + dy, 0, H - 1), x0, y0);
+    return c + dy * P + dx;
+  }
+};
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+// Shared memory, per pixel interleaved so that a tap is three vector loads:
+// the clamped image (channels 0-3 as float4, 4-5 as float2; then pass 1's
+// output), z and normal (a float4), luminance (a float2 of the two groups;
+// then pass 0's output, as the image)
+constexpr int AT_FF = 6 * Win<HALO_FF>::N, AT_ZN = 4 * Win<HALO_FF>::N;
+constexpr int AT_TMP = cmax(2 * Win<HALO_LUM>::N, 6 * Win<HALO_P0>::N);
+constexpr int AT_SMEM_BYTES = (AT_FF + AT_ZN + AT_TMP) * (int)sizeof(float);
+static_assert(6 * Win<HALO_P1>::N <= AT_FF, "pass 1's output must fit the clamp's slots");
+static_assert(Win<HALO_FF>::N % 2 == 0 && Win<HALO_P0>::N % 2 == 0 && Win<HALO_P1>::N % 2 == 0,
+              "float4 parts must stay 16-byte aligned");
+
+// 6 channels of a window of n pixels at p: a float4 part, then a float2 part
+struct Six {
+  float4* a;
+  float2* b;
+  __device__ __forceinline__ Six(float* p, int n)
+      : a(reinterpret_cast<float4*>(p)), b(reinterpret_cast<float2*>(p + 4 * n)) {}
+};
+
+// fn(slot, x, y) for each in-frame pixel of the window, the block's
+// threads over its slots
+template <int HALO, bool EDGE, typename Fn>
+__device__ __forceinline__ void for_window(int x0, int y0, int H, int W, Fn fn) {
+  for (int k = threadIdx.x; k < Win<HALO>::N; k += AT_THREADS) {
+    int ly = k / Win<HALO>::P;
+    int x = x0 - HALO + (k - ly * Win<HALO>::P), y = y0 - HALO + ly;
+    if (!EDGE || (x >= 0 && x < W && y >= 0 && y < H)) fn(k, x, y);
   }
 }
 
-__global__ void atrous_pass_kernel(const float* __restrict__ img, const float* __restrict__ view_z,
-                                   const float* __restrict__ normal,
-                                   const float* __restrict__ guide, float* __restrict__ out,
-                                   int H, int W, int stride) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= W || y >= H) return;
-  size_t plane = (size_t)H * W, i = (size_t)y * W + x;
-  float vz = __ldg(view_z + i);
-  float n0 = __ldg(normal + i), n1 = __ldg(normal + plane + i), n2 = __ldg(normal + 2 * plane + i);
+// One guided a-trous pass at in-frame pixel (x, y), reading the previous
+// stage's 6 channels `in` (a Win<HIN>) and z/normal `zn` (a Win<HALO_FF>);
+// rd, rs: the pixel's guide radii. The plain version's atrous_pass.
+template <int S, int HIN, bool EDGE>
+__device__ __forceinline__ void atrous_px(Six in, const float4* __restrict__ zn, float rd,
+                                          float rs, int x, int y, int x0, int y0, int H, int W,
+                                          float res[6]) {
+  using WI = Win<HIN>;
+  using WZ = Win<HALO_FF>;
+  const int cz = WZ::at(x, y, x0, y0), ci = WI::at(x, y, x0, y0);
+  const float4 zc4 = zn[cz];
+  const float vz = zc4.x, n0 = zc4.y, n1 = zc4.z, n2 = zc4.w;
   float zc = F(0.05) * maxn(vz, VIEWZ_MIN);
-  float s2 = (float)(stride * stride);
-  float rd = maxn(__ldg(guide + i), F(1e-3)), rs = maxn(__ldg(guide + plane + i), F(1e-3));
+  float s2 = (float)(S * S);
+  rd = maxn(rd, F(1e-3));
+  rs = maxn(rs, F(1e-3));
   float g_d = expf(-s2 / (rd * rd));
   float g_s = expf(-s2 / (rs * rs));
-  float acc[6];
-  for (int k = 0; k < 6; ++k) acc[k] = __ldg(img + k * plane + i);
+  const float4 ca = in.a[ci];
+  const float2 cb = in.b[ci];
+  float acc[6] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y};
   float wsum_d = 1.0f, wsum_s = 1.0f;
   const int offs[8][2] = {{-1, -1}, {-1, 0}, {-1, 1}, {0, -1}, {0, 1}, {1, -1}, {1, 0}, {1, 1}};
+#pragma unroll
   for (int t = 0; t < 8; ++t) {
-    size_t q = (size_t)clampi(y + offs[t][0] * stride, 0, H - 1) * W +
-               clampi(x + offs[t][1] * stride, 0, W - 1);
-    float w_depth = expf(-fabsf(__ldg(view_z + q) - vz) / zc);
-    float ndot = __ldg(normal + q) * n0 + __ldg(normal + plane + q) * n1 +
-                 __ldg(normal + 2 * plane + q) * n2;
+    const int dx = offs[t][1] * S, dy = offs[t][0] * S;
+    const float4 q = zn[WZ::template tap<EDGE>(cz, x, y, dx, dy, x0, y0, H, W)];
+    const int qi = WI::template tap<EDGE>(ci, x, y, dx, dy, x0, y0, H, W);
+    const float4 qa = in.a[qi];
+    const float2 qb = in.b[qi];
+    float w_depth = expf(div0(-fabsf(q.x - vz), zc));
+    float ndot = q.y * n0 + q.z * n1 + q.w * n2;
     float wt = w_depth * pow8(maxn(ndot, 0.0f)) * F(2.0 / 3.0);
     float w_d = wt * g_d, w_s = wt * g_s;
-    for (int k = 0; k < 3; ++k) acc[k] = acc[k] + __ldg(img + k * plane + q) * w_d;
-    for (int k = 3; k < 6; ++k) acc[k] = acc[k] + __ldg(img + k * plane + q) * w_s;
+    acc[0] = acc[0] + qa.x * w_d;
+    acc[1] = acc[1] + qa.y * w_d;
+    acc[2] = acc[2] + qa.z * w_d;
+    acc[3] = acc[3] + qa.w * w_s;
+    acc[4] = acc[4] + qb.x * w_s;
+    acc[5] = acc[5] + qb.y * w_s;
     wsum_d = wsum_d + w_d;
     wsum_s = wsum_s + w_s;
   }
-  for (int k = 0; k < 3; ++k) out[k * plane + i] = acc[k] / wsum_d;
-  for (int k = 3; k < 6; ++k) out[k * plane + i] = acc[k] / wsum_s;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) res[k] = div0(acc[k], wsum_d);
+#pragma unroll
+  for (int k = 3; k < 6; ++k) res[k] = div0(acc[k], wsum_s);
 }
 
-__global__ void shadow_kernel(const float* __restrict__ shadow, const int* __restrict__ obj_id,
-                              const float* __restrict__ view_z, const float* __restrict__ normal,
-                              float* __restrict__ out, int H, int W) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
+__device__ __forceinline__ void put6(Six out, int k, const float r[6]) {
+  out.a[k] = make_float4(r[0], r[1], r[2], r[3]);
+  out.b[k] = make_float2(r[4], r[5]);
+}
+
+// The chain on one tile. EDGE: the tile +- HALO_LUM reaches past the
+// frame, so reads clamp; else every read is a constant offset.
+template <bool EDGE>
+__device__ __forceinline__ void atrous_tile(float* smem, const float* __restrict__ img,
+                                            const float* __restrict__ view_z,
+                                            const float* __restrict__ normal,
+                                            const float* __restrict__ guide,
+                                            float* __restrict__ out, int H, int W, int x0,
+                                            int y0) {
+  using WL = Win<HALO_LUM>;
+  using WF = Win<HALO_FF>;
+  const size_t plane = (size_t)H * W;
+  float4* zn = reinterpret_cast<float4*>(smem + AT_FF);  // Win<HALO_FF>: view_z, normal
+  float2* lum2 = reinterpret_cast<float2*>(smem + AT_FF + AT_ZN);  // Win<HALO_LUM>
+  Six ff(smem, WF::N);                                  // the clamped image
+  Six p0(smem + AT_FF + AT_ZN, Win<HALO_P0>::N);        // pass 0, over the luminance
+  Six p1(smem, Win<HALO_P1>::N);                        // pass 1, over the clamped image
+
+  // each group's luminance on the tile +- 8
+  for_window<HALO_LUM, EDGE>(x0, y0, H, W, [&](int k, int x, int y) {
+    size_t i = (size_t)y * W + x;
+    lum2[k] = make_float2(lum(img, plane, i), lum(img + 3 * plane, plane, i));
+  });
+  __syncthreads();
+  // the anti-firefly clamp, z and normal on +- 7
+  for_window<HALO_FF, EDGE>(x0, y0, H, W, [&](int k, int x, int y) {
+    size_t i = (size_t)y * W + x;
+    zn[k] = make_float4(__ldg(view_z + i), __ldg(normal + i), __ldg(normal + plane + i),
+                        __ldg(normal + 2 * plane + i));
+    const int cl = WL::at(x, y, x0, y0);
+    float2 m = make_float2(0.0f, 0.0f);
+    bool first = true;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        if (dy == 0 && dx == 0) continue;
+        float2 l = lum2[WL::template tap<EDGE>(cl, x, y, dx, dy, x0, y0, H, W)];
+        m.x = first ? l.x : maxn(m.x, l.x);
+        m.y = first ? l.y : maxn(m.y, l.y);
+        first = false;
+      }
+    const float2 lc = lum2[cl];
+    float s_d = minn(div0(m.x, maxn(lc.x, F(1e-6))), 1.0f);
+    float s_s = minn(div0(m.y, maxn(lc.y, F(1e-6))), 1.0f);
+    float r[6];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) r[c] = __ldg(img + c * plane + i) * (c < 3 ? s_d : s_s);
+    put6(ff, k, r);
+  });
+  __syncthreads();
+  // pass 0 (stride 1) on +- 6, into the luminance's slots
+  for_window<HALO_P0, EDGE>(x0, y0, H, W, [&](int k, int x, int y) {
+    size_t i = (size_t)y * W + x;
+    float r[6];
+    atrous_px<1, HALO_FF, EDGE>(ff, zn, __ldg(guide + i), __ldg(guide + plane + i), x, y, x0,
+                                y0, H, W, r);
+    put6(p0, k, r);
+  });
+  __syncthreads();
+  // pass 1 (stride 2) on +- 4, into the clamped image's slots
+  for_window<HALO_P1, EDGE>(x0, y0, H, W, [&](int k, int x, int y) {
+    size_t i = (size_t)y * W + x;
+    float r[6];
+    atrous_px<2, HALO_P0, EDGE>(p0, zn, __ldg(guide + i), __ldg(guide + plane + i), x, y, x0,
+                                y0, H, W, r);
+    put6(p1, k, r);
+  });
+  __syncthreads();
+  // pass 2 (stride 4) on the tile, to device memory
+  for_window<0, EDGE>(x0, y0, H, W, [&](int, int x, int y) {
+    size_t i = (size_t)y * W + x;
+    float r[6];
+    atrous_px<4, HALO_P1, EDGE>(p1, zn, __ldg(guide + i), __ldg(guide + plane + i), x, y, x0,
+                                y0, H, W, r);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) out[c * plane + i] = r[c];
+  });
+}
+
+__global__ void __launch_bounds__(AT_THREADS, AT_BLOCKS)
+    atrous_kernel(const float* __restrict__ img, const float* __restrict__ view_z,
+                  const float* __restrict__ normal, const float* __restrict__ guide,
+                  float* __restrict__ out, int H, int W) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int x0 = blockIdx.x * AT_W, y0 = blockIdx.y * AT_H;
+  if (x0 >= HALO_LUM && y0 >= HALO_LUM && x0 + AT_W + HALO_LUM <= W &&
+      y0 + AT_H + HALO_LUM <= H)
+    atrous_tile<false>(smem, img, view_z, normal, guide, out, H, W, x0, y0);
+  else
+    atrous_tile<true>(smem, img, view_z, normal, guide, out, H, W, x0, y0);
+}
+
+// K4's tile: one thread per output pixel, SH_W x SH_H a block
+constexpr int SH_W = 32, SH_H = 16;
+constexpr int SH_P = SH_W + 2 * SHADOW_RADIUS, SH_N = SH_P * (SH_H + 2 * SHADOW_RADIUS);
+constexpr int SH_TAPS = (2 * SHADOW_RADIUS + 1) * (2 * SHADOW_RADIUS + 1);
+
+__global__ void __launch_bounds__(SH_W * SH_H)
+    shadow_kernel(const float* __restrict__ shadow, const int* __restrict__ obj_id,
+                  const float* __restrict__ view_z, const float* __restrict__ normal,
+                  float* __restrict__ out, int H, int W) {
+  // per pixel: z and normal; penumbra, visibility and the id's bits
+  __shared__ float4 s_zn[SH_N], s_sh[SH_N];
+  __shared__ float s_w[SH_TAPS];
+  const int tid = threadIdx.y * SH_W + threadIdx.x;
+  const int x0 = blockIdx.x * SH_W, y0 = blockIdx.y * SH_H;
+  const size_t plane = (size_t)H * W;
+  // the Gaussian: a float32 of the double quotient, then expf, as the
+  // plain version's torch.exp of a float32 tensor
+  if (tid < SH_TAPS) {
+    int dy = tid / (2 * SHADOW_RADIUS + 1) - SHADOW_RADIUS;
+    int dx = tid % (2 * SHADOW_RADIUS + 1) - SHADOW_RADIUS;
+    s_w[tid] = expf((float)(-(double)(dx * dx + dy * dy) /
+                            (2.0 * SHADOW_SOFTNESS * SHADOW_SOFTNESS + 0.01)));
+  }
+  // the tile and its halo, each slot the edge-clamped pixel
+  for (int k = tid; k < SH_N; k += SH_W * SH_H) {
+    int ly = k / SH_P;
+    int gx = clampi(x0 - SHADOW_RADIUS + (k - ly * SH_P), 0, W - 1);
+    int gy = clampi(y0 - SHADOW_RADIUS + ly, 0, H - 1);
+    size_t q = (size_t)gy * W + gx;
+    s_zn[k] = make_float4(__ldg(view_z + q), __ldg(normal + q), __ldg(normal + plane + q),
+                          __ldg(normal + 2 * plane + q));
+    s_sh[k] = make_float4(__ldg(shadow + q), __ldg(shadow + plane + q),
+                          __int_as_float(__ldg(obj_id + q)), 0.0f);
+  }
+  __syncthreads();
+  int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
   if (x >= W || y >= H) return;
-  size_t plane = (size_t)H * W, i = (size_t)y * W + x;
-  int oid = __ldg(obj_id + i);
-  float vz = __ldg(view_z + i);
-  float n0 = __ldg(normal + i), n1 = __ldg(normal + plane + i), n2 = __ldg(normal + 2 * plane + i);
+  const int c = (threadIdx.y + SHADOW_RADIUS) * SH_P + threadIdx.x + SHADOW_RADIUS;
+  const float4 zc4 = s_zn[c], sc4 = s_sh[c];
+  const int oid = __float_as_int(sc4.z);
+  const float vz = zc4.x, n0 = zc4.y, n1 = zc4.z, n2 = zc4.w;
   float dz = maxn(SHADOW_DEPTH_THRESHOLD * vz, F(0.001));
   float wsum = 0.0f, vis_sum = 0.0f, pen_sum = 0.0f;
+#pragma unroll
   for (int dy = -SHADOW_RADIUS; dy <= SHADOW_RADIUS; ++dy)
+#pragma unroll
     for (int dx = -SHADOW_RADIUS; dx <= SHADOW_RADIUS; ++dx) {
-      size_t q = (size_t)clampi(y + dy, 0, H - 1) * W + clampi(x + dx, 0, W - 1);
-      float w_depth = expf(-fabsf(vz - __ldg(view_z + q)) / dz);
-      float ndot = __ldg(normal + q) * n0 + __ldg(normal + plane + q) * n1 +
-                   __ldg(normal + 2 * plane + q) * n2;
-      float w_spatial = expf((float)(-(double)(dx * dx + dy * dy) /
-                                     (2.0 * SHADOW_SOFTNESS * SHADOW_SOFTNESS + 0.01)));
-      float wt = __ldg(obj_id + q) == oid ? w_depth * pow8(maxn(ndot, 0.0f)) * w_spatial : 0.0f;
-      vis_sum = vis_sum + __ldg(shadow + plane + q) * wt;
-      pen_sum = pen_sum + __ldg(shadow + q) * wt;
+      const float4 qz = s_zn[c + dy * SH_P + dx], qs = s_sh[c + dy * SH_P + dx];
+      float w_depth = expf(div0(-fabsf(vz - qz.x), dz));
+      float ndot = qz.y * n0 + qz.z * n1 + qz.w * n2;
+      float w_spatial = s_w[(dy + SHADOW_RADIUS) * (2 * SHADOW_RADIUS + 1) + dx + SHADOW_RADIUS];
+      float wt = __float_as_int(qs.z) == oid ? w_depth * pow8(maxn(ndot, 0.0f)) * w_spatial
+                                             : 0.0f;
+      vis_sum = vis_sum + qs.y * wt;
+      pen_sum = pen_sum + qs.x * wt;
       wsum = wsum + wt;
     }
-  float c0 = __ldg(shadow + i), c1 = __ldg(shadow + plane + i);
+  float c0 = sc4.x, c1 = sc4.y;
   bool ok = wsum > F(0.001);
-  float pen = ok ? pen_sum / maxn(wsum, F(1e-6)) : c0;
-  float vis = ok ? vis_sum / maxn(wsum, F(1e-6)) : c1;
+  float pen = ok ? div0(pen_sum, maxn(wsum, F(1e-6))) : c0;
+  float vis = ok ? div0(vis_sum, maxn(wsum, F(1e-6))) : c1;
+  size_t i = (size_t)y * W + x;
   out[i] = oid < 0 ? c0 : pen;
   out[plane + i] = oid < 0 ? c1 : vis;
 }
@@ -230,22 +454,47 @@ extern "C" int rtvs_reproject_accumulate(const float* state, const float* curr,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rtvs_anti_firefly(const float* img, float* out, int H, int W, void* stream) {
-  anti_firefly_kernel<<<grid_for(H, W), dim3(16, 16), 0, (cudaStream_t)stream>>>(img, out, H, W);
-  return (int)cudaGetLastError();
+namespace {
+// Above 48 KB a block's dynamic shared memory needs the kernel's attribute
+// set, once for each device.
+cudaError_t atrous_smem_attribute() {
+  constexpr int MAX_DEVICES = 64;
+  static std::atomic<bool> done[MAX_DEVICES];
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < MAX_DEVICES && done[dev].load())) return err;
+  err = cudaFuncSetAttribute(atrous_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             AT_SMEM_BYTES);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true);
+  return err;
 }
+}  // namespace
 
-extern "C" int rtvs_atrous_pass(const float* img, const float* view_z, const float* normal,
-                                const float* guide, float* out, int H, int W, int stride,
-                                void* stream) {
-  atrous_pass_kernel<<<grid_for(H, W), dim3(16, 16), 0, (cudaStream_t)stream>>>(
-      img, view_z, normal, guide, out, H, W, stride);
+extern "C" int rtvs_atrous(const float* img, const float* view_z, const float* normal,
+                           const float* guide, float* out, int H, int W, void* stream) {
+  cudaError_t err = atrous_smem_attribute();
+  if (err != cudaSuccess) return (int)err;
+  atrous_kernel<<<dim3((W + AT_W - 1) / AT_W, (H + AT_H - 1) / AT_H), AT_THREADS, AT_SMEM_BYTES,
+                  (cudaStream_t)stream>>>(img, view_z, normal, guide, out, H, W);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rtvs_shadow_denoise(const float* shadow, const int* obj_id, const float* view_z,
                                    const float* normal, float* out, int H, int W, void* stream) {
-  shadow_kernel<<<grid_for(H, W), dim3(16, 16), 0, (cudaStream_t)stream>>>(
-      shadow, obj_id, view_z, normal, out, H, W);
+  shadow_kernel<<<dim3((W + SH_W - 1) / SH_W, (H + SH_H - 1) / SH_H), dim3(SH_W, SH_H), 0,
+                  (cudaStream_t)stream>>>(shadow, obj_id, view_z, normal, out, H, W);
   return (int)cudaGetLastError();
+}
+
+// For the record: out[0] K3's dynamic shared memory a block in bytes,
+// out[1] K3's and out[2] K4's resident blocks an SM.
+extern "C" int rtvs_denoise_occupancy(int* out) {
+  cudaError_t err = atrous_smem_attribute();
+  if (err != cudaSuccess) return (int)err;
+  out[0] = AT_SMEM_BYTES;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, atrous_kernel, AT_THREADS,
+                                                      AT_SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, shadow_kernel, SH_W * SH_H,
+                                                            0);
 }

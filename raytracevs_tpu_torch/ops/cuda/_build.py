@@ -68,12 +68,12 @@ SIGNATURES = {
     "rtvs_mesh_shadow": (_P,) * 4 + (_I,) * 5 + (_P,) * 8,
     # state, curr, motion, motion_spec, view_z, roughness, out, H, W, stream
     "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 2 + (_P,),
-    # img6, out6, H, W, stream
-    "rtvs_anti_firefly": (_P, _P, _I, _I, _P),
-    # img6, view_z, normal3, guide2, out6, H, W, stride, stream
-    "rtvs_atrous_pass": (_P,) * 5 + (_I,) * 3 + (_P,),
+    # img6, view_z, normal3, guide2, out6, H, W, stream
+    "rtvs_atrous": (_P,) * 5 + (_I,) * 2 + (_P,),
     # shadow2, obj_id, view_z, normal3, out2, H, W, stream
     "rtvs_shadow_denoise": (_P,) * 5 + (_I,) * 2 + (_P,),
+    # int out[3]: K3's shared bytes a block, K3's and K4's blocks an SM
+    "rtvs_denoise_occupancy": (_P,),
     # ftab, S, P, B, M, L, n, origin, direction, color, power, alive, idx,
     # store_pos, store_dir, store_color, store_power, store_mask, stream
     "rtvs_photon_trace": (_P,) + (_I,) * 6 + (_P,) * 11 + (_P,),

@@ -3,7 +3,7 @@ the shadow filter.
 
 On CPU tensors each wrapper runs its plain version from post/denoise.py; on
 CUDA tensors it launches its kernel or raises. Each wrapper's ``launches``
-counts its kernel launches (the a-trous wrapper counts one per pass).
+counts its kernel launches, one a call.
 """
 from __future__ import annotations
 
@@ -64,7 +64,7 @@ def reproject_accumulate(packed, curr, motion, view_z, roughness, motion_spec):
 def atrous(img, view_z, normal, guide):
     """K3: the anti-firefly clamp, then ATROUS_PASSES guided edge-stopping
     a-trous passes (strides 1, 2, 4) over the 6-channel diffuse+specular img
-    [6,H,W] (see post/denoise.py::atrous)."""
+    [6,H,W], all in one launch (see post/denoise.py::atrous)."""
     dev = _device(img)
     if dev.type == "cpu":
         return plain.atrous(img, view_z, normal, guide)
@@ -73,21 +73,14 @@ def atrous(img, view_z, normal, guide):
     _check("view_z", view_z, (h, w), _F32, dev)
     _check("normal", normal, (3, h, w), _F32, dev)
     _check("guide", guide, (2, h, w), _F32, dev)
+    out = torch.empty_like(img)
     lib = _build.load_library()
-    bufs = [torch.empty_like(img), torch.empty_like(img)]
     with torch.cuda.device(dev):
-        stream = _stream(dev)
-        _build.check(lib.rtvs_anti_firefly(img.data_ptr(), bufs[1].data_ptr(), h, w, stream),
-                     "rtvs_anti_firefly")
-        src = bufs[1]
-        for p in range(plain.ATROUS_PASSES):
-            dst = bufs[p % 2]
-            err = lib.rtvs_atrous_pass(src.data_ptr(), view_z.data_ptr(), normal.data_ptr(),
-                                       guide.data_ptr(), dst.data_ptr(), h, w, 1 << p, stream)
-            _build.check(err, "rtvs_atrous_pass")
-            atrous.launches += 1
-            src = dst
-    return src
+        err = lib.rtvs_atrous(img.data_ptr(), view_z.data_ptr(), normal.data_ptr(),
+                              guide.data_ptr(), out.data_ptr(), h, w, _stream(dev))
+    _build.check(err, "rtvs_atrous")
+    atrous.launches += 1
+    return out
 
 
 def shadow_denoise(shadow, obj_id, view_z, normal):

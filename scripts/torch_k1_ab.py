@@ -1,6 +1,6 @@
-"""The render kernels K1, K1-mesh, K7 and K8 and the photon trace K5 of this
-tree against another checkout's, on one CUDA card, and the host's scene
-update of both.
+"""The render kernels K1, K1-mesh, K7 and K8, the photon trace K5 and the
+denoiser's K3 and K4 of this tree against another checkout's, on one CUDA
+card, and the host's scene update of both.
 
 Builds the kernel library of another checkout of the port (for example the
 parent commit, unpacked with `git archive`) and of this tree, each from cold
@@ -11,10 +11,12 @@ each library is called through its own wrappers and tables, and times
 the mesh demo scene at spp 2 and spp 1, K7 and K8 on both at spp 1 (K8 on
 its own tree's K7 planes and sorted order), and K5 on the demo scene at its
 16,384 photons (the launch alone; the frame's wrapper also packs the
-tables), calling the libraries in turns (other, this, then back) for
-`--rounds` rounds: each call is one launch on tables packed beforehand,
-timed by CUDA events. Every call's planes must equal the first call's bit
-for bit.
+tables), and K3 (atrous) and K4 (shadow_denoise) on the 1080p G-buffer
+of chip_smoke.py's phase 4 (one wrapper call each: one launch, or as many
+as that checkout's wrapper makes), calling the libraries in turns (other,
+this, then back) for `--rounds` rounds: each render call is one launch on
+tables packed beforehand, timed by CUDA events. Every call's planes must
+equal the first call's bit for bit.
 
 Then the host, each tree in turns, the device synchronised around each
 call: frame 0 of the mesh demo scene in a new Engine (update_scene with
@@ -26,15 +28,15 @@ collapse of the 199,712-triangle BLAS alone, and the wide table's work a
 frame (the kept combined table's check and the box gather).
 
 It prints each time, the median and range per library, ptxas's
-registers, stack and spills of the render kernels in each build, the
-card's name and power limit, and as its last line a JSON object of the
-results.
+registers, stack, spills and shared memory of the render and denoiser
+kernels in each build, the card's name and power limit, and as its last
+line a JSON object of the results.
 
     python3 scripts/torch_k1_ab.py --other DIR [--rounds 5] [--frames 40] [--cases REGEX]
 
 --cases keeps the kernel cases whose label matches the regular expression
-(for example '^K7' or 'demo scene, spp 2'; all by default); --frames 0
-skips the host's part.
+(for example '^K7', '^K[34]' or 'demo scene, spp 2'; all by default);
+--frames 0 skips the host's part.
 
 It needs one CUDA device, nvcc, and the other checkout at DIR.
 """
@@ -66,7 +68,10 @@ t0 = time.perf_counter()
 B.load_library()
 print(json.dumps({"path": B.library_path(), "s": time.perf_counter() - t0}))
 """
-KERNELS = ("render_accum_kernel", "render_phase_b_kernel", "photon_trace_kernel")
+KERNELS = ("render_accum_kernel", "render_phase_b_kernel", "photon_trace_kernel",
+           "atrous_kernel", "atrous_pass_kernel", "anti_firefly_kernel", "shadow_kernel")
+# a kernel's name in a mangled symbol: its length before it, then E or I
+KERNEL_RE = re.compile(r"\d(%s)[EI]" % "|".join(KERNELS))
 
 
 def start_build(tree, name):
@@ -83,13 +88,13 @@ def finish_build(proc):
 
 
 def ptxas(log):
-    """(kernel, ptxas's lines on its registers and stack) per render kernel."""
+    """(kernel, ptxas's lines on its registers and stack) per kernel of KERNELS."""
     rows, entry, props = [], None, ""
     with open(log) as f:
         for line in f:
             if "Compiling entry function" in line:
                 name = line.split("'")[1]
-                entry = name if any(k in name for k in KERNELS) else None
+                entry = name if KERNEL_RE.search(name) else None
             elif entry and "Function properties" in line:
                 props = ""
             elif entry and ("stack frame" in line):
@@ -152,6 +157,8 @@ class Tree:
         self.D = importlib.import_module(f"{name}.scene.data")  # its own scene classes
         self.PP = importlib.import_module(f"{name}.ops.photon")
         self.PK = importlib.import_module(f"{name}.ops.cuda.photon_kernels")
+        self.K = importlib.import_module(f"{name}.ops.cuda.denoise_kernels")
+        self.PD = importlib.import_module(f"{name}.post.denoise")
         mc = importlib.import_module(f"{name}.io.mesh_cache")
         self.meshes = mc.MeshCacheService(".")
         for mname, (rings, segs, radius) in CS.MESH_DEMO.items():
@@ -284,12 +291,21 @@ def main():
                   (f"K8, {label}, spp 1", "rtvs_render_phase_b", build, meshes, CS.SPP1)]
     cases.append(("K5, demo scene, 16384 photons", "photon_trace", CS.demo_scene, False,
                   CS.CAUSTICS))
+    cases += [(f"{k}, demo scene G-buffer 1920x1080", entry, None, False, None)
+              for k, entry in (("K3 atrous", "atrous"), ("K4 shadow_denoise", "shadow_denoise"))]
     cases = [c for c in cases if re.search(args.cases, c[0])]
     results, mismatched = {}, []
+    denoise_entries = ("atrous", "shadow_denoise")
     order = names + names[::-1]
+    denoise = None  # K3's and K4's arguments, made once by this tree
     for label, entry, build, meshes, over in cases:
         prep = {}
-        for tn, tree in trees.items():
+        if entry in denoise_entries and denoise is None:
+            t = trees["this"]
+            k3, k4 = timed(t.MK._build, t.lib, lambda: CS.denoise_inputs(
+                t.P, t.D, t.PD, t.K, torch.device("cuda")))[0][2:]
+            denoise = {"atrous": k3, "shadow_denoise": k4}
+        for tn, tree in ({} if entry in denoise_entries else trees).items():
             s, sc = tree.scene(CS, build, meshes)
             cfg = tree.P.make_config(s, CS.FULL_W, CS.FULL_H, **over)
             flags = tree.MK._check(sc, cfg, "torch_k1_ab")
@@ -317,6 +333,10 @@ def main():
             prep[tn] = (tree, sc, cfg, flags, tables, extra)
 
         def call(n):
+            if entry in denoise_entries:
+                tree = trees[n]
+                fn = getattr(tree.K, entry)
+                return timed(tree.MK._build, tree.lib, lambda: fn(*denoise[entry]))
             tree, sc, cfg, flags, tables, extra = prep[n]
             R = tree.R
             if entry == "photon_trace":
