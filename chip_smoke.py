@@ -13,13 +13,17 @@ host BVH builder from csrc/host/, holds each kernel against its plain
 PyTorch version on the card at the main paths' shapes (K1, K1-mesh, K7 and
 K8 bit for bit; K2 within 1e-5, K3 and K4 bit for bit, on the G-buffer of a
 rendered 1080p frame, K3 and K4 also on it cut to 1917x1079; K1-mesh also on
-nine mesh instances at 480x270; the photon trace K5 at 16,384 and 131,072
-photons and on the mesh demo scene's tables; the photon gather K6 at
-1920x1080 with both maps; K7 and K8 at 1920x1080 and spp 1 on the mesh
+nine mesh instances at 480x270; the photon emission and trace K5 at 16,384
+and 131,072 photons, on an offset slice and on the mesh demo scene's
+tables, against the plain emission and bounce loop; the photon gather K6,
+added into the colour and diffuse planes in place, at 1920x1080 with both
+maps; K7 and K8 at 1920x1080 and spp 1 on the mesh
 demo scene and the demo scene, and together against K1-mesh and K1
 there; the mesh walks alone, bit-equal to the plain walks on over a
 million camera, secondary and shadow rays of the mesh demo scene and on
-the nine instances), renders a mesh whose wide
+the nine instances), renders frames past the kernels' 32-bit plane index
+in row bands (K1 at 8192x8200) and 1080p frames in forced bands (K1,
+K1-mesh, the two-phase path), bit-equal to one launch, renders a mesh whose wide
 table needs more walk stack than the kernels hold through the threaded
 instantiations (K1-mesh, K7, K8 and the walks alone, against their plain
 versions), counts each render kernel's work (the counting build: the mesh
@@ -28,14 +32,17 @@ and 480x270, the plain threaded walks' at 480x270; the DFS's lane and warp
 iterations, whose ratio is K1's SIMT share, shade calls, shadow and
 thickness rays, hits by kind and the lights their BRDF shades, all but the
 warp figure held equal to the plain version's), times both (K1 and
-K1-mesh as the launch alone, their table packing apart) and computes each
+K1-mesh as the launch alone, their table packing apart; each kernel's
+wrapper by CUDA events around back-to-back calls, and its device time
+alone by torch.profiler) and computes each
 kernel's bound (the larger of its bytes over the memory rate and its
 operations over the float32 rate: for the render kernels the shading, the
 shadow samples and the intersection tests at the counting build's counts,
 the walks' box and triangle tests included); after each path it checks the
 frames and that every kernel of the path launched; then it compares small
 frames with the CPU's plain pipeline and times each stage of a 1080p frame
-of the scenes. It prints a JSON line of the kernels, the card's name and
+of the scenes. The card's path runs no plain emission op (counted on
+ops/photon.py::_emit_photons.launches). It prints a JSON line of the kernels, the card's name and
 power limit, and as its last line {"ok": true, "device": {...}}. Each
 path launches K2, K3 and K4 once a frame.
 
@@ -118,8 +125,10 @@ SKY_OPS, HIT_OPS, OPAQUE_OPS = 110, 40, 20
 SELECT_OPS, LIGHT_OPS, AMBIENT_OPS, LIT_OPS = 37, 40, 21, 125
 GLASS_LIGHT_OPS, GLASS_CHILD_OPS, SHADOW_SAMPLE_OPS = 76, 120, 50
 # per photon bounce besides the closest hit (K5's Russian roulette, Fresnel
-# or metal lobe), and per photon scanned by the gather (K6), by hand
-PHOTON_BOUNCE_OPS, GATHER_PHOTON_OPS = 60, 30
+# or metal lobe), per photon emitted (K5's emission: the two randoms, the
+# sphere direction, the emitter plane's two normalizes and crosses, the
+# power and colour) and per photon scanned by the gather (K6), by hand
+PHOTON_BOUNCE_OPS, EMIT_OPS, GATHER_PHOTON_OPS = 60, 75, 30
 # per pixel of K2 (two bilinear fetches of 16 and 7 channels, the blends),
 # K3 (anti-firefly, then 3 passes of 8 taps) and K4 (25 taps), by hand
 REPROJECT_OPS, ATROUS_OPS, SHADOW_OPS = 370, 930, 606
@@ -270,6 +279,41 @@ def gpu_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps):
+    """(mean device ms of fn()'s work a call, over `reps` calls after a
+    warm-up; the method): the time of the CUDA kernels and copies the
+    calls ran, by torch.profiler (CUDA activity), apart from the host's
+    time in the wrappers; where the profiler records fewer device events
+    than calls (each call launches at least one kernel), CUDA events
+    around the calls with the device held back (torch.cuda._sleep) until
+    the host has queued them all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):  # a profile with fewer device events than calls is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(events) >= reps:
+            return sum(e.time_range.elapsed_us() for e in events) / reps / 1e3, "profiler"
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0  # one call's host time, the device's included
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * (0.01 + 2 * call_s * reps)))  # ~2 GHz cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, "events after a sleep"
+
+
 def timed_ms(fn):
     """(fn(), ms of that one call by CUDA events, the device synchronised)."""
     torch.cuda.synchronize()
@@ -307,12 +351,15 @@ def light_counts(sc):
     return int(direct.sum()), int(direct[:8].sum()), int(ambient.sum())
 
 
-def kernel_row(err, ms, plain_ms, nbytes, ops):
+def kernel_row(err, ms, plain_ms, nbytes, ops, dev):
+    """The kernel line's row: `ms` the wrapper's time, `dev` device_ms'
+    (ms, method) of the same call."""
     b_ms, b_by = bound(nbytes, ops)
     print(f"  bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations)"
-          f"; the kernel reaches {b_ms / ms:.4f} of it", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+          f"; device {dev[0]:.4f} ms ({dev[1]}), wrapper {ms:.4f} ms; the device time reaches "
+          f"{b_ms / dev[0]:.4f} of the bound", flush=True)
+    return dict(max_abs_err=err, ms=ms, device_ms=dev[0], plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def same_bits(a, b):
@@ -438,25 +485,95 @@ def time_two_phase(label, MK, R, TP, sc, cfg, aperture):
     t["sort"] = gpu_ms(lambda: TP.coherence_order(a), 3)
     t["k8"] = gpu_ms(lambda: MK.render_phase_b(sc, cfg, order, count, acc, a[R.CH_HIT:],
                                                tables), 3)
+    t["k7_dev"] = device_ms(lambda: MK.render_phase_a(sc, cfg, tables), 3)
+    t["sort_dev"] = device_ms(lambda: TP.coherence_order(a), 3)
+    t["k8_dev"] = device_ms(lambda: MK.render_phase_b(sc, cfg, order, count, acc, a[R.CH_HIT:],
+                                                      tables), 3)
     t["two_phase"] = gpu_ms(lambda: TP.render_accum_two_phase(sc, cfg, aperture), 3)
     t["k1_again"] = gpu_ms(lambda: MK.render_accum(sc, cfg), 3)
     t["sum"] = t["k7"] + t["sort"] + t["k8"]
-    print(f"phase 4 time {label} {cfg.width}x{cfg.height} spp 1: K7 {t['k7']:.4f} ms, key + "
-          f"sort {t['sort']:.4f} ms, K8 {t['k8']:.4f} ms, sum {t['sum']:.4f} ms; "
+    print(f"phase 4 time {label} {cfg.width}x{cfg.height} spp 1: K7 {t['k7']:.4f} ms (device "
+          f"{t['k7_dev'][0]:.4f}), key + sort {t['sort']:.4f} ms (device {t['sort_dev'][0]:.4f}), "
+          f"K8 {t['k8']:.4f} ms (device {t['k8_dev'][0]:.4f}), sum {t['sum']:.4f} ms; "
           f"render_accum_two_phase (packing included) {t['two_phase']:.4f} ms; K1 (packing "
           f"included) {t['k1']:.4f} ms before, {t['k1_again']:.4f} ms after", flush=True)
     return t
 
 
-def check_k5(label, PP, PK, sc, n):
-    """K5 against its plain bounce loop on n photons of scene `sc`: store
-    masks equal photon for photon, each store field bit-equal or within
-    STORE_ATOL. Returns the kernel_row (times: the wrapper as the main path
-    calls it, its scene packing included, mean of 20; the plain loop, mean
-    of 3)."""
-    em = PP._emit_photons(sc, n)
-    idx = torch.arange(n, dtype=torch.int32, device=sc.cam_pos.device)
-    got = PK.trace_photons(sc, *em, idx)
+def check_bands(P, D, MK, R, TP, sc, cfg, msc, mcfg, maperture):
+    """Row bands (ROADMAP C10). At 1080p, with a limit that forces 4 bands:
+    K1 on the demo scene and K1-mesh on the mesh demo scene (spp 2), and
+    the two-phase path on the mesh demo scene (spp 1, K7, the sort and K8
+    per band), each bit-equal to one launch. Then K1 at 8192x8200, spp 1,
+    whose planes pass 2**31 floats: a launch a band (two), the frame's
+    planes first filled with NaN by a tensor freed just before (the
+    caching allocator hands its block to them), none left, and the frame
+    bit-equal to the same frame in three bands."""
+    limit = R.NUM_CH_A * FULL_W * 300
+    for label, s_, c_, k in (("K1, demo scene", sc, cfg, MK.render_accum),
+                             ("K1-mesh, mesh demo scene", msc, mcfg, MK.render_accum_mesh)):
+        one = MK.render_accum(s_, c_)
+        before = k.launches
+        banded = MK.render_accum(s_, c_, limit=limit)
+        n = k.launches - before
+        same = same_bits(banded, one)
+        print(f"phase 4 bands {label} {FULL_W}x{FULL_H} spp {c_.samples_per_pixel}: {n} bands, "
+              f"bit-equal to one launch {same}", flush=True)
+        if not same or n < 2:
+            raise AssertionError(f"{label}: the banded frame differs from one launch")
+    c1 = mcfg._replace(samples_per_pixel=1)
+    one = TP.render_accum_two_phase(msc, c1, maperture)
+    before = (MK.render_phase_a.launches, MK.render_phase_b.launches)
+    banded = TP.render_accum_two_phase(msc, c1, maperture, limit=limit)
+    n = (MK.render_phase_a.launches - before[0], MK.render_phase_b.launches - before[1])
+    same = same_bits(banded, one)
+    print(f"phase 4 bands two-phase, mesh demo scene {FULL_W}x{FULL_H} spp 1: {n} bands (K7, K8), "
+          f"bit-equal to one pass {same}", flush=True)
+    if not same or min(n) < 2:
+        raise AssertionError("the banded two-phase frame differs from one pass")
+    del one, banded
+
+    w8, h8 = 8192, 8200
+    scene = demo_scene(D, 0)
+    s8 = P.to_device(P.flatten_scene(P.sanitize_scene(scene), aspect=w8 / h8), "cuda")
+    c8 = P.make_config(scene, w8, h8, **SPP1)
+    bands = MK.row_bands(w8, h8, R.NUM_CH)
+    sentinel = torch.full((R.NUM_CH, h8, w8), float("nan"), device="cuda")
+    del sentinel
+    before = MK.render_accum.launches
+    big, k_ms = timed_ms(lambda: MK.render_accum(s8, c8))
+    n = MK.render_accum.launches - before
+    nan_free = not bool(torch.isnan(big).any())
+    last_finite = bool(torch.isfinite(big[:, bands[-1][0]:]).all())
+    three = MK.render_accum(s8, c8, limit=R.NUM_CH * w8 * 3000)
+    same = same_bits(big, three)
+    print(f"phase 4 bands K1 {w8}x{h8} spp 1 ({R.NUM_CH * w8 * h8} plane floats): bands {bands}, "
+          f"{n} launches, {k_ms:.1f} ms; no NaN left {nan_free}, the last band finite "
+          f"{last_finite}, {int(big[R.CH_RAYS].double().sum())} rays; bit-equal to three bands "
+          f"{same}", flush=True)
+    if not (n == len(bands) >= 2 and nan_free and last_finite and same):
+        raise AssertionError(f"K1 at {w8}x{h8} in row bands failed")
+    del big, three
+    torch.cuda.empty_cache()
+
+
+def check_k5(label, PP, PK, sc, tables, total, offset=0, count=None):
+    """K5 (emission and the bounce loop in one launch, on the frame's
+    tables) against the plain emission and bounce loop on photons [offset,
+    offset+count) of a total-photon batch of scene `sc`: store masks equal
+    photon for photon and at least one photon stored, each store field
+    bit-equal or within STORE_ATOL; no plain emission op runs for the
+    kernel. Returns the kernel_row (the
+    wrapper as the main path calls it, mean of 20; its device time; the
+    plain pair, mean of 3)."""
+    count = total - offset if count is None else count
+    dev = sc.cam_pos.device
+    emitted = PP._emit_photons.launches
+    got = PK.emit_and_trace(sc, total, offset, count, tables)
+    if PP._emit_photons.launches != emitted:
+        raise AssertionError("K5's wrapper ran the plain emission")
+    em = PP._emit_photons(sc, total, offset, count)
+    idx = torch.arange(count, dtype=torch.int32, device=dev) + offset
     want = PP._trace_photons(sc, *em, idx)
     torch.cuda.synchronize()
     m = want[4]
@@ -464,59 +581,89 @@ def check_k5(label, PP, PK, sc, n):
     same = [torch.equal(got[c], want[c]) for c in range(4)]
     errs = [float((got[c][m] - want[c][m]).abs().max()) if bool(m.any()) else 0.0
             for c in range(4)]
+    off_bits = [int((got[c][m] != want[c][m]).reshape(int(m.sum()), -1).any(1).sum())
+                for c in range(4)]
     within = all(bool(((got[c][m] - want[c][m]).abs() <= atol + 1e-3 * want[c][m].abs()).all())
                  for c, atol in enumerate(STORE_ATOL))
-    print(f"phase 4 K5 {label}, {n} photons: stored kernel {int(got[4].sum())} plain "
-          f"{int(m.sum())}, masks equal {masks}, fields bit-equal {same}, max |d| {errs}",
-          flush=True)
+    print(f"phase 4 K5 {label}, photons [{offset}, {offset + count}) of {total}: stored kernel "
+          f"{int(got[4].sum())} plain {int(m.sum())}, masks equal {masks}, fields (position, "
+          f"direction, colour, power) bit-equal {same}, stored photons off in their bits "
+          f"{off_bits}, max |d| {errs}", flush=True)
     if not (masks and within and int(m.sum()) > 0):
-        raise AssertionError(f"K5 disagrees with its plain bounce loop ({label}, {n} photons)")
-    ms = gpu_ms(lambda: PK.trace_photons(sc, *em, idx), 20)
-    plain_ms = gpu_ms(lambda: PP._trace_photons(sc, *em, idx), 3)
+        raise AssertionError(f"K5 disagrees with its plain emission and bounce loop ({label}, "
+                             f"photons [{offset}, {offset + count}) of {total})")
+    ms = gpu_ms(lambda: PK.emit_and_trace(sc, total, offset, count, tables), 20)
+    dev_ms = device_ms(lambda: PK.emit_and_trace(sc, total, offset, count, tables), 20)
+    plain_ms = gpu_ms(lambda: PP._trace_photons(sc, *PP._emit_photons(sc, total, offset, count),
+                                                idx), 3)
     # bounces the kernel traces: the photons alive entering each bounce
     s, bounces = PP._initial_state(*em), 0
     for depth in range(4):
         bounces += int(s.alive.sum())
         s = PP._bounce(sc._replace(mesh=None), s, idx, depth)
     # the primitive tables every closest hit reads, the material rows of the
-    # valid primitives (the only ones a photon can hit), 45 bytes a photon
-    # in and 41 out
+    # valid primitives (the only ones a photon can hit), the light rows,
+    # the light count, and 41 bytes a photon out
     valid = int(sc.sph_valid.sum()) + int(sc.pln_valid.sum()) + int(sc.box_valid.sum())
     nbytes = 4 * (5 * sc.sphere_capacity + 7 * sc.plane_capacity + 16 * sc.box_capacity
-                  + 16 * valid) + n * (45 + 41)
-    print(f"  photon_trace: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, {bounces} bounces",
+                  + 16 * valid + 12 * sc.light_capacity + 1) + count * 41
+    print(f"  photon_trace {label}: wrapper {ms:.4f} ms, device {dev_ms[0]:.4f} ms "
+          f"({dev_ms[1]}); plain emission and loop {plain_ms:.3f} ms; {bounces} bounces",
           flush=True)
     return kernel_row(max(errs), ms, plain_ms, nbytes,
-                      bounces * (closest_ops(sc) + PHOTON_BOUNCE_OPS))
+                      count * EMIT_OPS + bounces * (closest_ops(sc) + PHOTON_BOUNCE_OPS),
+                      dev_ms)
+
+
+def check_k5_slice(PK, sc, tables, total, offset, count):
+    """A slice of the batch equals the same rows of the whole, bit for bit."""
+    part = PK.emit_and_trace(sc, total, offset, count, tables)
+    whole = PK.emit_and_trace(sc, total, 0, total, tables)
+    same = all(torch.equal(a, b[offset:offset + count]) for a, b in zip(part, whole))
+    print(f"phase 4 K5 slice [{offset}, {offset + count}) of {total}: equal to the whole "
+          f"batch's rows {same}", flush=True)
+    if not same:
+        raise AssertionError("K5's slice differs from the whole batch's rows")
 
 
 def check_k6(label, PP, PK, R, pmap, acc, spp):
-    """K6 against its plain version on accumulator planes `acc`: |d| <=
-    1e-5 * max(1, |plain|). Returns the kernel_row (kernel mean of 20,
-    plain one run) and the delta."""
-    got = PK.gather(pmap, acc, spp)
-    want, plain_ms = timed_ms(lambda: PP.caustics_delta(pmap, acc, spp))
-    d = (got - want).abs()
+    """K6 (the caustic added into the colour and diffuse planes in place)
+    against its plain version (the same add, ops/photon.py::add_caustics)
+    on two copies of the accumulator planes `acc`: colour and diffuse |d|
+    <= 1e-5 * max(1, |plain|), every other plane's bits kept. Returns the
+    kernel_row (the wrapper mean of 20, the device time, the plain version
+    one run)."""
+    got, want = acc.clone(), acc.clone()
+    PK.add_caustics(pmap, got, spp)
+    _, plain_ms = timed_ms(lambda: PP.add_caustics(pmap, want, spp))
+    cd = [c for r in (R.CH_COLOR, R.CH_DIFFUSE) for c in range(r, r + 3)]  # K6 adds into these
+    others = [c for c in range(R.NUM_CH) if c not in cd]
+    d = (got[cd] - want[cd]).abs()
     err = float(d.max())
-    ok = bool((d <= 1e-5 * want.abs().clamp(min=1.0)).all())
-    lit = float((want.abs().amax(0) > 0).float().mean())
+    ok = bool((d <= 1e-5 * want[cd].abs().clamp(min=1.0)).all())
+    kept = same_bits(got[others], acc[others])
+    lit = float((want[R.CH_COLOR:R.CH_COLOR + 3] != acc[R.CH_COLOR:R.CH_COLOR + 3]).any(0)
+                .float().mean())
     print(f"phase 4 K6 {label} {acc.shape[2]}x{acc.shape[1]}, {int(pmap.count)} stored photons: "
-          f"max |d| {err:.3g} (within 1e-5 relative: {ok}), caustic on {lit:.5f} of pixels, "
-          f"max {float(want.max()):.4g}", flush=True)
-    if not ok or lit == 0.0:
+          f"colour and diffuse max |d| {err:.3g} (within 1e-5 relative: {ok}), the other "
+          f"{len(others)} planes' bits kept {kept}, caustic on {lit:.5f} of pixels", flush=True)
+    if not (ok and kept) or lit == 0.0:
         raise AssertionError(f"K6 disagrees with its plain version ({label})")
-    ms = gpu_ms(lambda: PK.gather(pmap, acc, spp), 20)
+    work = acc.clone()  # the timed calls add into it again and again
+    ms = gpu_ms(lambda: PK.add_caustics(pmap, work, spp), 20)
+    dev = device_ms(lambda: PK.add_caustics(pmap, work, spp), 20)
     nbytes, visits = gather_work(PP, R, pmap, acc)
-    print(f"  photon_gather: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, {visits} photon "
-          f"visits", flush=True)
-    return kernel_row(err, ms, plain_ms, nbytes, visits * GATHER_PHOTON_OPS), want
+    print(f"  photon_gather: wrapper {ms:.4f} ms, device {dev[0]:.4f} ms ({dev[1]}), plain "
+          f"{plain_ms:.3f} ms, {visits} photon visits", flush=True)
+    return kernel_row(err, ms, plain_ms, nbytes, visits * GATHER_PHOTON_OPS, dev)
 
 
 def gather_work(PP, R, pmap, acc):
     """(bytes, photon visits) that K6 needs on these inputs, each input read
     once: the hit plane at every pixel, metallic where there is a hit,
     transmission where the hit is not metal, position and normal at the
-    eligible pixels, the 3 output planes; the cell ranges of the hash slots
+    eligible pixels, colour and diffuse read and written at the pixels the
+    caustic lights (no other plane is written); the cell ranges of the hash slots
     its walks reach, and of the photons they scan, the valid flag, then
     position and direction of the valid ones, colour and power of the
     accepted ones. The walks are ops/photon.py::gather's steps, cut by the
@@ -525,8 +672,10 @@ def gather_work(PP, R, pmap, acc):
     diffuse = hit & (acc[R.CH_METALLIC] < 0.5)
     elig = (diffuse & (acc[R.CH_TRANSMISSION] <= 0.01)).reshape(-1)
     px = hit.numel()
-    plane_floats = px + int(hit.sum()) + int(diffuse.sum()) + 6 * int(elig.sum()) + 3 * px
     pos = acc[R.CH_POS:R.CH_POS + 3].reshape(3, -1).T[elig]
+    lit = int((PP._gather_weighted(pmap, pos, acc[R.CH_NORMAL:R.CH_NORMAL + 3].reshape(3, -1)
+                                   .T[elig])[1] > 0.0).sum())
+    plane_floats = px + int(hit.sum()) + int(diffuse.sum()) + 6 * int(elig.sum()) + 12 * lit
     base = torch.floor(pos / torch.clamp(pmap.radius * 2.0, min=1e-4)).to(torch.int32)
     slots = torch.stack([PP.hash_cell(base[:, 0] + x, base[:, 1] + y, base[:, 2] + z)
                          for x, y, z in PP.CELL_OFFSETS], dim=1).long()
@@ -565,12 +714,13 @@ def gather_work(PP, R, pmap, acc):
 def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES,
                 two_phase=False):
     """Host ms of each stage of Engine.render's 1080p frame (runtime/engine.py::
-    render_frame, ops/render_cf.py::apply_caustics_cf and post/denoise.py::
-    denoise_frame_cf, stage by stage), the device synchronised before and
-    after each, over `frames` orbiting frames of build(D, frame). With
-    meshes, update_scene includes the BVH work: the SAH build on frame 0, a
-    retransform after it. With two_phase, the render is
-    ops/twophase.py::render_accum_two_phase's steps."""
+    render_frame, ops/render_cf.py::render_rows_cf and apply_caustics_cf,
+    and post/denoise.py::denoise_frame_cf, stage by stage), the device
+    synchronised before and after each, over `frames` orbiting frames of
+    build(D, frame). With meshes, update_scene includes the BVH work: the
+    SAH build on frame 0, a retransform after it. The tables are packed
+    once a frame, for the render kernels and K5. With two_phase, the
+    render is ops/twophase.py::render_accum_two_phase's steps."""
     from raytracevs_tpu_torch.ops import photon as PP
     from raytracevs_tpu_torch.ops import render as R
     from raytracevs_tpu_torch.ops import twophase as TP
@@ -596,29 +746,24 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
         stage("update_scene: sanitize, flatten, to_device (host)",
               lambda: eng.update_scene(build(D, f), **overrides))
         sc, cfg = eng._scene_t, eng._cfg
+        tables = stage("pack_tables (plain torch, once a frame)", lambda: MK.pack_tables(sc))
         if two_phase:
-            tables = stage("pack_tables (plain torch)", lambda: MK.pack_tables(sc))
             a = stage("K7 render_phase_a", lambda: MK.render_phase_a(sc, cfg, tables))
             order, count = stage("coherence key + torch.sort", lambda: TP.coherence_order(a))
             acc = stage("K8 render_phase_b", lambda: MK.render_phase_b(
                 sc, cfg, order, count, a[:R.NUM_CH], a[R.CH_HIT:], tables))
         else:
-            acc = stage("K1 render_accum (incl. table packing)",
-                        lambda: MK.render_accum(sc, cfg))
-        planes = accum_dict(acc)
+            acc = stage("K1 render_accum", lambda: MK.render_accum(sc, cfg, tables=tables))
         if cfg.num_photons:
             n = cfg.num_photons
-            em = stage("photon emission (plain torch)", lambda: PP._emit_photons(sc, n))
-            idx = torch.arange(n, dtype=torch.int32, device=eng.device)
-            stores = stage("K5 photon_trace (incl. table packing)",
-                           lambda: PK.trace_photons(sc, *em, idx))
+            stores = stage("K5 emit_and_trace (emission in the kernel)",
+                           lambda: PK.emit_and_trace(sc, n, 0, n, tables))
             pmap = stage("build_photon_hash (torch sort, searchsorted)",
                          lambda: PP.build_photon_hash(*stores))
-            delta = stage("K6 photon_gather", lambda: PK.gather(pmap, acc, cfg.samples_per_pixel))
-            planes = stage("caustics fold-in (plain torch)", lambda: dict(
-                planes, color=planes["color"] + delta, diffuse=planes["diffuse"] + delta))
+            stage("K6 add_caustics (into the planes)",
+                  lambda: PK.add_caustics(pmap, acc, cfg.samples_per_pixel))
         out = stage("assemble_frame_cf (plain torch)",
-                    lambda: assemble_frame_cf(sc, cfg, planes))
+                    lambda: assemble_frame_cf(sc, cfg, accum_dict(acc)))
         gb = out.gbuffer
         sqrt_rough = gb.normal_roughness[3]
         curr = stage("reblur_prepass (plain torch)", lambda: PD.reblur_prepass(
@@ -1080,12 +1225,14 @@ def main():
     tables = MK.pack_tables(sc)
     k1_ms = gpu_ms(lambda: MK.render_accum(sc, cfg, tables=tables), 10)
     pack_ms = gpu_ms(lambda: MK.pack_tables(sc), 10)
+    k1_dev = device_ms(lambda: MK.render_accum(sc, cfg, tables=tables), 10)
     k1_plain_ms = gpu_ms(lambda: R.render_accum(sc, cfg), 1)
     print(f"  render_accum: kernel {k1_ms:.4f} ms (the launch alone), pack_tables {pack_ms:.4f} "
           f"ms, plain {k1_plain_ms:.3f} ms", flush=True)
     out_bytes = R.NUM_CH * FULL_H * FULL_W * 4
     results["render_accum"] = dict(
-        kernel_row(k1_err, k1_ms, k1_plain_ms, out_bytes, render_ops(R, sc, k1_counts[2])),
+        kernel_row(k1_err, k1_ms, k1_plain_ms, out_bytes, render_ops(R, sc, k1_counts[2]),
+                   k1_dev),
         pack_tables_ms=pack_ms)
 
     # K2-K4 on the G-buffers of two orbiting 1080p frames
@@ -1115,19 +1262,24 @@ def main():
             ("shadow_denoise", k4_err, K.shadow_denoise, PD.shadow_denoise, k4_args, 2,
              SHADOW_OPS)):
         ms = gpu_ms(lambda: kern(*args), 20)
+        dev_t = device_ms(lambda: kern(*args), 20)
         plain_ms = gpu_ms(lambda: plain(*args), 5)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         nbytes = sum(a.nbytes for a in args) + out_planes * px * 4
-        results[name] = kernel_row(err, ms, plain_ms, nbytes, px * ops)
+        results[name] = kernel_row(err, ms, plain_ms, nbytes, px * ops, dev_t)
     del k2_args, new_state, k3_args, k4_args
 
-    # K5 on the demo scene at its budget and at the reference's safe cap;
-    # K6 at 1080p on the primary planes of a caustics demo frame, both maps
+    # K5 on the demo scene's tables at its budget and at the reference's
+    # safe cap, and on an offset slice; K6 at 1080p on the primary planes
+    # of a caustics demo frame, both maps
     ccfg = P.make_config(scene, FULL_W, FULL_H, **CAUSTICS)
-    rows = [check_k5("demo scene", PP, PK, sc, n) for n in (ccfg.num_photons, 131072)]
+    rows = [check_k5("demo scene", PP, PK, sc, tables, n) for n in (ccfg.num_photons, 131072)]
+    rows.append(check_k5("demo scene, a slice", PP, PK, sc, tables, ccfg.num_photons, 5000, 3000))
+    check_k5_slice(PK, sc, tables, ccfg.num_photons, 5000, 3000)
     acc = MK.render_accum(sc, ccfg)
-    gathers = [check_k6(f"demo scene, {n}-photon map", PP, PK, R, PP.emit_and_trace(sc, n), acc,
-                        ccfg.samples_per_pixel)[0] for n in (ccfg.num_photons, 131072)]
+    gathers = [check_k6(f"demo scene, {n}-photon map", PP, PK, R,
+                        PP.emit_and_trace(sc, n, tables), acc, ccfg.samples_per_pixel)
+               for n in (ccfg.num_photons, 131072)]
     results["photon_gather"] = dict(gathers[0], max_abs_err=max(r["max_abs_err"] for r in gathers))
     del acc
 
@@ -1156,6 +1308,7 @@ def main():
     mk_err, _, mk_plain_ms, _ = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg, mk_plain_counts)
     mtables = MK.pack_tables(msc)
     mk_ms = gpu_ms(lambda: MK.render_accum(msc, mcfg, tables=mtables), 5)
+    mk_dev = device_ms(lambda: MK.render_accum(msc, mcfg, tables=mtables), 5)
     mpack_ms = gpu_ms(lambda: MK.pack_tables(msc), 10)
     print(f"  render_accum_mesh: kernel {mk_ms:.4f} ms (the launch alone, mean of 5), "
           f"pack_tables {mpack_ms:.4f} ms, plain {mk_plain_ms:.3f} ms (one run)", flush=True)
@@ -1164,6 +1317,10 @@ def main():
                                       mesh_service=mesh_service({"Ball": (24, 32, 0.3)})), dev)
     ncfg = P.make_config(nscene, 480, 270)
     n_err, _, _, _ = check_k1("phase 4 K1-mesh, nine instances,", MK, R, nsc, ncfg)
+
+    # frames past the kernels' 32-bit plane index render in row bands; at
+    # 1080p, forced bands are bit-equal to one launch
+    check_bands(P, D, MK, R, TP, sc, cfg, msc, mcfg, float(mflat.aperture_size))
 
     # the mesh walks alone against the plain walks, bit for bit: the mesh
     # demo scene's rays at 1080p and the nine instances' at 480x270
@@ -1215,10 +1372,11 @@ def main():
         raise AssertionError("K8 walked primary rays again")
     results["render_accum_mesh"] = dict(kernel_row(
         max(mk_err, n_err, deep_err), mk_ms, mk_plain_ms, out_bytes,
-        render_ops(R, msc, counts[("K1-mesh spp 2", "1920x1080")])), pack_tables_ms=mpack_ms)
+        render_ops(R, msc, counts[("K1-mesh spp 2", "1920x1080")]), mk_dev),
+        pack_tables_ms=mpack_ms)
     # K5 on the mesh demo scene's tables: the instance material rows stay,
     # and the light table follows them
-    rows.append(check_k5("mesh demo scene", PP, PK, msc, ccfg.num_photons))
+    rows.append(check_k5("mesh demo scene", PP, PK, msc, mtables, ccfg.num_photons))
     results["photon_trace"] = dict(rows[0], max_abs_err=max(r["max_abs_err"] for r in rows))
 
     # K7 and K8 against their plain versions at 1080p, spp 1: on the mesh
@@ -1252,14 +1410,16 @@ def main():
     # the counting build's counts
     results["render_phase_a"] = kernel_row(
         max(a_err, ma_err), t["k7"], pa_ms, R.NUM_CH_A * px * 4,
-        render_ops(R, msc, counts[("K7 spp 1", "1920x1080")]))
+        render_ops(R, msc, counts[("K7 spp 1", "1920x1080")]), t["k7_dev"])
     results["render_phase_b"] = kernel_row(
-        max(b_err, mb_err), t["k8"], pb_ms, 4 + 72 * mresumed, render_ops(R, msc, k8c))
+        max(b_err, mb_err), t["k8"], pb_ms, 4 + 72 * mresumed, render_ops(R, msc, k8c),
+        t["k8_dev"])
     # the coherence sort between them (a library call, no kernel of the
     # port): its 2,073,600 int32 keys and indices, each read and written
     sort_ms, sort_by = bound(4 * 4 * px, 0)
-    print(f"  coherence key + torch.sort: {t['sort']:.4f} ms, bound {sort_ms:.4f} ms by "
-          f"{sort_by} ({4 * 4 * px / 1e6:.1f} MB)", flush=True)
+    print(f"  coherence key + torch.sort: {t['sort']:.4f} ms, device {t['sort_dev'][0]:.4f} ms "
+          f"({t['sort_dev'][1]}), bound {sort_ms:.4f} ms by {sort_by} ({4 * 4 * px / 1e6:.1f} MB)",
+          flush=True)
     for name, nbytes, ops in (("K7", R.NUM_CH_A * px * 4, render_ops(R, sc, k7d)),
                               ("K8", 4 + 72 * resumed, render_ops(R, sc, k8d))):
         b_ms, b_by = bound(nbytes, ops)
@@ -1271,7 +1431,7 @@ def main():
     counters = {"render_accum": MK.render_accum, "reproject_accumulate": K.reproject_accumulate,
                 "atrous": K.atrous, "shadow_denoise": K.shadow_denoise,
                 "render_accum_mesh": MK.render_accum_mesh,
-                "photon_trace": PK.trace_photons, "photon_gather": PK.gather,
+                "photon_trace": PK.emit_and_trace, "photon_gather": PK.add_caustics,
                 "render_phase_a": MK.render_phase_a, "render_phase_b": MK.render_phase_b}
     launches, aeng = run_engine(P, D, "analytic", demo_scene, counters)
     if launches["render_accum"] < FRAMES:
@@ -1282,8 +1442,12 @@ def main():
         raise AssertionError(f"render_accum_mesh launched {mesh_launches['render_accum_mesh']} "
                              f"times in {FRAMES} mesh frames")
     launches["render_accum_mesh"] = mesh_launches["render_accum_mesh"]
+    PP._emit_photons.launches = 0
     caustics_launches, ceng = run_engine(P, D, "caustics", demo_scene, counters,
                                          overrides=CAUSTICS)
+    print(f"phase 5 caustics: plain emission calls {PP._emit_photons.launches}", flush=True)
+    if PP._emit_photons.launches:
+        raise AssertionError("the card's caustics path ran the plain emission")
     for name in ("render_accum", "photon_trace", "photon_gather"):
         if caustics_launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {caustics_launches[name]} times in {FRAMES} "
@@ -1304,7 +1468,8 @@ def main():
     color = acc[R.CH_COLOR:R.CH_COLOR + 3]
     inv = 1.0 / ccfg.samples_per_pixel
     plain = color * inv
-    want = (color + PK.gather(pmap, acc, ccfg.samples_per_pixel)) * inv
+    lit_acc = PK.add_caustics(pmap, acc.clone(), ccfg.samples_per_pixel)
+    want = lit_acc[R.CH_COLOR:R.CH_COLOR + 3] * inv
     errs = [float((a - b).abs().max()) for a, b in ((hdr, want), (ahdr, plain))]
     print(f"phase 5 caustics: {ccfg.num_photons} photons, {int(pmap.count)} stored; the last "
           f"frame's caustic lights {lit:.5f} of its pixels, adds up to "

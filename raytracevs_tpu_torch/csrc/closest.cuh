@@ -13,7 +13,7 @@ constexpr int STACK_DEPTH = 8;
 constexpr int INVALID = 0x7FFFFFFF;
 constexpr int TYPE_SPHERE = 0, TYPE_PLANE = 1, TYPE_BOX = 2, TYPE_MESH = 3;
 constexpr int LEAF_SIZE = 4, NODE_END = -1;
-constexpr int LIGHT_AMBIENT = 0, LIGHT_DIRECTIONAL = 2;
+constexpr int LIGHT_AMBIENT = 0, LIGHT_POINT = 1, LIGHT_DIRECTIONAL = 2;
 constexpr int PATH_FLAG_INSIDE = 1, PATH_FLAG_SPECULAR = 2;
 constexpr uint32_t SALT_SHADOW = 6, SALT_REFLECT = 7, SALT_REFRACT = 8;
 constexpr float BIG = 1e30f;
@@ -28,8 +28,13 @@ constexpr int P_CAMPOS = 0, P_FWD = 3, P_RIGHT = 6, P_UP = 9, P_TANFOV = 12, P_A
               P_FOCUS = 14, P_SHADOW_STRENGTH = 15, P_ABSORB_SCALE = 16, P_ATTEN_C = 17,
               P_ATTEN_L = 18, P_ATTEN_Q = 19;
 
+// width and height are the frame's (the camera rays and the RNG keys use
+// them); row0 and rows the row band a launch renders (ops/cuda/
+// megakernel.py::row_bands), whose planes it writes: the whole frame, or
+// one band of a frame whose planes pass a 32-bit index.
 struct Cfg {
   int width, height;
+  int row0, rows;
   int S, P, B, L;
   int spp, max_bounces, max_iters, max_soft;
   bool has_lights, any_glass, any_metal, any_absorption;
@@ -587,6 +592,8 @@ Cfg make_cfg(int width, int height, int S, int P, int B, int L, int spp, int max
   Cfg c;
   c.width = width;
   c.height = height;
+  c.row0 = 0;
+  c.rows = height;
   c.S = S;
   c.P = P;
   c.B = B;
@@ -600,6 +607,13 @@ Cfg make_cfg(int width, int height, int S, int P, int B, int L, int spp, int max
   c.any_metal = flags & 4;
   c.any_absorption = flags & 8;
   c.aspect = aspect;
+  return c;
+}
+
+// c with the row band [row0, row0 + rows) of its frame
+Cfg band_cfg(Cfg c, int row0, int rows) {
+  c.row0 = row0;
+  c.rows = rows;
   return c;
 }
 

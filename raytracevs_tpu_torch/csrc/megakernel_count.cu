@@ -16,8 +16,7 @@
 
 // rtvs_render_accum's arguments, then counts [COUNT_ROWS][4] uint64 (added to)
 extern "C" int rtvs_render_accum_count(ACCUM_PARAMS, unsigned long long* counts, void* stream) {
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
   sc.counts = counts;
   return launch_accum<MODE_COUNT, false>(c, sc, itab, out, stream);
@@ -27,8 +26,7 @@ extern "C" int rtvs_render_accum_count(ACCUM_PARAMS, unsigned long long* counts,
 extern "C" int rtvs_render_phase_a_count(ACCUM_PARAMS, unsigned long long* counts,
                                          void* stream) {
   if (spp != 1) return (int)cudaErrorInvalidValue;
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
   sc.counts = counts;
   return launch_accum<MODE_COUNT, true>(c, sc, itab, out, stream);
@@ -38,8 +36,7 @@ extern "C" int rtvs_render_phase_a_count(ACCUM_PARAMS, unsigned long long* count
 extern "C" int rtvs_render_phase_b_count(PHASE_B_PARAMS, unsigned long long* counts,
                                          void* stream) {
   if (spp != 1) return (int)cudaErrorInvalidValue;
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);
   sc.counts = counts;
   return launch_phase_b<MODE_COUNT>(c, sc, itab, order, count, hits, lanes, acc, stream);
@@ -49,8 +46,7 @@ extern "C" int rtvs_render_phase_b_count(PHASE_B_PARAMS, unsigned long long* cou
 extern "C" int rtvs_render_accum_mesh_count(ACCUM_PARAMS, MESH_PARAMS, int threaded,
                                             unsigned long long* counts, void* stream) {
   if (threaded) return render_accum_threaded(false, ACCUM_ARGS, MESH_ARGS, counts, stream);
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, counts);
   return launch_accum<MODE_MESH | MODE_COUNT, false>(c, sc, itab, out, stream);
 }
@@ -60,8 +56,7 @@ extern "C" int rtvs_render_phase_a_mesh_count(ACCUM_PARAMS, MESH_PARAMS, int thr
                                               unsigned long long* counts, void* stream) {
   if (threaded) return render_accum_threaded(true, ACCUM_ARGS, MESH_ARGS, counts, stream);
   if (spp != 1) return (int)cudaErrorInvalidValue;
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, counts);
   return launch_accum<MODE_MESH | MODE_COUNT, true>(c, sc, itab, out, stream);
 }
@@ -71,8 +66,7 @@ extern "C" int rtvs_render_phase_b_mesh_count(PHASE_B_PARAMS, MESH_PARAMS, int t
                                               unsigned long long* counts, void* stream) {
   if (threaded) return render_phase_b_threaded(PHASE_B_ARGS, MESH_ARGS, counts, stream);
   if (spp != 1) return (int)cudaErrorInvalidValue;
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, counts);
   return launch_phase_b<MODE_MESH | MODE_COUNT>(c, sc, itab, order, count, hits, lanes, acc,
                                                 stream);

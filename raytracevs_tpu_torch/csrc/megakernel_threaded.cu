@@ -16,8 +16,7 @@ constexpr int THREADED = MODE_MESH | MODE_THREADED;
 int render_accum_threaded(bool phase_a, ACCUM_PARAMS, MESH_PARAMS, unsigned long long* counts,
                           void* stream) {
   if (phase_a && spp != 1) return (int)cudaErrorInvalidValue;
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, counts);
   if (counts != nullptr)
     return phase_a ? launch_accum<THREADED | MODE_COUNT, true>(c, sc, itab, out, stream)
@@ -29,8 +28,7 @@ int render_accum_threaded(bool phase_a, ACCUM_PARAMS, MESH_PARAMS, unsigned long
 int render_phase_b_threaded(PHASE_B_PARAMS, MESH_PARAMS, unsigned long long* counts,
                             void* stream) {
   if (spp != 1) return (int)cudaErrorInvalidValue;
-  Cfg c = make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,
-                   aspect);
+  Cfg c = ENTRY_CFG;
   Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, counts);
   if (counts != nullptr)
     return launch_phase_b<THREADED | MODE_COUNT>(c, sc, itab, order, count, hits, lanes, acc,

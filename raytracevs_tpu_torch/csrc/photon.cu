@@ -1,20 +1,33 @@
 // K5 and K6: the photon-mapped caustics kernels for Hopper (sm_90a).
 //
 // K5 (rtvs_photon_trace) replaces the Pallas TPU kernel raytracevs_tpu/ops/
-// pallas/photon_trace.py::_photon_kernel (launched by trace_photons_pallas):
-// the 4-bounce photon loop over the analytic primitives with Russian
-// roulette, the Fresnel glass choice, roughness-lerped metal and the store
-// at the first diffuse hit after a specular one. Its plain version is
-// raytracevs_tpu_torch/ops/photon.py::_trace_photons; the closest hit is
-// K1's own (closest.cuh: trace_closest<0>, the isect_* tests and
-// box_face_normal), so photons and camera rays see the same surfaces.
-// Design: one thread per photon, the loop in registers, the thread retires
-// when its photon dies. On the TPU the photons were [32,128] tiles walked
-// in lockstep. What bounds it: the 45 bytes a photon reads and the 41 it
-// writes (the scene tables stay in L1); the intersection arithmetic per
-// bounce is a few hundred operations, far below the card's rate at 16k to
-// 131k photons. At these counts a launch fills the card only partly
-// (16,384 threads = 64 blocks of 256 on 132 SMs), so latency rules.
+// pallas/photon_trace.py::_photon_kernel (launched by trace_photons_pallas)
+// and the jnp emission in front of it (raytracevs_tpu/ops/photon.py::
+// _emit_photons): each thread emits its photon from the lights in
+// registers (the light chosen by its global index, the two randoms, a point
+// light's sphere direction and 4 pi power, a directional light's emitter
+// plane 50 units back) and runs the 4-bounce loop over the analytic
+// primitives with Russian roulette, the Fresnel glass choice,
+// roughness-lerped metal and the store at the first diffuse hit after a
+// specular one. Its plain version is raytracevs_tpu_torch/ops/photon.py::
+// _emit_photons followed by _trace_photons, operation for operation; the
+// closest hit is K1's own (closest.cuh: trace_closest<0>, the isect_* tests
+// and box_face_normal), so photons and camera rays see the same surfaces.
+// It reads the scene from the frame's one table pack (pack_tables, which
+// K1 uses too): the light count from itab, no host sync. On the TPU the
+// photons were [32,128] tiles walked in lockstep, and emission was ~60
+// elementwise ops over the batch; here emission is a few hundred
+// instructions in front of the loop, and a slice [offset, offset + n) of a
+// batch equals the same rows of the whole.
+// What bounds it: latency. At 16,384 photons the work is ~0.1 us of the
+// card's float rate and the bytes ~0.2 us of its memory rate, while the
+// launch takes ~0.017 ms on the device: one thread's chain (emission, then
+// up to 4 closest hits, each a dependent test of every primitive) and the
+// launch itself. The launch puts a block on every SM (PHOTON_THREADS, 64
+// a block: 256 blocks on 132 SMs at 16,384 photons); 256-thread blocks
+// measured the same (PERF.md). At 131,072 photons the card is full (2,048
+// blocks of 64) and the chains overlap: ~0.021 ms. The scene tables stay
+// in L1.
 //
 // K6 (rtvs_photon_gather) replaces raytracevs_tpu/ops/pallas/photon_gather.py
 // ::_make_kernel (launched by gather_pallas) but follows the reference
@@ -23,18 +36,23 @@
 // culled, at most 64 photons scanned per cell, the 32-accept early-out, the
 // Gaussian exp(-d^2/(2 r^2 0.5)) * dot(-dir, n), / (pi r^2) * intensity,
 // and a photon counted again when two neighbour cells share a hash slot.
-// Its plain version is ops/photon.py::caustics_delta. The Morton sort,
-// dense 8-per-row packing and two-level box walk of pack_photons existed
-// for the TPU's VMEM and scalar unit and are not ported. Design: one thread
-// per pixel in 16x16 blocks, reading the channel-first accumulator planes
-// (primary position, normal, hit, metallic, transmission) directly and
-// writing delta [3,H,W], zero off eligible pixels. What bounds it: the 12
-// bytes a pixel writes and the up to 36 it reads (the hit flag everywhere;
-// metallic, transmission, position and normal only as far as the
-// eligibility test gets); the photon table (16,384 x 41 bytes plus 512 KB
-// of cell ranges) stays in L2, and pixels near a caustic scan up to 19 x 64
-// photons while the rest scan none, so divergence is the cost beyond the
-// bytes.
+// It adds the caustic, times spp, into the accumulator's colour and diffuse
+// planes in place, at the pixels whose gather found weight (RayGen.hlsl:
+// 505-533); every other pixel and plane keeps its bits. Its plain version
+// is ops/photon.py::add_caustics. The Morton sort, dense 8-per-row packing
+// and two-level box walk of pack_photons existed for the TPU's VMEM and
+// scalar unit and are not ported. Design: one thread per pixel in 32x8
+// blocks, so a warp reads whole 128-byte rows of each plane (16x16 ran
+// 3.5% slower); the eligibility test reads the hit flag everywhere and
+// metallic and transmission only as far as it gets; a scanned photon's
+// position is tested against the radius before its other fields are read.
+// What bounds it: the scans, the photon visits of the pixels near a
+// caustic (up to 19 x 64 a pixel; 11.2M at 16,384 photons at 1080p), each
+// a chain of dependent L1 loads and tests in the warp's slowest lane; of
+// its ~0.07 ms at 1080p, the eligibility sweep alone takes ~0.009 and the
+// cell ranges ~0.018 more (PERF.md). Measured slower there, so not kept:
+// the 19 ranges loaded before the first scan (in registers or local
+// memory), and the stored photons' positions staged in shared memory.
 
 #include "closest.cuh"
 
@@ -58,19 +76,88 @@ __device__ __forceinline__ float random_float(uint32_t& seed) {
 
 constexpr int MAX_PHOTON_BOUNCES = 4;
 
-__global__ void __launch_bounds__(256)
-    photon_trace_kernel(Cfg c, Scene sc, int n, const float* __restrict__ origin,
-                        const float* __restrict__ direction, const float* __restrict__ color,
-                        const float* __restrict__ power, const uint8_t* __restrict__ alive,
-                        const int* __restrict__ idx, float* __restrict__ store_pos,
-                        float* __restrict__ store_dir, float* __restrict__ store_color,
-                        float* __restrict__ store_power, uint8_t* __restrict__ store_mask) {
+// A photon's first ray (PhotonEmit.hlsl:44-117): ops/photon.py::_emit_photons
+// for global index idx of a `total`-photon batch
+struct Photon {
+  V3 o, d, col;
+  float pw;
+  bool live;
+};
+
+__device__ __forceinline__ Photon emit_photon(const Cfg& c, const Scene& sc, int total, int idx) {
+  uint32_t seed = wang_hash((uint32_t)idx * 1973u + 9277u);
+  // photons split evenly over the non-ambient lights in light order
+  int non_ambient = 0;
+  for (int li = 0; li < c.L; ++li) {
+    const float* lt = sc.lts + LT_W * li;
+    bool lv = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
+    non_ambient += (lv && (int)__ldg(lt) != LIGHT_AMBIENT) ? 1 : 0;
+  }
+  int per_light = max(total / max(non_ambient, 1), 1);
+  int ordinal = min(idx / per_light, max(non_ambient - 1, 0));
+  // the ordinal-th non-ambient light; none: an ambient type, not emitted
+  int type = LIGHT_AMBIENT;
+  V3 lpos = v3(0.0f, 0.0f, 0.0f), lcol = v3(1.0f, 1.0f, 1.0f);
+  float lint = 1.0f;
+  int running = 0;
+  for (int li = 0; li < c.L; ++li) {
+    const float* lt = sc.lts + LT_W * li;
+    bool lv = li < sc.num_lights && __ldg(lt + 10) > 0.5f;
+    bool na = lv && (int)__ldg(lt) != LIGHT_AMBIENT;
+    if (na && ordinal == running) {
+      type = (int)__ldg(lt);
+      lpos = ld3(lt + 1);
+      lcol = ld3(lt + 4);
+      lint = __ldg(lt + 7);
+    }
+    running += na ? 1 : 0;
+  }
+  Photon ph;
+  ph.col = scale(lcol, lint);
+  ph.pw = lint / (float)per_light;
+
+  // point: from the position over the sphere, power *= 4 pi (PhotonEmit.hlsl:90-98)
+  float z0 = random_float(seed);
+  float p0 = random_float(seed);
+  float z = z0 * 2.0f - 1.0f;
+  float phi = p0 * F(6.28318530718);
+  float r = sqrtf(maxn(1.0f - z * z, 0.0f));
+  V3 sphere_dir = v3(r * cosf(phi), r * sinf(phi), z);
+  bool is_point = type == LIGHT_POINT, is_dir = type == LIGHT_DIRECTIONAL;
+  if (is_point) ph.pw = ph.pw * F(4.0 * 3.14159265);
+
+  // directional: a virtual emitter plane 20 units wide, 50 back
+  // (PhotonEmit.hlsl:99-117), from the same two randoms
+  V3 ldir = normalize(neg(lpos));
+  V3 up = fabsf(ldir.y) < F(0.999) ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  V3 right = normalize(cross(up, ldir));
+  V3 real_up = cross(ldir, right);
+  float off_x = (z0 * 2.0f - 1.0f) * 20.0f;
+  float off_y = (p0 * 2.0f - 1.0f) * 20.0f;
+  V3 plane_origin = sub(add(scale(right, off_x), scale(real_up, off_y)), scale(ldir, 50.0f));
+  ph.o = is_point ? lpos : plane_origin;
+  ph.d = is_point ? sphere_dir : ldir;
+  ph.live = is_point || is_dir;
+  return ph;
+}
+
+// K5's block: 64 threads, so that 16,384 photons give every SM work
+constexpr int PHOTON_THREADS = 64;
+
+// thread i: photon offset + i of a `total`-photon batch, emitted and traced
+__global__ void __launch_bounds__(PHOTON_THREADS)
+    photon_trace_kernel(Cfg c, Scene sc, const int* __restrict__ itab, int total, int offset,
+                        int n, float* __restrict__ store_pos, float* __restrict__ store_dir,
+                        float* __restrict__ store_color, float* __restrict__ store_power,
+                        uint8_t* __restrict__ store_mask) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  V3 o = ld3(origin + 3 * i), d = ld3(direction + 3 * i), col = ld3(color + 3 * i);
-  float pw = __ldg(power + i);
-  bool live = __ldg(alive + i) != 0;
-  uint32_t gidx = (uint32_t)__ldg(idx + i);
+  sc.num_lights = __ldg(itab);  // on the device: no host sync to launch
+  Photon ph = emit_photon(c, sc, total, offset + i);
+  V3 o = ph.o, d = ph.d, col = ph.col;
+  float pw = ph.pw;
+  bool live = ph.live;
+  uint32_t gidx = (uint32_t)(offset + i);
   bool stored = false, caustic = false;
   V3 s_pos = v3(0.0f, 0.0f, 0.0f), s_dir = s_pos, s_col = s_pos;
   float s_pow = 0.0f;
@@ -179,103 +266,112 @@ struct PhotonTable {
   int n;
 };
 
-__global__ void __launch_bounds__(256)
+// Threads a block of K6: 32 x 8 pixels, a warp one 128-byte row of a plane
+constexpr int GATHER_BX = 32, GATHER_BY = 8;
+
+__global__ void __launch_bounds__(GATHER_BX * GATHER_BY)
     photon_gather_kernel(int width, int height, const float* __restrict__ ppos,
                          const float* __restrict__ pnrm, const float* __restrict__ phit,
                          const float* __restrict__ pmetal, const float* __restrict__ ptrans,
-                         PhotonTable pt, float spp, float* __restrict__ out) {
+                         PhotonTable pt, float spp, float* __restrict__ color,
+                         float* __restrict__ diffuse) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= width || y >= height) return;
   size_t plane = (size_t)width * height, p = (size_t)y * width + x;
-  V3 delta = v3(0.0f, 0.0f, 0.0f);
   bool eligible = __ldg(phit + p) > F(0.5) && __ldg(pmetal + p) < F(0.5) &&
                   __ldg(ptrans + p) <= F(0.01);
-  if (eligible) {
-    V3 pos = v3(__ldg(ppos + p), __ldg(ppos + plane + p), __ldg(ppos + 2 * plane + p));
-    V3 nrm = v3(__ldg(pnrm + p), __ldg(pnrm + plane + p), __ldg(pnrm + 2 * plane + p));
-    float radius = __ldg(pt.radius);
-    float radius_sq = radius * radius;
-    float cell_size = maxn(radius * 2.0f, F(1e-4));
-    float den = 2.0f * radius_sq * F(0.5);
-    int count = __ldg(pt.count);
-    int bx = (int)floorf(pos.x / cell_size), by = (int)floorf(pos.y / cell_size),
-        bz = (int)floorf(pos.z / cell_size);
-    V3 caustic = v3(0.0f, 0.0f, 0.0f);
-    float weight = 0.0f;
-    int gathered = 0;
-    for (int oz = -1; oz <= 1 && gathered < MAX_GATHER; ++oz)
-      for (int oy = -1; oy <= 1 && gathered < MAX_GATHER; ++oy)
-        for (int ox = -1; ox <= 1 && gathered < MAX_GATHER; ++ox) {
-          if (ox * ox + oy * oy + oz * oz > 2) continue;  // corner cells
-          int h = hash_cell(bx + ox, by + oy, bz + oz);
-          int st = __ldg(pt.cell_start + h);
-          int cnt = min(__ldg(pt.cell_count + h), CELL_SCAN_CAP);
-          for (int off = 0; off < cnt && gathered < MAX_GATHER; ++off) {
-            int pi = min(max(st + off, 0), pt.n - 1);
-            if (!(__ldg(pt.valid + pi) != 0 && pi < count)) continue;
-            V3 diff = sub(pos, ld3(pt.pos + 3 * pi));
-            float dist_sq = dot(diff, diff);
-            float dot_n = dot(neg(ld3(pt.dir + 3 * pi)), nrm);
-            if (!(dist_sq < radius_sq && dot_n > 0.0f)) continue;
-            float w = expf(-dist_sq / den) * dot_n;
-            float pw = __ldg(pt.pow + pi) * w;
-            V3 pc = ld3(pt.col + 3 * pi);
-            caustic = add(caustic, v3(pc.x * pw, pc.y * pw, pc.z * pw));
-            weight = weight + w;
-            gathered += 1;
-          }
+  if (!eligible) return;
+  V3 pos = v3(__ldg(ppos + p), __ldg(ppos + plane + p), __ldg(ppos + 2 * plane + p));
+  V3 nrm = v3(__ldg(pnrm + p), __ldg(pnrm + plane + p), __ldg(pnrm + 2 * plane + p));
+  float radius = __ldg(pt.radius);
+  float radius_sq = radius * radius;
+  float cell_size = maxn(radius * 2.0f, F(1e-4));
+  float den = 2.0f * radius_sq * F(0.5);
+  int count = __ldg(pt.count);
+  int bx = (int)floorf(pos.x / cell_size), by = (int)floorf(pos.y / cell_size),
+      bz = (int)floorf(pos.z / cell_size);
+  // the 19 cells in order, each cell's range loaded before its scan; a
+  // photon is tested for the radius before its other fields are loaded
+  // (most photons of the neighbour cells lie beyond it), which accepts the
+  // photons the plain version accepts, in its order
+  V3 caustic = v3(0.0f, 0.0f, 0.0f);
+  float weight = 0.0f;
+  int gathered = 0;
+  for (int oz = -1; oz <= 1 && gathered < MAX_GATHER; ++oz)
+    for (int oy = -1; oy <= 1 && gathered < MAX_GATHER; ++oy)
+      for (int ox = -1; ox <= 1 && gathered < MAX_GATHER; ++ox) {
+        if (ox * ox + oy * oy + oz * oz > 2) continue;  // corner cells
+        int h = hash_cell(bx + ox, by + oy, bz + oz);
+        int st = __ldg(pt.cell_start + h);
+        int cnt = min(__ldg(pt.cell_count + h), CELL_SCAN_CAP);
+        for (int off = 0; off < cnt && gathered < MAX_GATHER; ++off) {
+          int pi = min(max(st + off, 0), pt.n - 1);
+          V3 diff = sub(pos, ld3(pt.pos + 3 * pi));
+          float dist_sq = dot(diff, diff);
+          if (!(dist_sq < radius_sq)) continue;
+          if (!(__ldg(pt.valid + pi) != 0 && pi < count)) continue;
+          float dot_n = dot(neg(ld3(pt.dir + 3 * pi)), nrm);
+          if (!(dot_n > 0.0f)) continue;
+          float w = expf(-dist_sq / den) * dot_n;
+          float pw = __ldg(pt.pow + pi) * w;
+          V3 pc = ld3(pt.col + 3 * pi);
+          caustic = add(caustic, v3(pc.x * pw, pc.y * pw, pc.z * pw));
+          weight = weight + w;
+          gathered += 1;
         }
-    if (weight > 0.0f) {
-      float area = F(3.14159265) * radius_sq;
-      float k = __ldg(pt.intensity);
-      delta = v3(caustic.x / area * k * spp, caustic.y / area * k * spp,
-                 caustic.z / area * k * spp);
-    }
-  }
-  out[p] = delta.x;
-  out[plane + p] = delta.y;
-  out[2 * plane + p] = delta.z;
+      }
+  if (!(weight > 0.0f)) return;
+  float area = F(3.14159265) * radius_sq;
+  float kc = __ldg(pt.intensity);
+  V3 delta = v3(caustic.x / area * kc * spp, caustic.y / area * kc * spp,
+                caustic.z / area * kc * spp);
+  color[p] = color[p] + delta.x;
+  color[plane + p] = color[plane + p] + delta.y;
+  color[2 * plane + p] = color[2 * plane + p] + delta.z;
+  diffuse[p] = diffuse[p] + delta.x;
+  diffuse[plane + p] = diffuse[plane + p] + delta.y;
+  diffuse[2 * plane + p] = diffuse[2 * plane + p] + delta.z;
 }
 
 }  // namespace
 
-// K5: origin/direction/color [n,3], power [n] f32, alive [n] u8, idx [n]
-// int32 (global photon index); the scene tables of pack_scene (M material
-// rows; only the analytic primitives are traced). Writes store_pos/dir/
-// color [n,3], store_power [n], store_mask [n] u8. Returns the launch's
-// cudaError_t.
-extern "C" int rtvs_photon_trace(const float* ftab, int S, int P, int B, int M, int L, int n,
-                                 const float* origin, const float* direction, const float* color,
-                                 const float* power, const uint8_t* alive, const int* idx,
-                                 float* store_pos, float* store_dir, float* store_color,
-                                 float* store_power, uint8_t* store_mask, void* stream) {
+// K5: photons [offset, offset + n) of a `total`-photon batch, emitted from
+// the lights and traced; ftab and itab: the tables of pack_scene (M material
+// rows; only the analytic primitives are traced; itab[0] the light count).
+// Writes store_pos/dir/color [n,3], store_power [n], store_mask [n] u8.
+// Returns the launch's cudaError_t.
+extern "C" int rtvs_photon_trace(const float* ftab, const int* itab, int S, int P, int B, int M,
+                                 int L, int total, int offset, int n, float* store_pos,
+                                 float* store_dir, float* store_color, float* store_power,
+                                 uint8_t* store_mask, void* stream) {
   Cfg c = make_cfg(0, 0, S, P, B, L, 0, 0, 0, 0, 0, 0.0f);
   Scene sc = make_scene(ftab, S, P, B, M, L);
-  int blocks = (n + 255) / 256;
+  int blocks = (n + PHOTON_THREADS - 1) / PHOTON_THREADS;
   if (blocks > 0)
-    photon_trace_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
-        c, sc, n, origin, direction, color, power, alive, idx, store_pos, store_dir, store_color,
-        store_power, store_mask);
+    photon_trace_kernel<<<blocks, PHOTON_THREADS, 0, (cudaStream_t)stream>>>(
+        c, sc, itab, total, offset, n, store_pos, store_dir, store_color, store_power,
+        store_mask);
   return (int)cudaGetLastError();
 }
 
 // K6: the accumulator planes pos/nrm [3,H,W], hit/metal/trans [H,W]; the
 // sorted photon map (pos/dir/col [n,3], pow [n], valid [n] u8, cell_start/
-// cell_count [65536] int32, count/radius/intensity 0-d on the device).
-// Writes delta [3,H,W]. Returns the launch's cudaError_t.
+// cell_count [65536] int32, count/radius/intensity 0-d on the device). Adds
+// the caustic times spp into color and diffuse [3,H,W] (the accumulator's
+// planes) where the gather found weight. Returns the launch's cudaError_t.
 extern "C" int rtvs_photon_gather(int width, int height, const float* pos, const float* nrm,
                                   const float* hit, const float* metal, const float* trans,
                                   const float* ph_pos, const float* ph_dir, const float* ph_col,
                                   const float* ph_pow, const uint8_t* ph_valid, int n,
                                   const int* cell_start, const int* cell_count, const int* count,
                                   const float* radius, const float* intensity, float spp,
-                                  float* out, void* stream) {
+                                  float* color, float* diffuse, void* stream) {
   PhotonTable pt = {ph_pos, ph_dir, ph_col, ph_pow, ph_valid, cell_start, cell_count,
                     count, radius, intensity, n};
-  dim3 block(16, 16);
-  dim3 grid((width + 15) / 16, (height + 15) / 16);
-  photon_gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(width, height, pos, nrm, hit,
-                                                                 metal, trans, pt, spp, out);
+  dim3 block(GATHER_BX, GATHER_BY);
+  dim3 grid((width + GATHER_BX - 1) / GATHER_BX, (height + GATHER_BY - 1) / GATHER_BY);
+  photon_gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      width, height, pos, nrm, hit, metal, trans, pt, spp, color, diffuse);
   return (int)cudaGetLastError();
 }

@@ -1056,19 +1056,25 @@ constexpr int MESH_BLOCKS = 1, SLIM_BLOCKS = 2;
 // spawned in 7 more planes (megakernel.py:2557-2564), then the primary ray's
 // closest hit in 7 more (ops/render.py::CH_HIT: hit, t, type, index and
 // triangle as int bits, u, v; no hit where the primary is not traced).
-template <int MODE, bool PHASE_A>
+// BAND: the launch renders the row band c.row0, c.rows of a frame whose
+// planes pass the 32-bit plane index, into the band's planes; a whole
+// frame's launch runs the instantiation without it, whose code is the
+// whole frame's alone (ptxas gave the mesh instantiations 4 more
+// registers or spill bytes when one body served both, PERF.md).
+template <int MODE, bool PHASE_A, bool BAND>
 __global__ void __launch_bounds__(RENDER_THREADS,
                                   (MODE & MODE_MESH) != 0 && !PHASE_A ? MESH_BLOCKS : SLIM_BLOCKS)
     render_accum_kernel(Cfg c, Scene sc, const int* __restrict__ itab, float* __restrict__ out) {
+  // y: the row in the launch's planes; the pixel's row in the frame is py
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= c.width || y >= c.height) return;
+  if (x >= c.width || y >= (BAND ? c.rows : c.height)) return;
   // scene scalars stay on the device: no host sync to launch
   sc.num_lights = __ldg(itab);
   sc.max_shadow_lights = __ldg(itab + 1);
   sc.frame = (uint32_t)__ldg(itab + 2);
-  uint32_t px = (uint32_t)x, py = (uint32_t)y;
-  Planes pl = {out + (size_t)y * c.width + x, c.height * c.width};
+  uint32_t px = (uint32_t)x, py = BAND ? (uint32_t)(c.row0 + y) : (uint32_t)y;
+  Planes pl = {out + (size_t)y * c.width + x, (BAND ? c.rows : c.height) * c.width};
   Tally tl = {};
   bool prim_hit = false;
   Path p;
@@ -1139,7 +1145,7 @@ __global__ void __launch_bounds__(RENDER_THREADS,
   sc.num_lights = __ldg(itab);
   sc.max_shadow_lights = __ldg(itab + 1);
   sc.frame = (uint32_t)__ldg(itab + 2);
-  uint32_t px = (uint32_t)(pix % c.width), py = (uint32_t)(pix / c.width);
+  uint32_t px = (uint32_t)(pix % c.width), py = (uint32_t)(c.row0 + pix / c.width);
 
   // the subtree is at depth >= 1: it records nothing, so it has no planes
   Planes none = {nullptr, 0};
@@ -1148,7 +1154,7 @@ __global__ void __launch_bounds__(RENDER_THREADS,
   Path p;
   Stack st;
   start_path(c, sc, px, py, 0, p);
-  size_t plane = (size_t)c.height * c.width;
+  size_t plane = (size_t)c.rows * c.width;
   const float* hp = hits + pix;
   Hit h;
   h.hit = __ldg(hp) > 0.5f;
@@ -1180,8 +1186,13 @@ template <int MODE, bool PHASE_A>
 int launch_accum(const Cfg& c, const Scene& sc, const int* itab, float* out, void* stream) {
   constexpr int rows = RENDER_THREADS / 16;
   dim3 block(16, rows);
-  dim3 grid((c.width + 15) / 16, (c.height + rows - 1) / rows);
-  render_accum_kernel<MODE, PHASE_A><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab, out);
+  dim3 grid((c.width + 15) / 16, (c.rows + rows - 1) / rows);
+  if (c.row0 != 0 || c.rows != c.height)
+    render_accum_kernel<MODE, PHASE_A, true><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab,
+                                                                                         out);
+  else
+    render_accum_kernel<MODE, PHASE_A, false><<<grid, block, 0, (cudaStream_t)stream>>>(c, sc, itab,
+                                                                                          out);
   return (int)cudaGetLastError();
 }
 
@@ -1228,18 +1239,25 @@ Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float
 // The entry points' arguments (megakernel.cu documents them): K1's and
 // K7's, K8's, and the mesh tables of a _mesh entry, as make_mesh_scene
 // takes them.
-#define ACCUM_PARAMS                                                                          \
-  const float *ftab, const int *itab, float *out, int width, int height, int S, int P, int B, \
-      int L, int spp, int max_bounces, int max_iters, int max_soft, int flags, float aspect
-#define ACCUM_ARGS \
-  ftab, itab, out, width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags, aspect
+#define ACCUM_PARAMS                                                                        \
+  const float *ftab, const int *itab, float *out, int width, int height, int row0, int rows, \
+      int S, int P, int B, int L, int spp, int max_bounces, int max_iters, int max_soft,      \
+      int flags, float aspect
+#define ACCUM_ARGS                                                                          \
+  ftab, itab, out, width, height, row0, rows, S, P, B, L, spp, max_bounces, max_iters, max_soft, \
+      flags, aspect
 #define PHASE_B_PARAMS                                                                         \
   const float *ftab, const int *itab, const int *order, const int *count, float *acc,           \
-      const float *hits, int lanes, int width, int height, int S, int P, int B, int L, int spp, \
-      int max_bounces, int max_iters, int max_soft, int flags, float aspect
-#define PHASE_B_ARGS                                                                      \
-  ftab, itab, order, count, acc, hits, lanes, width, height, S, P, B, L, spp, max_bounces, \
-      max_iters, max_soft, flags, aspect
+      const float *hits, int lanes, int width, int height, int row0, int rows, int S, int P,    \
+      int B, int L, int spp, int max_bounces, int max_iters, int max_soft, int flags, float aspect
+#define PHASE_B_ARGS                                                                            \
+  ftab, itab, order, count, acc, hits, lanes, width, height, row0, rows, S, P, B, L, spp,        \
+      max_bounces, max_iters, max_soft, flags, aspect
+// The configuration of an entry point, from its ACCUM_PARAMS or PHASE_B_PARAMS
+#define ENTRY_CFG                                                                              \
+  band_cfg(make_cfg(width, height, S, P, B, L, spp, max_bounces, max_iters, max_soft, flags,  \
+                    aspect),                                                                   \
+           row0, rows)
 #define MESH_PARAMS                                                                    \
   const float *nodes, const float *plane, const float *n0, const float *n1,           \
       const float *n2, const float *e1, const float *e2, const int *inst,             \

@@ -36,11 +36,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (a cudaError_t; 0 is success).
 # nodes, plane, n0, n1, n2, e1, e2, inst, inst_tbl, T, I, Nn, threaded
 _MESH = (_P,) * 9 + (_I,) * 4
-# ftab, itab, out, width, height, S, P, B, L, spp, max_bounces, max_iters,
-# max_soft, flags, aspect
-_ACCUM = (_P, _P, _P) + (_I,) * 11 + (_F,)
+# ftab, itab, out, width, height, row0, rows, S, P, B, L, spp, max_bounces,
+# max_iters, max_soft, flags, aspect
+_ACCUM = (_P, _P, _P) + (_I,) * 13 + (_F,)
 # ftab, itab, order, count, acc, hits, lanes, then as _ACCUM from width
-_PHASE_B = (_P,) * 6 + (_I,) * 12 + (_F,)
+_PHASE_B = (_P,) * 6 + (_I,) * 14 + (_F,)
 SIGNATURES = {
     # K1 and K7 (out [46, H, W]), then the stream
     "rtvs_render_accum": _ACCUM + (_P,),
@@ -74,13 +74,13 @@ SIGNATURES = {
     "rtvs_shadow_denoise": (_P,) * 5 + (_I,) * 2 + (_P,),
     # int out[3]: K3's shared bytes a block, K3's and K4's blocks an SM
     "rtvs_denoise_occupancy": (_P,),
-    # ftab, S, P, B, M, L, n, origin, direction, color, power, alive, idx,
-    # store_pos, store_dir, store_color, store_power, store_mask, stream
-    "rtvs_photon_trace": (_P,) + (_I,) * 6 + (_P,) * 11 + (_P,),
+    # ftab, itab, S, P, B, M, L, total, offset, n, store_pos, store_dir,
+    # store_color, store_power, store_mask, stream
+    "rtvs_photon_trace": (_P, _P) + (_I,) * 8 + (_P,) * 5 + (_P,),
     # W, H, pos, nrm, hit, metal, trans, ph_pos, ph_dir, ph_col, ph_pow,
     # ph_valid, n, cell_start, cell_count, count, radius, intensity, spp,
-    # out, stream
-    "rtvs_photon_gather": (_I, _I) + (_P,) * 10 + (_I,) + (_P,) * 5 + (_F, _P, _P),
+    # color, diffuse, stream
+    "rtvs_photon_gather": (_I, _I) + (_P,) * 10 + (_I,) + (_P,) * 5 + (_F, _P, _P, _P),
 }
 
 

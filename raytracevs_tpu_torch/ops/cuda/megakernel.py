@@ -13,8 +13,9 @@ For a mesh whose wide table needs a deeper walk stack than the kernels
 hold (``check_mesh``), the _mesh entries take threaded = 1 and the fine
 tree's nodes (``fine_nodes``) and run the instantiations of
 csrc/megakernel_threaded.cu, whose walks follow its threaded links. A
-frame too large for the kernels' 32-bit plane index (``check_size``)
-raises. Each wrapper's ``.launches`` counts its launches.
+frame whose planes pass the kernels' 32-bit plane index renders in row
+bands (``row_bands``), a launch each into a band buffer copied into the
+frame's planes. Each wrapper's ``.launches`` counts its launches.
 Given ``counts`` (a [len(R.COUNT_ROWS), 4] int64 CUDA tensor), the wrappers
 launch the counting build instead (the ``_count`` entries, the same
 pixels) and add their work to it: the mesh walks' by ray class, then the
@@ -145,13 +146,25 @@ def pack_tables(scene):
     return ftab, itab, (pack_mesh(scene.mesh), *walk_nodes(scene.mesh, "pack_tables"))
 
 
-def check_size(cfg, channels, name):
-    """Raise unless the kernel's `channels` planes of the frame can be
-    indexed in 32 bits (csrc/render.cuh::Planes keeps its plane stride as
-    an int, which keeps K1 and K7 within their registers)."""
-    if channels * cfg.width * cfg.height >= 2**31:
-        raise ValueError(f"{name}: {channels} planes of {cfg.width}x{cfg.height} pixels pass "
-                         "2**31 floats, beyond the kernels' 32-bit plane index")
+# The kernels index a launch's planes in 32 bits (csrc/render.cuh::Planes
+# keeps its stride an int, which keeps K1 and K7 within their registers)
+PLANE_LIMIT = 2**31
+
+
+def row_bands(width, height, channels, limit=PLANE_LIMIT):
+    """[(row0, rows), ...]: the row bands, of near-equal height and in
+    order, that cover a frame's `height` rows once, each band's `channels`
+    planes under `limit` floats; one band (0, height) when the whole
+    frame's are. Raises ValueError if one row's planes reach the limit."""
+    per_row = channels * width
+    if per_row >= limit:
+        raise ValueError(f"{channels} planes of a {width}-pixel row reach {limit} floats")
+    if height <= 0:
+        return []
+    n = -(-height // ((limit - 1) // per_row))
+    size, extra = divmod(height, n)
+    sizes = [size + (i < extra) for i in range(n)]
+    return [(sum(sizes[:i]), rows) for i, rows in enumerate(sizes)]
 
 
 def _check(scene, cfg, name):
@@ -175,12 +188,15 @@ def _check(scene, cfg, name):
             | int(cfg.any_absorption) << 3)
 
 
-def _launch(entry, scene, cfg, flags, tables, lead, counts=None):
+def _launch(entry, scene, cfg, flags, tables, lead, counts=None, band=None):
     """Call the library's `entry` (its _mesh form for a scene with meshes,
     then its _count form given `counts`) on the current stream: the packed
-    tables, the `lead` arguments, the configuration, then the mesh tables."""
+    tables, the `lead` arguments, the configuration with the row band
+    (row0, rows) it renders (the whole frame without one), then the mesh
+    tables."""
     ftab, itab, mesh_tables = tables
-    args = [ftab.data_ptr(), itab.data_ptr(), *lead, cfg.width, cfg.height,
+    row0, rows = (0, cfg.height) if band is None else band
+    args = [ftab.data_ptr(), itab.data_ptr(), *lead, cfg.width, cfg.height, row0, rows,
             scene.sphere_capacity, scene.plane_capacity, scene.box_capacity,
             scene.light_capacity, cfg.samples_per_pixel, cfg.max_bounces, cfg.max_queue_iters,
             cfg.max_soft_samples, flags, float(cfg.aspect_ratio)]
@@ -202,87 +218,121 @@ def _launch(entry, scene, cfg, flags, tables, lead, counts=None):
     _build.check(err, entry)
 
 
-def render_accum(scene, cfg, counts=None, tables=None) -> torch.Tensor:
-    """K1: the [NUM_CH, height, width] accumulator planes of the frame
-    (K1-mesh when the scene has meshes). `tables`: pack_tables(scene),
-    when the caller packed them already; `counts`: see the module."""
-    if scene.cam_pos.device.type == "cpu":
-        return R.render_accum(scene, cfg, counts)
-    if scene.mesh is not None:
-        return render_accum_mesh(scene, cfg, counts, tables)
-    flags = _check(scene, cfg, "render_accum")
-    check_size(cfg, R.NUM_CH, "render_accum")
-    out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
-    _launch("rtvs_render_accum", scene, cfg, flags,
-            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts)
-    render_accum.launches += 1
+def _render_bands(entry, wrapper, scene, cfg, flags, tables, channels, bands, counts):
+    """The [channels, height, width] planes of the frame, a launch of
+    `entry` a row band: into the frame's planes for a single band, else
+    into a band buffer each, copied into them."""
+    dev = scene.cam_pos.device
+    out = torch.empty((channels, cfg.height, cfg.width), dtype=_F32, device=dev)
+    tables = pack_tables(scene) if tables is None else tables
+    for row0, rows in bands:
+        buf = out if len(bands) == 1 else torch.empty((channels, rows, cfg.width), dtype=_F32,
+                                                      device=dev)
+        _launch(entry, scene, cfg, flags, tables, [buf.data_ptr()], counts, (row0, rows))
+        wrapper.launches += 1
+        if buf is not out:
+            out[:, row0:row0 + rows].copy_(buf)
     return out
 
 
-def render_accum_mesh(scene, cfg, counts=None, tables=None) -> torch.Tensor:
+def render_accum(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT) -> torch.Tensor:
+    """K1: the [NUM_CH, height, width] accumulator planes of the frame
+    (K1-mesh when the scene has meshes), a launch per row band of
+    row_bands(..., limit). `tables`: pack_tables(scene), when the caller
+    packed them already; `counts`: see the module."""
+    if scene.cam_pos.device.type == "cpu":
+        return R.render_accum(scene, cfg, counts)
+    if scene.mesh is not None:
+        return render_accum_mesh(scene, cfg, counts, tables, limit)
+    flags = _check(scene, cfg, "render_accum")
+    return _render_bands("rtvs_render_accum", render_accum, scene, cfg, flags, tables, R.NUM_CH,
+                         row_bands(cfg.width, cfg.height, R.NUM_CH, limit), counts)
+
+
+def render_accum_mesh(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT) -> torch.Tensor:
     """K1-mesh: render_accum for a scene with triangle meshes."""
     if scene.cam_pos.device.type == "cpu":
         return R.render_accum(scene, cfg, counts)
     if scene.mesh is None:
         raise ValueError("render_accum_mesh: the scene has no mesh leaf")
     flags = _check(scene, cfg, "render_accum_mesh")
-    check_size(cfg, R.NUM_CH, "render_accum_mesh")
-    out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=_F32, device=scene.cam_pos.device)
-    _launch("rtvs_render_accum", scene, cfg, flags,
-            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts)
-    render_accum_mesh.launches += 1
-    return out
+    return _render_bands("rtvs_render_accum", render_accum_mesh, scene, cfg, flags, tables,
+                         R.NUM_CH, row_bands(cfg.width, cfg.height, R.NUM_CH, limit), counts)
 
 
-def render_phase_a(scene, cfg, tables=None, counts=None) -> torch.Tensor:
+def render_phase_a(scene, cfg, tables=None, counts=None, band=None,
+                   limit=PLANE_LIMIT) -> torch.Tensor:
     """K7, phase A of the two-phase renderer (spp 1): the [NUM_CH_A,
     height, width] planes of one DFS iteration per pixel and the
-    continuation it spawned. `tables`: pack_tables(scene), when the caller
-    packed them already."""
+    continuation it spawned, a launch per row band of row_bands(...,
+    limit); given `band` (row0, rows) on the card, the [NUM_CH_A, rows,
+    width] planes of that band alone, one launch. `tables`:
+    pack_tables(scene), when the caller packed them already."""
     if scene.cam_pos.device.type == "cpu":
+        if band is not None:
+            raise ValueError("render_phase_a: row bands are the kernels'; the plain version "
+                             "renders the whole frame")
         return R.render_accum_phase_a(scene, cfg, counts)
     if cfg.samples_per_pixel != 1:
         raise ValueError(f"render_phase_a: samples_per_pixel {cfg.samples_per_pixel}, not 1")
     flags = _check(scene, cfg, "render_phase_a")
-    check_size(cfg, R.NUM_CH_A, "render_phase_a")
-    out = torch.empty((R.NUM_CH_A, cfg.height, cfg.width), dtype=_F32,
-                      device=scene.cam_pos.device)
+    if band is None:
+        return _render_bands("rtvs_render_phase_a", render_phase_a, scene, cfg, flags, tables,
+                             R.NUM_CH_A, row_bands(cfg.width, cfg.height, R.NUM_CH_A, limit),
+                             counts)
+    row0, rows = _check_band(band, cfg, R.NUM_CH_A, limit, "render_phase_a")
+    out = torch.empty((R.NUM_CH_A, rows, cfg.width), dtype=_F32, device=scene.cam_pos.device)
     _launch("rtvs_render_phase_a", scene, cfg, flags,
-            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts)
+            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts, band)
     render_phase_a.launches += 1
     return out
 
 
-def render_phase_b(scene, cfg, order, count, acc, hits, tables=None,
-                   counts=None) -> torch.Tensor:
+def _check_band(band, cfg, channels, limit, name):
+    row0, rows = band
+    if not (0 <= row0 and 0 < rows and row0 + rows <= cfg.height
+            and channels * rows * cfg.width < limit):
+        raise ValueError(f"{name}: band {band} of a {cfg.width}x{cfg.height} frame, "
+                         f"{channels} planes under {limit} floats")
+    return row0, rows
+
+
+def render_phase_b(scene, cfg, order, count, acc, hits, tables=None, counts=None,
+                   band=None) -> torch.Tensor:
     """K8, phase B of the two-phase renderer (spp 1): resumes the first
     `count` ([1] int32) pixels of `order` ([L] int32 pixel ids) from the
     primary rays' closest hits K7 traced (`hits`, its [NUM_CH_HIT, H, W]
     planes from CH_HIT) and folds each subtree into the phase-A planes
-    `acc` ([NUM_CH, H, W] float32, updated in place and returned). The
-    count stays on the device: the kernel reads it, so the launch needs no
-    host sync."""
+    `acc` ([NUM_CH, H, W] float32, updated in place and returned). Given
+    `band` (row0, rows) on the card, acc and hits are that band's
+    [C, rows, W] planes and the ids are the band's. The count stays on the
+    device: the kernel reads it, so the launch needs no host sync."""
     if scene.cam_pos.device.type == "cpu":
+        if band is not None:
+            raise ValueError("render_phase_b: row bands are the kernels'; the plain version "
+                             "renders the whole frame")
         return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc, hits, counts)
     if cfg.samples_per_pixel != 1:
         raise ValueError(f"render_phase_b: samples_per_pixel {cfg.samples_per_pixel}, not 1")
     flags = _check(scene, cfg, "render_phase_b")
     dev = scene.cam_pos.device
+    rows = cfg.height if band is None else _check_band(band, cfg, 1, PLANE_LIMIT,
+                                                       "render_phase_b")[1]
     for name, t, dtype, shape in (("order", order, torch.int32, (order.numel(),)),
                                   ("count", count, torch.int32, (1,)),
-                                  ("acc", acc, _F32, (R.NUM_CH, cfg.height, cfg.width)),
-                                  ("hits", hits, _F32, (R.NUM_CH_HIT, cfg.height, cfg.width))):
+                                  ("acc", acc, _F32, (R.NUM_CH, rows, cfg.width)),
+                                  ("hits", hits, _F32, (R.NUM_CH_HIT, rows, cfg.width))):
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"render_phase_b: {name} {t.dtype} {tuple(t.shape)} on {t.device}, "
                              f"expected {dtype} {shape} on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"render_phase_b: {name} is not contiguous")
-    if order.numel() > cfg.width * cfg.height:
-        raise ValueError(f"render_phase_b: {order.numel()} lanes for {cfg.width * cfg.height} pixels")
+    if order.numel() > cfg.width * rows:
+        raise ValueError(f"render_phase_b: {order.numel()} lanes for {cfg.width * rows} pixels")
     _launch("rtvs_render_phase_b", scene, cfg, flags,
             pack_tables(scene) if tables is None else tables,
             [order.data_ptr(), count.data_ptr(), acc.data_ptr(), hits.data_ptr(), order.numel()],
-            counts)
+            counts, band)
     render_phase_b.launches += 1
     return acc
 

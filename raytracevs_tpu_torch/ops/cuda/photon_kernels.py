@@ -1,9 +1,9 @@
-"""Wrappers of kernels K5 and K6 (csrc/photon.cu): the photon trace and the
-photon gather of the caustics pass.
+"""Wrappers of kernels K5 and K6 (csrc/photon.cu): the photon emission and
+trace, and the photon gather added into the frame's planes.
 
 On CPU tensors each wrapper runs its plain version from ops/photon.py; on
-CUDA tensors it launches its kernel or raises. ``trace_photons.launches``
-and ``gather.launches`` count the launches.
+CUDA tensors it launches its kernel or raises. ``emit_and_trace.launches``
+and ``add_caustics.launches`` count the launches.
 """
 from __future__ import annotations
 
@@ -34,51 +34,50 @@ def _device(t):
     return t.device
 
 
-def trace_photons(scene, origin, direction, color, power, alive, idx):
-    """K5: the 4-bounce photon loop (see ops/photon.py::_trace_photons).
-    origin/direction/color [P,3] f32, power [P] f32, alive [P] bool, idx
-    [P] int32 global photon indices. The scene is packed as K1 packs it: a
-    mesh scene keeps its instance material rows, which the light table
-    follows; the meshes are not traced. Returns (store_pos, store_dir,
-    store_color [P,3], store_power [P], store_mask [P] bool)."""
-    dev = _device(origin)
+def emit_and_trace(scene, total_photons: int, offset: int, count: int, tables=None):
+    """K5: photons [offset, offset+count) of a total_photons batch emitted
+    from the scene's lights and traced up to 4 bounces (ops/photon.py::
+    _emit_photons, then _trace_photons; every photon is keyed on its
+    global index, so a slice equals the same rows of the whole batch).
+    `tables`: pack_tables(scene) (or pack_scene's pair), the frame's pack,
+    when the caller packed them already: a mesh scene keeps its instance
+    material rows, which the light table follows; the meshes are not
+    traced. Returns (store_pos, store_dir, store_color [count,3],
+    store_power [count], store_mask [count] bool)."""
+    dev = _device(scene.cam_pos)
+    if not (0 <= offset and 0 <= count and offset + count < 2**31 and total_photons > 0):
+        raise ValueError(f"emit_and_trace: photons [{offset}, {offset + count}) of "
+                         f"{total_photons}")
     if dev.type == "cpu":
-        return plain._trace_photons(scene, origin, direction, color, power, alive, idx)
-    if scene.cam_pos.device != dev:
-        raise ValueError(f"trace_photons: scene on {scene.cam_pos.device}, photons on {dev}")
-    ftab, _ = pack_scene(scene)
-    s, p, b = scene.sphere_capacity, scene.plane_capacity, scene.box_capacity
-    m, lights = scene.mat_color.shape[0], scene.light_capacity
-    n = origin.shape[0]
+        em = plain._emit_photons(scene, total_photons, offset, count)
+        idx = torch.arange(count, dtype=torch.int32) + offset
+        return plain._trace_photons(scene, *em, idx)
+    ftab, itab = pack_scene(scene) if tables is None else tables[:2]
     _check("ftab", ftab, tuple(ftab.shape), _F32, dev)
-    for name, t, shape, dtype in (("origin", origin, (n, 3), _F32),
-                                  ("direction", direction, (n, 3), _F32),
-                                  ("color", color, (n, 3), _F32), ("power", power, (n,), _F32),
-                                  ("alive", alive, (n,), torch.bool),
-                                  ("idx", idx, (n,), torch.int32)):
-        _check(name, t, shape, dtype, dev)
-    out = [torch.empty((n, 3), dtype=_F32, device=dev) for _ in range(3)]
-    out_power = torch.empty((n,), dtype=_F32, device=dev)
-    out_mask = torch.empty((n,), dtype=torch.bool, device=dev)
+    _check("itab", itab, (3,), torch.int32, dev)
+    out = [torch.empty((count, 3), dtype=_F32, device=dev) for _ in range(3)]
+    out_power = torch.empty((count,), dtype=_F32, device=dev)
+    out_mask = torch.empty((count,), dtype=torch.bool, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.rtvs_photon_trace(
-            ftab.data_ptr(), s, p, b, m, lights, n, origin.data_ptr(), direction.data_ptr(),
-            color.data_ptr(), power.data_ptr(), alive.data_ptr(), idx.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(), out_power.data_ptr(),
-            out_mask.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            ftab.data_ptr(), itab.data_ptr(), scene.sphere_capacity, scene.plane_capacity,
+            scene.box_capacity, scene.mat_color.shape[0], scene.light_capacity, total_photons,
+            offset, count, out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            out_power.data_ptr(), out_mask.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rtvs_photon_trace")
-    trace_photons.launches += 1
+    emit_and_trace.launches += 1
     return out[0], out[1], out[2], out_power, out_mask
 
 
-def gather(pmap: plain.PhotonMap, acc, spp: int):
-    """K6: the caustic delta [3,H,W] at the eligible primary hits of the
-    accumulator planes acc [NUM_CH,H,W], already times spp (see
-    ops/photon.py::caustics_delta)."""
+def add_caustics(pmap: plain.PhotonMap, acc, spp: int):
+    """K6: adds the caustic, times spp, into the colour and diffuse planes
+    of the accumulator acc [NUM_CH,H,W] in place, at the eligible primary
+    hits whose gather finds weight; returns acc (see ops/photon.py::
+    add_caustics)."""
     dev = _device(acc)
     if dev.type == "cpu":
-        return plain.caustics_delta(pmap, acc, spp)
+        return plain.add_caustics(pmap, acc, spp)
     _, h, w = acc.shape
     _check("acc", acc, (R.NUM_CH, h, w), _F32, dev)
     n = pmap.position.shape[0]
@@ -95,12 +94,12 @@ def gather(pmap: plain.PhotonMap, acc, spp: int):
                                   ("intensity", pmap.intensity, (), _F32)):
         _check(f"pmap.{name}", t, shape, dtype, dev)
     if size != plain.C.PHOTON_HASH_TABLE_SIZE or n == 0:
-        raise ValueError(f"gather: {n} photons, {size} hash cells")
-    out = torch.empty((3, h, w), dtype=_F32, device=dev)
+        raise ValueError(f"add_caustics: {n} photons, {size} hash cells")
     lib = _build.load_library()
+    base, plane_bytes = acc.data_ptr(), h * w * acc.element_size()
 
-    def ch(c):
-        return acc[c].data_ptr()
+    def ch(c):  # channel c's plane (acc is contiguous)
+        return base + c * plane_bytes
 
     with torch.cuda.device(dev):
         err = lib.rtvs_photon_gather(
@@ -108,12 +107,12 @@ def gather(pmap: plain.PhotonMap, acc, spp: int):
             ch(R.CH_TRANSMISSION), pmap.position.data_ptr(), pmap.direction.data_ptr(),
             pmap.color.data_ptr(), pmap.power.data_ptr(), pmap.valid.data_ptr(), n,
             pmap.cell_start.data_ptr(), pmap.cell_count.data_ptr(), pmap.count.data_ptr(),
-            pmap.radius.data_ptr(), pmap.intensity.data_ptr(), float(spp), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            pmap.radius.data_ptr(), pmap.intensity.data_ptr(), float(spp), ch(R.CH_COLOR),
+            ch(R.CH_DIFFUSE), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rtvs_photon_gather")
-    gather.launches += 1
-    return out
+    add_caustics.launches += 1
+    return acc
 
 
-trace_photons.launches = 0
-gather.launches = 0
+emit_and_trace.launches = 0
+add_caustics.launches = 0

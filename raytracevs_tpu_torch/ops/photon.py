@@ -11,9 +11,9 @@ primary hits of diffuse surfaces, with corner-cell culling, a 64-photon
 scan per cell, a 32-photon early-out and a Gaussian kernel
 (Common.hlsli:887-967).
 
-`_trace_photons` and `caustics_delta` are the plain versions of kernels
-K5 and K6 (csrc/photon.cu, wrapped by ops/cuda/photon_kernels.py), which
-follow them operation for operation.
+`_emit_photons` followed by `_trace_photons`, and `add_caustics`, are
+the plain versions of kernels K5 and K6 (csrc/photon.cu, wrapped by
+ops/cuda/photon_kernels.py), which follow them operation for operation.
 """
 from __future__ import annotations
 
@@ -90,24 +90,24 @@ def photon_budget(scene_data) -> int:
     return min(total, safe_cap)
 
 
-def emit_and_trace(scene, total_photons: int) -> PhotonMap:
+def emit_and_trace(scene, total_photons: int, tables=None) -> PhotonMap:
     """Emit photons from the lights, trace them up to MAX_PHOTON_BOUNCES
-    (kernel K5 on a CUDA scene, its plain version on a CPU one) and build
-    the hash. scene: a FlatScene of tensors (its meshes are not traced)."""
-    return build_photon_hash(*trace_photon_slice(scene, total_photons, 0, total_photons))
+    (kernel K5 on a CUDA scene, on `tables`, the frame's pack_tables, when
+    given; its plain version on a CPU one) and build the hash. scene: a
+    FlatScene of tensors (its meshes are not traced)."""
+    return build_photon_hash(*trace_photon_slice(scene, total_photons, 0, total_photons, tables))
 
 
-def trace_photon_slice(scene, total_photons: int, offset: int, count: int):
+def trace_photon_slice(scene, total_photons: int, offset: int, count: int, tables=None):
     """Emit and trace photons [offset, offset+count) of a total_photons
-    batch: every photon's emission and Russian-roulette chain is keyed on
-    its global index (PhotonEmit.hlsl:44-48), so a slice equals the same
-    rows of the whole batch. Returns (store_pos [count,3], store_dir,
-    store_color, store_power [count], store_mask [count] bool)."""
+    batch (kernel K5, or its plain version on a CPU scene): every photon's
+    emission and Russian-roulette chain is keyed on its global index
+    (PhotonEmit.hlsl:44-48), so a slice equals the same rows of the whole
+    batch. Returns (store_pos [count,3], store_dir, store_color,
+    store_power [count], store_mask [count] bool)."""
     from .cuda import photon_kernels
 
-    origin, direction, color, power, alive = _emit_photons(scene, total_photons, offset, count)
-    idx = torch.arange(count, dtype=I32, device=origin.device) + offset
-    return photon_kernels.trace_photons(scene, origin, direction, color, power, alive, idx)
+    return photon_kernels.emit_and_trace(scene, total_photons, offset, count, tables)
 
 
 def _emit_photons(scene, total_photons: int, offset: int = 0, count: int = None):
@@ -116,7 +116,10 @@ def _emit_photons(scene, total_photons: int, offset: int = 0, count: int = None)
 
     Photons split evenly over the non-ambient lights in light order; the
     seeds and the light ordinal are functions of the global index, and the
-    split always uses total_photons."""
+    split always uses total_photons. Part of the plain version of K5, which
+    emits in its kernel: ``_emit_photons.launches`` counts the calls, so a
+    caller can tell that a path on the card ran none."""
+    _emit_photons.launches += 1
     n = count if count is not None else total_photons
     dev = scene.lt_type.device
     l_cap = scene.lt_type.shape[0]
@@ -358,8 +361,14 @@ def gather(pmap: PhotonMap, position, normal):
     Gaussian kernel, raytracevs_tpu/ops/photon.py::gather lane by lane
     (the same step bound, cell order, caps and early-out; a photon whose
     cell shares a hash slot with a neighbour's is counted once per slot
-    visit, as there). position/normal [N,3]; returns the caustic [N,3].
-    Finished lanes leave the working set every few steps."""
+    visit, as there). position/normal [N,3]; returns the caustic [N,3]."""
+    return _gather_weighted(pmap, position, normal)[0]
+
+
+def _gather_weighted(pmap: PhotonMap, position, normal):
+    """gather's (caustic [N,3], summed kernel weight [N]); the caustic is
+    zero where the weight is not positive. Finished lanes leave the
+    working set every few steps."""
     n = position.shape[0]
     dev = position.device
     n_cells = len(CELL_OFFSETS)
@@ -392,23 +401,31 @@ def gather(pmap: PhotonMap, position, normal):
         cur = {k: v[live] for k, v in cur.items()}
     area = 3.14159265 * radius_sq
     caustic = torch.where((weight > 0.0)[:, None], caustic / area, 0.0)
-    return caustic * pmap.intensity
+    return caustic * pmap.intensity, weight
 
 
-def caustics_delta(pmap: PhotonMap, acc, spp: int):
-    """Plain version of K6: the caustic at the eligible primary hits of the
-    accumulator planes acc [NUM_CH,H,W], times spp, as [3,H,W] (zero
-    elsewhere). Eligible: a primary hit on a diffuse surface (metallic <
-    0.5, transmission <= 0.01; RayGen.hlsl:505-519). One gather per pixel
-    at its first-hit record, scaled by spp, as
-    raytracevs_tpu/ops/render.py::caustics_delta does."""
+def add_caustics(pmap: PhotonMap, acc, spp: int):
+    """Plain version of K6: adds the caustic, times spp, into the colour
+    and diffuse planes of the accumulator acc [NUM_CH,H,W] (contiguous) in
+    place at its lit pixels; returns acc. A pixel is gathered where it is
+    eligible, a primary hit on a diffuse surface (metallic < 0.5,
+    transmission <= 0.01; RayGen.hlsl:505-533), at its first-hit record,
+    and lit where the gather finds weight; no other pixel or plane is
+    written. raytracevs_tpu/ops/render.py::caustics_delta's delta added to
+    the colour, as the JAX frame adds it (which adds +0.0 elsewhere)."""
     _, h, w = acc.shape
     eligible = ((acc[render.CH_PRIM_HIT] > 0.5) & (acc[render.CH_METALLIC] < 0.5)
                 & (acc[render.CH_TRANSMISSION] <= 0.01)).reshape(-1)
-    pos = acc[render.CH_POS:render.CH_POS + 3].reshape(3, -1).T
-    nrm = acc[render.CH_NORMAL:render.CH_NORMAL + 3].reshape(3, -1).T
+    flat = acc.view(acc.shape[0], h * w)
+    pos = flat[render.CH_POS:render.CH_POS + 3].T
+    nrm = flat[render.CH_NORMAL:render.CH_NORMAL + 3].T
     lanes = torch.nonzero(eligible).squeeze(1)
-    delta = torch.zeros((h * w, 3), dtype=F32, device=acc.device)
-    caustic = gather(pmap, pos[lanes], nrm[lanes])
-    delta = delta.index_copy(0, lanes, caustic * float(spp))
-    return delta.T.reshape(3, h, w)
+    caustic, weight = _gather_weighted(pmap, pos[lanes], nrm[lanes])
+    lit = weight > 0.0
+    lanes, delta = lanes[lit], (caustic[lit] * float(spp)).T
+    for ch in (render.CH_COLOR, render.CH_DIFFUSE):
+        flat[ch:ch + 3, lanes] = flat[ch:ch + 3, lanes] + delta
+    return acc
+
+
+_emit_photons.launches = 0

@@ -202,20 +202,20 @@ def assemble_frame_cf(scene, cfg, acc: dict) -> FrameOutputCF:
     )
 
 
-def apply_caustics_cf(scene, cfg, acc: torch.Tensor, planes: dict) -> dict:
+def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None) -> torch.Tensor:
     """The photon pass of a frame with caustics (num_photons > 0): emit and
-    trace the photons (K5), build the hash, gather at the eligible primary
-    hits of the accumulator planes `acc` (K6) and add the caustic to the
-    colour and diffuse planes of `planes` (accum_dict(acc); RayGen.hlsl:
-    505-533). The photon map is rebuilt every frame."""
+    trace the photons (K5, on `tables`, the frame's pack_tables, when
+    given), build the hash, and add the caustic gathered at the eligible
+    primary hits of the accumulator planes `acc` into their colour and
+    diffuse planes in place (K6; RayGen.hlsl:505-533). Returns acc. The
+    photon map is rebuilt every frame."""
     if cfg.num_photons <= 0:
-        return planes
+        return acc
     from . import photon
     from .cuda import photon_kernels
 
-    pmap = photon.emit_and_trace(scene, cfg.num_photons)
-    delta = photon_kernels.gather(pmap, acc, cfg.samples_per_pixel)
-    return dict(planes, color=planes["color"] + delta, diffuse=planes["diffuse"] + delta)
+    pmap = photon.emit_and_trace(scene, cfg.num_photons, tables)
+    return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel)
 
 
 def render_rows_cf(scene, cfg, two_phase=False, aperture_size=None) -> FrameOutputCF:
@@ -223,14 +223,17 @@ def render_rows_cf(scene, cfg, two_phase=False, aperture_size=None) -> FrameOutp
     or with two_phase through the two-phase renderer (K7, the coherence
     sort, K8: ops/twophase.py; spp 1, and `aperture_size`, the host
     FlatScene's, at most 1e-3), add the caustics when they are on (K5, K6)
-    and assemble the channel-first frame."""
+    and assemble the channel-first frame. On the card the scene's tables
+    are packed once, for the render kernels and K5. The accumulator planes
+    are the frame's own: the caustic goes into them in place."""
+    from .cuda import megakernel
+
+    tables = megakernel.pack_tables(scene) if scene.cam_pos.device.type == "cuda" else None
     if two_phase:
         from .twophase import render_accum_two_phase
 
-        acc = render_accum_two_phase(scene, cfg, aperture_size)
+        acc = render_accum_two_phase(scene, cfg, aperture_size, tables)
     else:
-        from .cuda import megakernel
-
-        acc = megakernel.render_accum(scene, cfg)
-    planes = apply_caustics_cf(scene, cfg, acc, accum_dict(acc))
-    return assemble_frame_cf(scene, cfg, planes)
+        acc = megakernel.render_accum(scene, cfg, tables=tables)
+    acc = apply_caustics_cf(scene, cfg, acc, tables)
+    return assemble_frame_cf(scene, cfg, accum_dict(acc))

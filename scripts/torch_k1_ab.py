@@ -10,8 +10,13 @@ each library is called through its own wrappers and tables, and times
 (chip_smoke.py's scenes, 1920x1080): K1 on the demo scene and K1-mesh on
 the mesh demo scene at spp 2 and spp 1, K7 and K8 on both at spp 1 (K8 on
 its own tree's K7 planes and sorted order), and K5 on the demo scene at its
-16,384 photons (the launch alone; the frame's wrapper also packs the
-tables), and K3 (atrous) and K4 (shadow_denoise) on the 1080p G-buffer
+16,384 photons (the launch alone, of a tree whose K5 emits in the kernel
+or of one whose K5 takes emission's tensors), the photon pass as each
+tree's frame runs it (the emission and K5, ops/photon.py::
+trace_photon_slice, on the frame's tables where that tree's K5 takes
+them; then K6 and the fold-in of the caustic into the colour and
+diffuse planes, or K6 adding it into them in place), and K3 (atrous) and
+K4 (shadow_denoise) on the 1080p G-buffer
 of chip_smoke.py's phase 4 (one wrapper call each: one launch, or as many
 as that checkout's wrapper makes), calling the libraries in turns (other,
 this, then back) for `--rounds` rounds: each render call is one launch on
@@ -27,18 +32,29 @@ sum; then this tree's parts: to_device's uploads and gathers, the
 collapse of the 199,712-triangle BLAS alone, and the wide table's work a
 frame (the kept combined table's check and the box gather).
 
+With --stages N, it then times each stage of a 1080p frame of the five
+columns of chip_smoke.py's phase 7 (analytic, mesh, caustics, mesh spp 1,
+two-phase mesh spp 1), N orbiting frames a column, through each tree's
+own chip_smoke.py::stage_times in a process of its own, the trees in
+turns (other, this, this, other, other, this), and prints each stage's
+median over frames 1..N-1 in each run, the median of a tree's three
+runs, and each column's sum of those, with and without update_scene
+(the host's, whose time spreads most between processes).
+
 It prints each time, the median and range per library, ptxas's
 registers, stack, spills and shared memory of the render and denoiser
 kernels in each build, the card's name and power limit, and as its last
 line a JSON object of the results.
 
     python3 scripts/torch_k1_ab.py --other DIR [--rounds 5] [--frames 40] [--cases REGEX]
+                                   [--stages N]
 
 --cases keeps the kernel cases whose label matches the regular expression
 (for example '^K7', '^K[34]' or 'demo scene, spp 2'; all by default);
 --frames 0 skips the host's part.
 
-It needs one CUDA device, nvcc, and the other checkout at DIR.
+It needs one CUDA device, nvcc, and the other checkout at DIR (with its
+chip_smoke.py for --stages).
 """
 import argparse
 import importlib
@@ -69,9 +85,70 @@ B.load_library()
 print(json.dumps({"path": B.library_path(), "s": time.perf_counter() - t0}))
 """
 KERNELS = ("render_accum_kernel", "render_phase_b_kernel", "photon_trace_kernel",
-           "atrous_kernel", "atrous_pass_kernel", "anti_firefly_kernel", "shadow_kernel")
+           "photon_gather_kernel", "atrous_kernel", "atrous_pass_kernel", "anti_firefly_kernel",
+           "shadow_kernel")
 # a kernel's name in a mangled symbol: its length before it, then E or I
 KERNEL_RE = re.compile(r"\d(%s)[EI]" % "|".join(KERNELS))
+
+
+# Run in a checkout: phase 7's stage times of the five columns, as JSON.
+STAGES = r"""
+import json, sys
+import chip_smoke as CS
+import raytracevs_tpu_torch as P
+from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
+from raytracevs_tpu_torch.ops.cuda import megakernel as MK
+from raytracevs_tpu_torch.post import denoise as PD
+from raytracevs_tpu_torch.scene import data as D
+frames = int(sys.argv[1])
+cols = {"analytic": ((CS.demo_scene,), {}), "mesh": ((CS.mesh_demo_scene, CS.MESH_DEMO), {}),
+        "caustics": ((CS.demo_scene,), {"overrides": CS.CAUSTICS}),
+        "mesh spp 1": ((CS.mesh_demo_scene, CS.MESH_DEMO, CS.SPP1), {}),
+        "two-phase mesh spp 1": ((CS.mesh_demo_scene, CS.MESH_DEMO, CS.SPP1),
+                                 {"two_phase": True})}
+print(json.dumps({k: CS.stage_times(P, D, MK, K, PD, frames, *a, **kw)
+                  for k, (a, kw) in cols.items()}))
+"""
+# Run in a checkout: build its kernel library where its Engine loads it from.
+BUILD_DEFAULT = r"""
+from raytracevs_tpu_torch.ops.cuda import _build
+_build.load_library()
+"""
+
+
+def stages_ab(trees, frames):
+    """Phase 7's stage times of each tree (the module docstring), in turns;
+    prints them and returns {tree: {column: {stage: [median a run]}}}."""
+    for p in [subprocess.Popen([sys.executable, "-c", BUILD_DEFAULT], cwd=t)
+              for t in trees.values()]:
+        if p.wait() != 0:
+            raise RuntimeError("a tree's kernel build failed")
+    runs = {tn: [] for tn in trees}
+    for tn in ("other", "this", "this", "other", "other", "this"):
+        proc = subprocess.run([sys.executable, "-c", STAGES, str(frames)], cwd=trees[tn],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"stage times of {tn} failed: {proc.stderr[-3000:]}")
+        runs[tn].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    out = {tn: {} for tn in trees}
+    for col in runs["this"][0]:
+        sums = {}
+        for tn in trees:
+            meds = {}
+            for run in runs[tn]:
+                for stage, ms in run[col].items():
+                    meds.setdefault(stage, []).append(statistics.median(ms[1:]))
+            out[tn][col] = meds
+            for stage, m in meds.items():
+                print(f"stages {col}, {tn}: {stage}: median {statistics.median(m):.3f} ms "
+                      f"(runs {[round(x, 3) for x in m]})", flush=True)
+            sums[tn] = [sum(statistics.median(m) for st, m in meds.items()
+                            if keep or not st.startswith("update_scene")) for keep in (1, 0)]
+        for i, what in enumerate(("", " without update_scene")):
+            a, b = sums["other"][i], sums["this"][i]
+            print(f"stages {col}: sum of stage medians{what} other {a:.3f} ms, this {b:.3f} ms, "
+                  f"this - other {b - a:.3f} ms ({b / a:.4f})", flush=True)
+    return out
 
 
 def start_build(tree, name):
@@ -178,6 +255,65 @@ class Tree:
         return s, P.to_device(flat, torch.device("cuda"))
 
 
+def photon_case(entry, tree, sc, cfg, tables):
+    """(before, fn, finish) of a photon case for one tree: fn() the timed
+    call as that tree's frame makes it, before() what must run ahead of it
+    untimed, finish(fn's result) the output compared across trees. A tree
+    whose K5 emits in the kernel and whose K6 adds into the planes in place
+    has photon_kernels.add_caustics; the parent's K5 takes emission's
+    tensors and its K6 returns the caustic, which the frame folds in."""
+    fused = hasattr(tree.PK, "add_caustics")
+    n, spp, dev = cfg.num_photons, cfg.samples_per_pixel, sc.cam_pos.device
+
+    def stores(out):  # the stored photons' fields (the rest is not written)
+        m = out[4]
+        return torch.cat([out[c][m].reshape(-1) for c in range(4)] + [m.float()])
+
+    def nothing():
+        pass
+
+    if entry == "photon_trace":  # the launch alone
+        outs = ([torch.empty((n, 3), device=dev) for _ in range(3)]
+                + [torch.empty((n,), device=dev), torch.empty((n,), dtype=torch.bool, device=dev)])
+        em = ()
+        if fused:
+            ptrs = [tables[0].data_ptr(), tables[1].data_ptr(), sc.sphere_capacity,
+                    sc.plane_capacity, sc.box_capacity, sc.mat_color.shape[0],
+                    sc.light_capacity, n, 0, n]
+        else:
+            em = tree.PP._emit_photons(sc, n) + (torch.arange(n, dtype=torch.int32, device=dev),)
+            ptrs = [tables[0].data_ptr(), sc.sphere_capacity, sc.plane_capacity,
+                    sc.box_capacity, sc.mat_color.shape[0], sc.light_capacity, n,
+                    *(x.data_ptr() for x in em)]
+        ptrs += [x.data_ptr() for x in outs]
+
+        def launch():  # em and outs, behind the pointers, live as long as it
+            stream = torch.cuda.current_stream().cuda_stream
+            return tree.lib.rtvs_photon_trace(*ptrs, stream), em, outs
+
+        return nothing, launch, lambda _: stores(outs)
+    if entry == "photon_pass_trace":  # emission and K5 as the frame runs them
+        if fused:
+            return nothing, lambda: tree.PP.trace_photon_slice(sc, n, 0, n, tables), stores
+        return nothing, lambda: tree.PP.trace_photon_slice(sc, n, 0, n), stores
+    # K6: with the fold-in as the frame runs it (photon_pass_gather), or
+    # alone, the parent's fold-in after the timed call (photon_k6)
+    acc = tree.MK.render_accum(sc, cfg, tables=tables)
+    pmap = tree.PP.emit_and_trace(sc, n)
+    if fused:
+        work = acc.clone()
+        return (lambda: work.copy_(acc), lambda: tree.PK.add_caustics(pmap, work, spp),
+                lambda _: torch.cat([work[0:3], work[6:9]]) + 0.0)
+    if entry == "photon_pass_gather":
+        def fold():
+            delta = tree.PK.gather(pmap, acc, spp)
+            return acc[0:3] + delta, acc[6:9] + delta
+
+        return nothing, fold, lambda planes: torch.cat(planes) + 0.0
+    return (nothing, lambda: tree.PK.gather(pmap, acc, spp),
+            lambda delta: torch.cat([acc[0:3] + delta, acc[6:9] + delta]) + 0.0)
+
+
 def host_ab(trees, CS, frames):
     """The host's scene update of each tree in turns (the module
     docstring's second part), the device synchronised around each call;
@@ -258,6 +394,8 @@ def main():
     ap.add_argument("--frames", type=int, default=40,
                     help="orbiting frames a tree (0: no host part)")
     ap.add_argument("--cases", default="", help="a regular expression of case labels to keep")
+    ap.add_argument("--stages", type=int, default=0,
+                    help="orbiting frames a column of phase 7's stage times (0: none)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_ab: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -289,8 +427,14 @@ def main():
                   (f"{k1}, {label}, spp 1", "rtvs_render_accum", build, meshes, CS.SPP1),
                   (f"K7, {label}, spp 1", "rtvs_render_phase_a", build, meshes, CS.SPP1),
                   (f"K8, {label}, spp 1", "rtvs_render_phase_b", build, meshes, CS.SPP1)]
-    cases.append(("K5, demo scene, 16384 photons", "photon_trace", CS.demo_scene, False,
-                  CS.CAUSTICS))
+    cases += [("K5, demo scene, 16384 photons", "photon_trace", CS.demo_scene, False,
+               CS.CAUSTICS),
+              ("photon pass: emission and K5, demo scene, 16384 photons", "photon_pass_trace",
+               CS.demo_scene, False, CS.CAUSTICS),
+              ("photon pass: K6 and the fold-in, demo scene 1920x1080, spp 2",
+               "photon_pass_gather", CS.demo_scene, False, CS.CAUSTICS),
+              ("K6 alone, demo scene 1920x1080, spp 2", "photon_k6", CS.demo_scene, False,
+               CS.CAUSTICS)]
     cases += [(f"{k}, demo scene G-buffer 1920x1080", entry, None, False, None)
               for k, entry in (("K3 atrous", "atrous"), ("K4 shadow_denoise", "shadow_denoise"))]
     cases = [c for c in cases if re.search(args.cases, c[0])]
@@ -311,20 +455,9 @@ def main():
             flags = tree.MK._check(sc, cfg, "torch_k1_ab")
             tables = tree.MK.pack_tables(sc)
             extra = None
-            if entry == "photon_trace":
-                n = cfg.num_photons
-                dev = sc.cam_pos.device
-                em = tree.PP._emit_photons(sc, n)
-                outs = ([torch.empty((n, 3), device=dev) for _ in range(3)]
-                        + [torch.empty((n,), device=dev),
-                           torch.empty((n,), dtype=torch.bool, device=dev)])
-                idx = torch.arange(n, dtype=torch.int32, device=dev)
-                ptrs = [tables[0].data_ptr(), sc.sphere_capacity, sc.plane_capacity,
-                        sc.box_capacity, sc.mat_color.shape[0], sc.light_capacity, n,
-                        *(x.data_ptr() for x in em), idx.data_ptr(),
-                        *(x.data_ptr() for x in outs)]
-                extra = (em + (idx,), outs, ptrs)  # the tensors stay alive with the pointers
-            elif entry == "rtvs_render_phase_b":
+            if entry.startswith("photon"):
+                extra = photon_case(entry, tree, sc, cfg, tables)
+            if entry == "rtvs_render_phase_b":
                 a = tree.MK.render_phase_a(sc, cfg, tables)
                 o, c = tree.TP.coherence_order(a)
                 # K8 takes K7's hit planes where its tree's K7 writes them
@@ -339,13 +472,11 @@ def main():
                 return timed(tree.MK._build, tree.lib, lambda: fn(*denoise[entry]))
             tree, sc, cfg, flags, tables, extra = prep[n]
             R = tree.R
-            if entry == "photon_trace":
-                em, out, ptrs = extra
-                lib = tree.lib
-                _, t = timed(tree.MK._build, lib, lambda: lib.rtvs_photon_trace(
-                    *ptrs, torch.cuda.current_stream().cuda_stream))
-                m = out[4]  # the stored photons' fields (the rest is not written)
-                return torch.cat([out[c][m].reshape(-1) for c in range(4)] + [m.float()]), t
+            if entry.startswith("photon"):
+                before, fn, finish = extra
+                before()
+                v, t = timed(tree.MK._build, tree.lib, fn)
+                return finish(v), t
             if entry == "rtvs_render_phase_b":
                 acc0, o, c, hits = extra
                 out = acc0.clone()
@@ -382,14 +513,24 @@ def main():
         print(f"{label}: this / other {med['this'] / med['other']:.4f}; planes bit-equal "
               f"{not differ}", flush=True)
         results[label] = dict(times, median=med)
+        if entry.startswith("photon"):  # the device's time alone, by chip_smoke.device_ms
+            dev = {}
+            for n in names:
+                tree, extra = prep[n][0], prep[n][5]
+                extra[0]()
+                dev[n] = timed(tree.MK._build, tree.lib,
+                               lambda: CS.device_ms(extra[1], 20))[0]
+                print(f"{label}: {n} device {dev[n][0]:.4f} ms ({dev[n][1]})", flush=True)
+            results[label]["device_ms"] = {n: d[0] for n, d in dev.items()}
         del prep, ref
 
     if mismatched:
         raise AssertionError(f"the libraries' planes differ in {mismatched}")
     host = host_ab(trees, CS, args.frames) if args.frames > 0 else None
+    stages = stages_ab({"other": other, "this": HERE}, args.stages) if args.stages > 0 else None
     print(smi)
     print(json.dumps({"card": smi, "build_s": {n: b["s"] for n, b in builds.items()},
-                      "kernels": results, "host": host}))
+                      "kernels": results, "host": host, "stages": stages}))
 
 
 if __name__ == "__main__":

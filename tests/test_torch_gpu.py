@@ -7,15 +7,18 @@ their plain PyTorch versions, on the card. Every test needs a CUDA device and sk
 Bands: K1 ray count and object ids exact, HDR colour atol 2e-4 on >= 99%
 of pixels; K2 atol 1e-5, K3 and K4 bit for bit from one pixel to 270x480
 (the kernels round like the plain ops; they are built with --fmad=false);
-K5 store masks equal, store fields within
-tests/test_megakernel.py:190-197's bands; K6 |d| <= 1e-5 * max(1, |plain|);
+K5 (emission and bounce loop in one launch) store masks equal, store
+fields within tests/test_megakernel.py:190-197's bands; K6 (the caustic
+added into the colour and diffuse planes in place) |d| <= 1e-5 * max(1,
+|plain|), every other plane's bits kept;
 K7 and K8 as K1, and K7+K8 against K1 at spp 1: rays, bounce and record
 planes bit-equal, colour within 2e-5 * max(1, |K1|); the mesh walks alone
 and the counting build's triangle tests and walks bit-equal to the plain
 walks'. K1 and K7 also bit for bit, with K7's continuation and hit planes,
 at odd sizes and sample counts; the counting build's counts equal the plain
 version's; a mesh deeper than the kernels' walk stack renders through the
-threaded instantiations as its plain version does."""
+threaded instantiations as its plain version does; a frame rendered in
+row bands (K1, K1-mesh, the two-phase path) is bit-equal to one launch."""
 import os
 import sys
 
@@ -204,18 +207,47 @@ def test_k1_bit_equal_to_plain_without_dfs_iterations(name):
     assert int(got[R.CH_RAYS].sum()) == 0
 
 
-def test_wrappers_refuse_frames_past_the_plane_index():
-    """K1 and K7 index their planes in 32 bits: an 8192x8192 frame raises
-    before anything is allocated or launched."""
+BAND_SCENES = {
+    "demo": (lambda: S.demo_scene(D), S.DEMO_OVERRIDES, None),
+    "glass_ball": (lambda: S.glass_ball_scene(D), {"max_soft_samples": 2},
+                   {"GlassBall": (9, 9, 0.7)}),
+}
+
+
+@pytest.mark.parametrize("name", list(BAND_SCENES))
+def test_wrappers_refuse_frames_past_the_plane_index(name):
+    """A frame whose planes pass the plane index (here a limit of five
+    64-pixel rows of K7's planes, which bands 64x32 into 5 bands for K1, 8
+    for K7) renders in row bands, a launch a band, bit-equal to one launch:
+    K1 (K1-mesh for the glass ball) at spp 2, and K7 + sort + K8 at spp 1
+    (each band sorted on its own; a pixel's result does not depend on the
+    order)."""
     _need_cuda()
-    sc, cfg = _two_phase_scene("demo")
-    big = cfg._replace(width=8192, height=8192)
-    before = (MK.render_accum.launches, MK.render_phase_a.launches)
-    with pytest.raises(ValueError, match="32-bit"):
-        MK.render_accum(sc, big)
-    with pytest.raises(ValueError, match="32-bit"):
-        MK.render_phase_a(sc, big)
-    assert (MK.render_accum.launches, MK.render_phase_a.launches) == before
+    build, over, meshes = BAND_SCENES[name]
+    scene = build()
+    w, h = 64, 32
+    ms = None if meshes is None else S.mesh_service(PMC, meshes)
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3,
+                                 mesh_service=ms), "cuda")
+    limit = R.NUM_CH_A * w * 5
+    k1 = MK.render_accum_mesh if meshes else MK.render_accum
+    for spp in (2, 1):
+        cfg = make_config(scene, w, h, **dict(over, samples_per_pixel=spp))
+        one = MK.render_accum(sc, cfg)
+        before = k1.launches
+        banded = MK.render_accum(sc, cfg, limit=limit)
+        assert k1.launches - before == len(MK.row_bands(w, h, R.NUM_CH, limit)) == 5
+        torch.cuda.synchronize()
+        assert _bits_equal(banded, one)
+    one = TP.render_accum_two_phase(sc, cfg, 0.0)
+    before = (MK.render_phase_a.launches, MK.render_phase_b.launches)
+    banded = TP.render_accum_two_phase(sc, cfg, 0.0, limit=limit)
+    n = (MK.render_phase_a.launches - before[0], MK.render_phase_b.launches - before[1])
+    assert n == (8, 8)
+    torch.cuda.synchronize()
+    assert _bits_equal(banded, one)
+    a = MK.render_phase_a(sc, cfg, limit=limit)
+    assert _bits_equal(a, MK.render_phase_a(sc, cfg))
 
 
 @pytest.mark.parametrize("name", ["demo", "config6_soft_shadows", "glass_ball"])
@@ -406,22 +438,32 @@ def _photon_scene(name):
                                           mesh_service=ms), "cuda")
 
 
+@pytest.mark.parametrize("total,offset,count", [(None, 0, None), (256, 0, 256),
+                                                (16384, 0, 16384), (16384, 5000, 3000)])
 @pytest.mark.parametrize("name", list(PHOTON_SCENES))
-def test_k5_cuda_matches_plain(name):
-    """K5 on the packed tables (a mesh scene keeps its instance material
-    rows, which the light table follows) against the plain bounce loop."""
+def test_k5_cuda_matches_plain(name, total, offset, count):
+    """K5 (emission and the bounce loop in one launch) on the frame's
+    packed tables (a mesh scene keeps its instance material rows, which
+    the light table follows) against the plain emission and bounce loop,
+    photons [offset, offset+count) of a total-photon batch (None: 4x the
+    scene's photon budget, the whole batch); no plain emission op runs for
+    the kernel. A whole batch of 16,384 or more photons stores more than
+    10, every other case at least one, so the masks never compare empty."""
     _need_cuda()
     scene, sc = _photon_scene(name)
-    n = 4 * PP.photon_budget(sanitize_scene(scene))
-    em = PP._emit_photons(sc, n)
-    idx = torch.arange(n, dtype=torch.int32, device="cuda")
-    before = PK.trace_photons.launches
-    got = PK.trace_photons(sc, *em, idx)
-    assert PK.trace_photons.launches == before + 1
+    if total is None:
+        total = count = 4 * PP.photon_budget(sanitize_scene(scene))
+    tables = MK.pack_tables(sc)
+    before = (PK.emit_and_trace.launches, PP._emit_photons.launches)
+    got = PK.emit_and_trace(sc, total, offset, count, tables)
+    assert (PK.emit_and_trace.launches, PP._emit_photons.launches) == (before[0] + 1, before[1])
+    em = PP._emit_photons(sc, total, offset, count)
+    idx = torch.arange(count, dtype=torch.int32, device="cuda") + offset
     want = PP._trace_photons(sc, *em, idx)
     torch.cuda.synchronize()
-    assert torch.equal(got[4], want[4]) and int(want[4].sum()) > 10
     m = want[4]
+    assert torch.equal(got[4], m)
+    assert int(m.sum()) > (10 if count >= 16384 else 0)
     for c, atol in enumerate((5e-3, 1e-4, 1e-5, 1e-4)):
         torch.testing.assert_close(got[c][m], want[c][m], atol=atol, rtol=1e-3)
 
@@ -435,25 +477,30 @@ def test_k6_cuda_matches_plain(name):
     w, h = 72, 40
     cfg = make_config(scene, w, h, enable_caustics=True)
     acc = MK.render_accum(sc, cfg)
+    cd = [c for r in (R.CH_COLOR, R.CH_DIFFUSE) for c in range(r, r + 3)]
+    others = [c for c in range(R.NUM_CH) if c not in cd]
     for n in (cfg.num_photons, 8 * cfg.num_photons):
         pmap = PP.emit_and_trace(sc, n)
-        before = PK.gather.launches
-        got = PK.gather(pmap, acc, cfg.samples_per_pixel)
-        assert PK.gather.launches == before + 1
-        want = PP.caustics_delta(pmap, acc, cfg.samples_per_pixel)
+        got, want = acc.clone(), acc.clone()
+        before = PK.add_caustics.launches
+        assert PK.add_caustics(pmap, got, cfg.samples_per_pixel) is got
+        assert PK.add_caustics.launches == before + 1
+        PP.add_caustics(pmap, want, cfg.samples_per_pixel)
         torch.cuda.synchronize()
-        assert bool((want != 0).any())
-        assert bool(((got - want).abs() <= 1e-5 * want.abs().clamp(min=1.0)).all()), \
-            float((got - want).abs().max())
+        assert bool((want[cd] != acc[cd]).any())
+        assert bool(((got[cd] - want[cd]).abs() <= 1e-5 * want[cd].abs().clamp(min=1.0)).all()), \
+            float((got[cd] - want[cd]).abs().max())
+        assert _bits_equal(got[others], acc[others])
 
 
 def test_caustics_engine_cuda_matches_cpu_and_launches_every_kernel():
     _need_cuda()
     w, h = 64, 36
     gpu, cpu = Engine(w, h, device="cuda"), Engine(w, h, device="cpu")
-    kernels = [MK.render_accum, PK.trace_photons, PK.gather, K.reproject_accumulate,
+    kernels = [MK.render_accum, PK.emit_and_trace, PK.add_caustics, K.reproject_accumulate,
                K.atrous, K.shadow_denoise]
     counts = [k.launches for k in kernels]
+    emitted = PP._emit_photons.launches
     for f in range(2):
         for e in (gpu, cpu):
             e.update_scene(S.caustics_golden_scene(D, f))
@@ -462,6 +509,7 @@ def test_caustics_engine_cuda_matches_cpu_and_launches_every_kernel():
         d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
         assert (d <= 1).mean() >= 0.995
     assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 2, 2, 2, 2]
+    assert PP._emit_photons.launches - emitted == 2  # the CPU Engine's two frames
 
 
 TWO_PHASE_SCENES = {
@@ -589,9 +637,10 @@ def test_wrappers_reject_bad_inputs():
         K.shadow_denoise(x["shadow"], x["obj_id"].to(torch.int64), x["view_z"],
                          PD_.decode_oct_cf(x["nr"]))
     _, sc = _photon_scene("demo")
-    em = PP._emit_photons(sc, 256)
+    with pytest.raises(ValueError, match="photons"):
+        PK.emit_and_trace(sc, 256, -1, 256)
     with pytest.raises(ValueError, match="dtype"):
-        PK.trace_photons(sc, *em, torch.arange(256, device="cuda"))
+        PK.emit_and_trace(sc, 256, 0, 256, (MK.pack_tables(sc)[0], torch.zeros(3, device="cuda")))
     pmap = PP.emit_and_trace(sc, 256)
     with pytest.raises(ValueError, match="shape"):
-        PK.gather(pmap, torch.zeros((8, 16, 16), device="cuda"), 2)
+        PK.add_caustics(pmap, torch.zeros((8, 16, 16), device="cuda"), 2)

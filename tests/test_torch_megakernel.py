@@ -162,15 +162,38 @@ def test_k1_plain_without_dfs_iterations_matches_jax():
                                       np.asarray(getattr(jout.gbuffer, f)), err_msg=f)
 
 
-def test_check_size_refuses_frames_past_the_plane_index():
+@pytest.mark.parametrize("width,height,limit,bands", [
+    (1920, 1080, mk.PLANE_LIMIT, 1), (7680, 4320, mk.PLANE_LIMIT, 1),
+    (8192, 8192, mk.PLANE_LIMIT, 2), (8192, 8200, mk.PLANE_LIMIT, 2),
+    (16384, 16384, mk.PLANE_LIMIT, None), (64, 32, 46 * 64 * 5, None), (17, 9, 46 * 17 + 1, 9)])
+def test_row_bands_cover_frames_past_the_plane_index(width, height, limit, bands):
     """K1's 32 and K7's 46 planes are indexed in 32 bits (csrc/render.cuh::
-    Planes): 8K UHD passes, 8192x8192 raises for both."""
-    scene, _ = S.scene_and_overrides(PD, "demo")
-    uhd, big = make_config(scene, 7680, 4320), make_config(scene, 8192, 8192)
+    Planes): a frame under the limit is one band, the whole frame; past it
+    (8192x8200, C10's size, and beyond, or a small limit) the bands, in
+    order, cover every row once, each band's planes under the limit. Pure
+    arithmetic: nothing is allocated."""
     for channels in (R.NUM_CH, R.NUM_CH_A):
-        mk.check_size(uhd, channels, "render")
-        with pytest.raises(ValueError, match="32-bit"):
-            mk.check_size(big, channels, "render")
+        got = mk.row_bands(width, height, channels, limit)
+        if bands is not None and channels == R.NUM_CH_A:
+            assert len(got) == bands
+        assert [r for row0, rows in got for r in range(row0, row0 + rows)] == list(range(height))
+        assert all(channels * rows * width < limit for _, rows in got)
+        if channels * width * height < limit:
+            assert got == [(0, height)]
+        else:
+            assert len(got) > 1
+            assert max(rows for _, rows in got) - min(rows for _, rows in got) <= 1
+
+
+def test_check_size_refuses_frames_past_the_plane_index():
+    """Only a frame one row of whose planes reaches the limit is refused:
+    8192x8200 (C10) bands without a raise; a row of 2**31 / 32 pixels
+    cannot be banded."""
+    assert len(mk.row_bands(8192, 8200, R.NUM_CH)) == 2
+    with pytest.raises(ValueError, match="row"):
+        mk.row_bands(2**26, 2, R.NUM_CH)
+    with pytest.raises(ValueError, match="row"):
+        mk.row_bands(64, 32, R.NUM_CH_A, limit=46 * 64)
 
 
 @pytest.mark.parametrize("name", ["config2_obb_mirror", "glass_ball"])

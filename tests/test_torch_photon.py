@@ -135,11 +135,12 @@ def test_trace_matches_pallas_interpret():
 
 def test_emit_and_trace_on_the_cpu_runs_the_plain_versions():
     """emit_and_trace through the K5 wrapper on CPU tensors: the plain
-    loop, no launch; a mesh scene traces its analytic primitives only."""
-    before = photon_kernels.trace_photons.launches
+    emission and loop, no launch; a mesh scene traces its analytic
+    primitives only."""
+    before = photon_kernels.emit_and_trace.launches
     _, pf = _flat_pair("mesh_demo")
     pm = PP.emit_and_trace(pf, 2048)
-    assert photon_kernels.trace_photons.launches == before
+    assert photon_kernels.emit_and_trace.launches == before
     ref = PP.build_photon_hash(*PP._trace_photons(
         pf._replace(mesh=None), *PP._emit_photons(pf, 2048), torch.arange(2048, dtype=torch.int32)))
     for a, b in zip(pm, ref):
@@ -200,9 +201,33 @@ def test_gather_matches_jax(focus_map):
     assert within.max() > 64
 
 
-def test_caustics_delta_matches_jax(focus_map):
-    """The delta on accumulator planes: eligible pixels (a diffuse primary
-    hit) get the gather times spp, the rest zero."""
+@pytest.mark.parametrize("offset,count", [(0, 4096), (1024, 2048)])
+def test_k5_entry_on_the_cpu_matches_jax_slice(offset, count):
+    """The K5 wrapper (emission and bounce loop in one entry) on CPU
+    tensors runs the plain pair and launches nothing: photons [offset,
+    offset+count) of a 4,096-photon batch against JAX trace_photon_slice
+    (jnp, run op by op, ROADMAP C5) in the trace's bands, and a slice
+    equals the same rows of the whole batch bit for bit."""
+    jf, pf = _flat_pair("config5_caustics_denoise")
+    n = 4096
+    with jax.disable_jit():
+        want = [np.asarray(a) for a in JP.trace_photon_slice(jf, n, offset, count)]
+    before = (photon_kernels.emit_and_trace.launches, PP._emit_photons.launches)
+    got = [a.numpy() for a in photon_kernels.emit_and_trace(pf, n, offset, count)]
+    assert photon_kernels.emit_and_trace.launches == before[0]
+    assert PP._emit_photons.launches == before[1] + 1  # the plain emission ran
+    assert want[4].any()  # the slice stores caustic photons
+    _assert_trace_close(got, want)
+    whole = [a.numpy() for a in PP.trace_photon_slice(pf, n, 0, n)]
+    for g, w in zip(got, whole):
+        np.testing.assert_array_equal(g, w[offset:offset + count])
+
+
+def _caustic_planes(focus_map, lit_planes=True):
+    """(accumulator planes of receivers on the focus map's floor: 80% hit,
+    a fifth of them metal and a fifth glass; the other planes random, and
+    colour and diffuse too when lit_planes, else zero), the JAX delta
+    [N,3] and its eligibility mask, spp."""
     recv, nrm = _receivers(focus_map)
     h, w = 16, recv.shape[0] // 16
     n = h * w
@@ -215,16 +240,79 @@ def test_caustics_delta_matches_jax(focus_map):
     cfg = j_make_config(j_sanitize(_scene(JD, "demo")), w, h, samples_per_pixel=spp)
     want, mask = JR.caustics_delta(None, cfg, focus_map, jnp.asarray(hit), jnp.asarray(recv),
                                    jnp.asarray(nrm), jnp.asarray(metal), jnp.asarray(trans))
-    acc = torch.zeros((PR.NUM_CH, h, w), dtype=torch.float32)
+    acc = _t(rng.random((PR.NUM_CH, h, w), dtype=np.float32))
     acc[PR.CH_PRIM_HIT] = _t(hit.astype(np.float32)).reshape(h, w)
     acc[PR.CH_METALLIC] = _t(metal).reshape(h, w)
     acc[PR.CH_TRANSMISSION] = _t(trans).reshape(h, w)
     acc[PR.CH_POS:PR.CH_POS + 3] = _t(recv.T).reshape(3, h, w)
     acc[PR.CH_NORMAL:PR.CH_NORMAL + 3] = _t(nrm.T).reshape(3, h, w)
-    got = photon_kernels.gather(photon_map_from_numpy(focus_map), acc, spp)
-    got = got.reshape(3, n).T.numpy()
-    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=1e-5)
-    assert not got[~np.asarray(mask)].any() and got[np.asarray(mask)].any()
+    if not lit_planes:
+        acc[PR.CH_COLOR:PR.CH_COLOR + 3] = 0.0
+        acc[PR.CH_DIFFUSE:PR.CH_DIFFUSE + 3] = 0.0
+    return acc, np.asarray(want), np.asarray(mask), spp
+
+
+def _assert_caustic_added(got, before, want, mask):
+    """got: the planes after the in-place add; before: a copy of them
+    taken before it. Colour and diffuse equal JAX's plane + delta (JAX
+    adds the delta's +0.0 at every unlit pixel, which could differ from
+    an unwritten plane only in the sign of a zero, and array_equal and
+    allclose count -0.0 and +0.0 as equal); every other plane keeps its
+    bits; a pixel that is not eligible keeps its colour."""
+    h, w = got.shape[1:]
+    for ch in (PR.CH_COLOR, PR.CH_DIFFUSE):
+        plane = before[ch:ch + 3].reshape(3, -1).T.numpy()
+        np.testing.assert_allclose(got[ch:ch + 3].reshape(3, -1).T.numpy(), plane + want,
+                                   atol=1e-6, rtol=1e-5)
+    others = [c for c in range(PR.NUM_CH) if not (PR.CH_COLOR <= c < PR.CH_COLOR + 3
+                                                  or PR.CH_DIFFUSE <= c < PR.CH_DIFFUSE + 3)]
+    assert torch.equal(got[others].view(torch.int32), before[others].view(torch.int32))
+    changed = (got[PR.CH_COLOR:PR.CH_COLOR + 3] != before[PR.CH_COLOR:PR.CH_COLOR + 3])
+    changed = changed.any(0).reshape(-1).numpy()
+    assert not changed[~mask].any() and changed[mask].any()
+
+
+def test_caustics_delta_matches_jax(focus_map):
+    """The delta through the K6 wrapper on CPU tensors (the plain in-place
+    add, no launch) into zero colour and diffuse planes, so that the planes
+    after it hold the delta itself: eligible pixels (a diffuse primary
+    hit) get JAX's delta, the gather times spp, at JAX's tolerance;
+    nothing else changes (_assert_caustic_added)."""
+    acc, want, mask, spp = _caustic_planes(focus_map, lit_planes=False)
+    before = acc.clone()
+    launches = photon_kernels.add_caustics.launches
+    got = photon_kernels.add_caustics(photon_map_from_numpy(focus_map), acc, spp)
+    assert got is acc and photon_kernels.add_caustics.launches == launches
+    _assert_caustic_added(acc, before, want, mask)
+
+
+def test_k6_wrapper_adds_into_lit_planes_in_place(focus_map):
+    """The K6 wrapper on CPU tensors into random colour and diffuse planes,
+    as a frame's are: each eligible pixel's planes gain JAX's delta, every
+    other plane and pixel keeps its bits (_assert_caustic_added)."""
+    acc, want, mask, spp = _caustic_planes(focus_map)
+    before = acc.clone()
+    launches = photon_kernels.add_caustics.launches
+    got = photon_kernels.add_caustics(photon_map_from_numpy(focus_map), acc, spp)
+    assert got is acc and photon_kernels.add_caustics.launches == launches
+    _assert_caustic_added(acc, before, want, mask)
+
+
+def test_apply_caustics_cf_adds_into_the_planes_as_jax(focus_map, monkeypatch):
+    """apply_caustics_cf on the CPU with the focus map as the frame's map:
+    the caustic goes into the frame's own planes (no delta planes, no
+    fold-in after it), equal to JAX's colour + delta."""
+    from raytracevs_tpu_torch.ops.render_cf import apply_caustics_cf
+
+    acc, want, mask, spp = _caustic_planes(focus_map)
+    before = acc.clone()
+    pmap = photon_map_from_numpy(focus_map)
+    monkeypatch.setattr(PP, "emit_and_trace", lambda *a, **k: pmap)
+    cfg = make_config(sanitize_scene(_scene(PD, "demo")), acc.shape[2], acc.shape[1],
+                      samples_per_pixel=spp, enable_caustics=True)
+    assert cfg.num_photons > 0
+    assert apply_caustics_cf(None, cfg, acc) is acc
+    _assert_caustic_added(acc, before, want, mask)
 
 
 def test_gather_vs_pallas_interpret():
