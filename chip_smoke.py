@@ -42,9 +42,25 @@ the walks' box and triangle tests included); after each path it checks the
 frames and that every kernel of the path launched; then it compares small
 frames with the CPU's plain pipeline and times each stage of a 1080p frame
 of the scenes. The card's path runs no plain emission op (counted on
-ops/photon.py::_emit_photons.launches). It prints a JSON line of the kernels, the card's name and
-power limit, and as its last line {"ok": true, "device": {...}}. Each
-path launches K2, K3 and K4 once a frame.
+ops/photon.py::_emit_photons.launches). Then the scene files: the demo
+and mesh demo scenes written as .rtvs graphs with the port's save_graph,
+Engine(1920, 1080).load_rtvs rendering three frames of each (every launch
+count set to 0 just before, read just after), their FlatScene leaves and
+frames bit-equal to the in-code scenes'; the photon debug modes (K1 and
+K7 in modes 3 and 4 on the demo scene, K1-mesh and K7 in mode 3 on the
+full mesh demo scene at spp 1, bit-equal to their plain versions; K6's
+replacement fold-in within 1e-5 with every other plane's bits kept, all
+at 480x270; K7 + sort + K8 against K1 in mode 3), and render_debug_view
+modes 1-10 after a 1080p caustics frame; the Engine's surface on the card
+(validate_frame, copy_pixels_into's fills, render(fail_safe=True)); and
+the CLI (python -m raytracevs_tpu_torch.api.cli, a process of its own,
+three 1080p frames of the demo scene's file), its PNG equal to the
+Engine's frame. Phase 3 prints the mode-0 instantiations' registers and
+spills beside PR 8's and fails if K1 or K7 pass 128 registers or spill,
+or K1-mesh leaves 184 registers without spills. It prints a JSON line of
+the kernels (debug_modes_max_abs_err: the photon debug modes' check), the
+card's name and power limit, and as its last line {"ok": true, "device":
+{...}}. Each path launches K2, K3 and K4 once a frame.
 
     python3 chip_smoke.py
 
@@ -54,6 +70,7 @@ catches an error: any failed phase ends the run with a traceback.
 import ctypes
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1162,6 +1179,278 @@ def denoise_inputs(P, D, PD, K, dev):
     return k2_args, new_state, k3_args, k4_args
 
 
+# ---- scene files, the photon debug modes, the Engine's surface, the CLI ----
+
+# the render kernels' mode-0 instantiations in the build log, by a piece of
+# their mangled names, with the parent tree's ptxas figures (PR 8's, built
+# beside this tree's by scripts/torch_k1_ab.py): registers, spill stores.
+# K1, K7 and K8 analytic and with meshes (whole frames), K6's add.
+PTXAS_PR8 = (
+    ("K1", "render_accum_kernelILi0ELb0ELb0E", (128, 0)),
+    ("K7", "render_accum_kernelILi0ELb1ELb0E", (120, 0)),
+    ("K1-mesh", "render_accum_kernelILi1ELb0ELb0E", (184, 0)),
+    ("K7-mesh", "render_accum_kernelILi1ELb1ELb0E", (128, 292)),
+    ("K8", "render_phase_b_kernelILi0E", (128, 0)),
+    ("K8-mesh", "render_phase_b_kernelILi1E", (186, 0)),
+    ("K6 (add)", "photon_gather_kernelILb0E", (40, 4)),
+)
+
+
+def ptxas_mode0(log_path):
+    """Registers and spill stores of the mode-0 instantiations (PTXAS_PR8)
+    in the library's build log, printed beside PR 8's; raises unless K1
+    and K7 keep at most 128 registers without spill stores and K1-mesh its
+    PR 8 registers without spill stores. Returns {name: (registers, spill
+    stores)}."""
+    import re
+
+    found, entry, spills = {}, None, None
+    with open(log_path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+                entry = next((k for k, piece, _ in PTXAS_PR8 if piece in name
+                              and "_count_" not in name and "_threaded_" not in name), None)
+            elif entry and "spill stores" in line:
+                spills = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            elif entry and "registers" in line:
+                found.setdefault(entry, (int(re.search(r"Used (\d+) registers", line).group(1)),
+                                         spills))
+                entry = None
+    for name, _, (regs8, spills8) in PTXAS_PR8:
+        regs, sp = found[name]
+        print(f"phase 3 ptxas mode 0 {name}: {regs} registers, {sp} bytes of spill stores "
+              f"(PR 8: {regs8} registers, {spills8} bytes)", flush=True)
+    if any(found[k][0] > 128 or found[k][1] for k in ("K1", "K7")):
+        raise AssertionError("K1 or K7 passed 128 registers or spilled in mode 0")
+    if found["K1-mesh"] != (184, 0):
+        raise AssertionError(f"K1-mesh's registers or spills moved: {found['K1-mesh']}")
+    return found
+
+
+def scenes_module():
+    """tests/_torch_scenes.py (no JAX): the graph builder of the scene files."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import _torch_scenes
+
+    return _torch_scenes
+
+
+def write_scene_file(path, scene):
+    """`scene` as a .rtvs file, through the port's save_graph: tests/
+    _torch_scenes.py::scene_graph, the box turned as demo_scene's. It
+    evaluates to as_evaluated(scene), the directional lights' directions
+    normalized."""
+    from raytracevs_tpu_torch.scene import graph as G
+    from raytracevs_tpu_torch.scene import nodes as N
+    from raytracevs_tpu_torch.scene.rtvs import save_graph
+
+    TS = scenes_module()
+    save_graph(TS.scene_graph(N, G, scene, [TS.DEMO_BOX_QUAT]), path)
+
+
+def flat_bytes(flat):
+    """A host FlatScene's leaves as bytes, the mesh's fine tree included."""
+    from raytracevs_tpu_torch.ops import bvh as B
+
+    out = {n: np.asarray(v).tobytes() for n, v in zip(flat._fields, flat) if n != "mesh"}
+    if flat.mesh is not None:
+        out.update({f"mesh.{n}": np.asarray(getattr(flat.mesh, n)).tobytes()
+                    for n in B.FINE_FIELDS})
+    return out
+
+
+def check_scene_file(P, D, label, build, counters, path, meshes=None):
+    """Phase 8: build(D, 0) written as a .rtvs file; Engine(1920, 1080)
+    .load_rtvs renders FRAMES frames, every launch count set to 0 just
+    before and read just after. Its FlatScene leaves must be bit-equal to
+    the in-code scene's, and its frames to those of an Engine fed the
+    in-code SceneData. Returns (launches, the in-code Engine)."""
+    write_scene_file(path, build(D, 0))
+    ms = None if meshes is None else mesh_service(meshes)
+    for c in counters.values():
+        c.launches = 0
+    eng = P.Engine(FULL_W, FULL_H, mesh_service=ms)
+    t0 = time.perf_counter()
+    eng.load_rtvs(path, **OVERRIDES)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    imgs = []
+    for f in range(FRAMES):
+        imgs.append(eng.render())
+        print(f"phase 8 {label} file frame {f}: {eng.last_render_ms:.2f} ms, {eng.last_rays} "
+              f"rays (load_rtvs with update_scene {load_ms:.1f} ms)", flush=True)
+    launches = {name: c.launches for name, c in counters.items()}
+    print(f"phase 8 {label} launches: {launches}", flush=True)
+    ref = P.Engine(FULL_W, FULL_H, mesh_service=ms)
+    ref.update_scene(scenes_module().as_evaluated(build(D, 0)), **OVERRIDES)
+    a, b = flat_bytes(eng._flat._replace(frame_index=ref._flat.frame_index)), flat_bytes(ref._flat)
+    differ = [n for n in a if a[n] != b[n]]
+    same = [bool(np.array_equal(img, ref.render())) for img in imgs]
+    print(f"phase 8 {label}: {len(a)} FlatScene leaves, differing {differ}; the {FRAMES} frames "
+          f"bit-equal to the in-code scene's {same}", flush=True)
+    if differ or not all(same):
+        raise AssertionError(f"the {label} scene file differs from its in-code scene")
+    k1 = "render_accum_mesh" if meshes else "render_accum"
+    for name in (k1, "reproject_accumulate", "atrous", "shadow_denoise"):
+        if launches[name] < FRAMES:
+            raise AssertionError(f"{name} launched {launches[name]} times in {FRAMES} frames of "
+                                 f"the {label} file")
+    return launches, ref
+
+
+def check_debug_k1(P, MK, R, sc, scene, w, h, label, overrides=OVERRIDES, modes=(3, 4)):
+    """K1 (or K1-mesh) and K7 in the photon debug modes `modes` against
+    their plain versions, every plane bit-equal, at w x h (K7 at spp 1);
+    the mode changes the planes. Returns the largest colour max |d| of K1
+    and of K7 (0 both)."""
+    err, err_a = 0.0, 0.0
+    for mode in modes:
+        cfg = P.make_config(scene, w, h, **dict(overrides, photon_debug_mode=mode))
+        err = max(err, check_k1(f"phase 9 {label} mode {mode},", MK, R, sc, cfg)[0])
+        if torch.equal(MK.render_accum(sc, cfg), MK.render_accum(sc, cfg._replace(
+                photon_debug_mode=0))):
+            raise AssertionError(f"mode {mode} leaves the {label} planes as mode 0's")
+        c1 = cfg._replace(samples_per_pixel=1)
+        got, want = MK.render_phase_a(sc, c1), R.render_accum_phase_a(sc, c1)
+        bits = same_bits(got, want)
+        err_a = max(err_a, assert_like_plain(f"phase 9 K7 {label} mode {mode} spp 1,", R, c1,
+                                             got, want, f"; every plane bit-equal {bits}"))
+        if not bits:
+            raise AssertionError(f"K7 {label} mode {mode}: planes differ from plain phase A's")
+    return err, err_a
+
+
+def check_k6_replace(P, PP, PK, R, MK, sc, scene, w, h):
+    """K6 in replacement mode (photon debug scale 1 and 4) against its plain
+    version on K1's planes of a caustics frame at w x h: the colour,
+    primary, diffuse, specular and shadow planes within 1e-5 * max(1,
+    |plain|), every other plane's bits kept. Returns the max |d|."""
+    cfg = P.make_config(scene, w, h, **CAUSTICS)
+    acc = MK.render_accum(sc, cfg)
+    pmap = PP.emit_and_trace(sc, cfg.num_photons)
+    ch = [c for r in (R.CH_COLOR, R.CH_PRIMARY, R.CH_DIFFUSE, R.CH_SPECULAR)
+          for c in range(r, r + 3)] + [R.CH_SHADOW_VIS, R.CH_SHADOW_PEN, R.CH_SHADOW_DIST]
+    others = [c for c in range(R.NUM_CH) if c not in ch]
+    err = 0.0
+    for scale in (1.0, 4.0):
+        got, want = acc.clone(), acc.clone()
+        PK.add_caustics(pmap, got, cfg.samples_per_pixel, replace=True, scale=scale)
+        PP.add_caustics(pmap, want, cfg.samples_per_pixel, replace=True, scale=scale)
+        d = (got[ch] - want[ch]).abs()
+        ok = bool((d <= 1e-5 * want[ch].abs().clamp(min=1.0)).all())
+        kept = same_bits(got[others], acc[others])
+        changed = int((want[ch] != acc[ch]).any(0).sum())
+        err = max(err, float(d.max()))
+        print(f"phase 9 K6 replacement {w}x{h}, scale {scale}: {changed} pixels replaced, max |d| "
+              f"{float(d.max()):.3g} (within 1e-5 {ok}), other planes' bits kept {kept}",
+              flush=True)
+        if not (ok and kept and changed):
+            raise AssertionError("K6 in replacement mode disagrees with its plain version")
+    return err
+
+
+def check_debug_views(P, D, PDM):
+    """render_debug_view modes 1-10 after a 1080p caustics frame: each the
+    frame's shape, its colour (post/debug_modes.py) finite. Returns the
+    Engine."""
+    eng = P.Engine(FULL_W, FULL_H)
+    eng.update_scene(demo_scene(D, 0), **CAUSTICS)
+    eng.render()
+    dd, ds, dsh = eng._last_denoised
+    for view in range(1, 11):
+        t0 = time.perf_counter()
+        img = eng.render_debug_view(view)
+        ms = (time.perf_counter() - t0) * 1e3
+        col = PDM.composite_debug(view, eng._last_gbuffer, denoised_diffuse=dd,
+                                  denoised_specular=ds, denoised_shadow=dsh,
+                                  photon_map_size=eng._cfg.num_photons)
+        fin = bool(torch.isfinite(col).all())
+        print(f"phase 9 render_debug_view {view}: {img.shape} {img.dtype}, colour finite {fin}, "
+              f"{ms:.2f} ms", flush=True)
+        if img.shape != (FULL_H, FULL_W, 4) or img.dtype != np.uint8 or not fin:
+            raise AssertionError(f"debug view {view}")
+    return eng
+
+
+def check_surface(P, eng):
+    """Phase 10: validate_frame on the card, copy_pixels_into's fills,
+    render(fail_safe=True) (magenta only for a render made to raise)."""
+    report = eng.validate_frame()
+    print(f"phase 10 validate_frame, demo scene {FULL_W}x{FULL_H}: {report}", flush=True)
+    if not report["ok"]:
+        raise AssertionError(f"validate_frame: {report['violations']}")
+    img = eng.render(fail_safe=True)
+    fills = {}
+    needed = FULL_W * FULL_H * 4
+    buf = bytearray(needed)
+    fills["clean"] = (eng.copy_pixels_into(buf), bytes(buf) == img.tobytes())
+    small = bytearray(needed // 2)
+    fills["too small"] = (eng.copy_pixels_into(small), bytes(small[:4]))
+    last = eng._last_rgba
+    eng._last_rgba = np.zeros_like(last)
+    fills["all zero"] = (eng.copy_pixels_into(buf), bytes(buf[:4]))
+    eng._last_rgba = np.ones((2, 2, 4), np.uint8)
+    fills["exception"] = (eng.copy_pixels_into(buf), bytes(buf[:4]))
+    eng._last_rgba = last
+    fresh, empty = P.Engine(64, 32), P.Engine(0, 0)
+    b8 = bytearray(64 * 32 * 4)
+    fills["no frame"] = (fresh.copy_pixels_into(b8), bytes(b8[:4]))
+    z = bytearray(16)
+    fills["zero size"] = (empty.copy_pixels_into(z), bytes(z[:4]))
+    want = {"clean": (True, True), "too small": (False, bytes([255, 255, 0, 255])),
+            "all zero": (False, bytes([255, 165, 0, 255])),
+            "exception": (False, bytes([255, 0, 255, 255])),
+            "no frame": (False, bytes([0, 255, 0, 255])),
+            "zero size": (False, bytes([255, 0, 0, 255]))}
+    print(f"phase 10 copy_pixels_into: {fills}", flush=True)
+    if fills != want:
+        raise AssertionError("copy_pixels_into's fills")
+    magenta = np.array([255, 0, 255, 255], np.uint8)
+    raised = fresh.render(fail_safe=True)  # no scene: the render raises
+    good = bool((raised.reshape(-1, 4) == magenta).all())
+    clean = not bool((img.reshape(-1, 4) == magenta).all(axis=1).all()) and img[..., :3].any()
+    print(f"phase 10 fail_safe: a render that raises gives magenta {good}; a frame that renders "
+          f"is the frame {clean}", flush=True)
+    if not (good and clean):
+        raise AssertionError("render(fail_safe=True)")
+
+
+def read_png_any(path):
+    """A PNG as uint8 [H, W, C]: PIL where it is installed, else the port's reader."""
+    try:
+        from PIL import Image
+
+        return np.asarray(Image.open(path))
+    except ImportError:
+        from raytracevs_tpu_torch.io.png import read_png
+
+        return read_png(path)
+
+
+def check_cli(P, path, out):
+    """Phase 11: the port's CLI as a subprocess on the card: `path` to `out`
+    at 1920x1080, 3 frames, --json; the PNG must equal the third frame of
+    an Engine that loaded the file."""
+    cmd = [sys.executable, "-m", "raytracevs_tpu_torch.api.cli", path, "-o", out, "-W",
+           str(FULL_W), "-H", str(FULL_H), "--frames", "3", "--json"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    eng = P.Engine(FULL_W, FULL_H)
+    eng.load_rtvs(path)
+    for _ in range(3):
+        want = eng.render()
+    got = read_png_any(out)
+    same = got.shape == want.shape and bool(np.array_equal(got, want))
+    print(f"phase 11 cli: {stats}; {wall:.1f} s with the process's start; the PNG equals the "
+          f"Engine's frame {same}", flush=True)
+    if not same:
+        raise AssertionError("the CLI's PNG differs from the Engine's frame")
+
+
 def main():
     # phase 1: the card
     if not torch.cuda.is_available():
@@ -1197,6 +1486,7 @@ def main():
     _build.check(_build.load_library().rtvs_denoise_occupancy(occ), "rtvs_denoise_occupancy")
     print(f"  K3 atrous_kernel: {occ[0]} bytes of dynamic shared memory a block, {occ[1]} blocks "
           f"an SM; K4 shadow_kernel: {occ[2]} blocks an SM", flush=True)
+    ptxas_mode0(_build.build_log_path())
     t0 = time.perf_counter()
     native.load_library()
     print(f"phase 3 host BVH builder: {time.perf_counter() - t0:.1f} s -> "
@@ -1513,6 +1803,54 @@ def main():
     print_stages("mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO, SPP1))
     print_stages("two-phase mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene,
                                                      MESH_DEMO, SPP1, two_phase=True))
+
+    # phase 8: the demo and mesh demo scenes as .rtvs files through
+    # Engine(1920, 1080).load_rtvs, the counts set to 0 just before each
+    import tempfile
+
+    from raytracevs_tpu_torch.post import debug_modes as PDM
+
+    t_new = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        demo_path = os.path.join(tmp, "demo.rtvs")
+        _, ref = check_scene_file(P, D, "demo scene", demo_scene, counters, demo_path)
+        check_scene_file(P, D, "mesh demo scene", mesh_demo_scene, counters,
+                         os.path.join(tmp, "mesh_demo.rtvs"), MESH_DEMO)
+
+        # phase 9: the photon debug modes in K1, K1-mesh, K7 and K6 against
+        # their plain versions at 480x270; the two phases against K1 in mode
+        # 3; the debug views after a 1080p caustics frame
+        qw, qh = 480, 270
+        qscene = demo_scene(D, 0)
+        qflat = P.flatten_scene(P.sanitize_scene(qscene), aspect=qw / qh)
+        qsc = P.to_device(qflat, dev)
+        mqscene = mesh_demo_scene(D, 0)
+        mqsc = P.to_device(P.flatten_scene(P.sanitize_scene(mqscene), aspect=qw / qh,
+                                           mesh_service=mesh_service(MESH_DEMO)), dev)
+        k1_err, k7_err = check_debug_k1(P, MK, R, qsc, qscene, qw, qh, "K1 demo scene")
+        # the mesh demo scene at full size and spp 1 in mode 3 alone (its
+        # glass ball; mode 4's grey is the same code with metallic, which
+        # the demo scene checks)
+        km_err, k7m_err = check_debug_k1(P, MK, R, mqsc, mqscene, qw, qh,
+                                         "K1-mesh mesh demo scene", SPP1, modes=(3,))
+        results["render_accum"]["debug_modes_max_abs_err"] = k1_err
+        results["render_accum_mesh"]["debug_modes_max_abs_err"] = km_err
+        results["render_phase_a"]["debug_modes_max_abs_err"] = max(k7_err, k7m_err)
+        results["photon_gather"]["debug_modes_max_abs_err"] = check_k6_replace(
+            P, PP, PK, R, MK, qsc, qscene, qw, qh)
+        check_two_phase_vs_k1("demo scene, photon debug mode 3", MK, R, TP, qsc,
+                              P.make_config(qscene, qw, qh, **dict(SPP1, photon_debug_mode=3)),
+                              float(qflat.aperture_size))
+        del qsc, mqsc
+        check_debug_views(P, D, PDM)
+
+        # phase 10: validate_frame, copy_pixels_into and fail_safe on the card
+        check_surface(P, ref)
+        del ref
+
+        # phase 11: the CLI from the demo scene's file, in a process of its own
+        check_cli(P, demo_path, os.path.join(tmp, "out.png"))
+    print(f"phases 8-11: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     line = {"kernels": [
         dict({"name": name, "route": "cuda", "source": src, "replaces": rep,

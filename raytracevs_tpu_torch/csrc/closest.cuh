@@ -38,6 +38,8 @@ struct Cfg {
   int S, P, B, L;
   int spp, max_bounces, max_iters, max_soft;
   bool has_lights, any_glass, any_metal, any_absorption;
+  // photon debug modes 3/4 at depth-0 hits: 0 off, 1 transmission, 2 metallic
+  int debug;
   float aspect;
 };
 
@@ -606,6 +608,7 @@ Cfg make_cfg(int width, int height, int S, int P, int B, int L, int spp, int max
   c.any_glass = flags & 2;
   c.any_metal = flags & 4;
   c.any_absorption = flags & 8;
+  c.debug = (flags >> 4) & 3;
   c.aspect = aspect;
   return c;
 }

@@ -13,7 +13,8 @@
 // max_shadow_lights, frame]; width x height: the frame; out: [32, rows,
 // width], the planes of its rows [row0, row0 + rows), 32 * rows * width <
 // 2**31 (a 32-bit plane index). flags: bit 0 has_lights, 1 any_glass, 2
-// any_metal, 3 any_absorption.
+// any_metal, 3 any_absorption; bits 4-5 the photon debug shading at depth-0
+// hits (0 off, 1 transmission as grey: mode 3, 2 metallic: mode 4).
 extern "C" int rtvs_render_accum(ACCUM_PARAMS, void* stream) {
   Cfg c = ENTRY_CFG;
   Scene sc = make_scene(ftab, S, P, B, S + P + B > 0 ? S + P + B : 1, L);

@@ -38,8 +38,13 @@
 // and a photon counted again when two neighbour cells share a hash slot.
 // It adds the caustic, times spp, into the accumulator's colour and diffuse
 // planes in place, at the pixels whose gather found weight (RayGen.hlsl:
-// 505-533); every other pixel and plane keeps its bits. Its plain version
-// is ops/photon.py::add_caustics. The Morton sort, dense 8-per-row packing
+// 505-533); every other pixel and plane keeps its bits. In a photon debug
+// mode (replace, an instantiation of its own) it instead replaces the
+// depth-0 contribution at every eligible pixel with the caustic times the
+// debug scale, as raytracevs_tpu/ops/render_cf.py::_apply_caustics_cf
+// folds it in: colour - primary + d, primary and diffuse d, specular 0 and
+// the SIGMA record lit. Its plain version is ops/photon.py::add_caustics.
+// The Morton sort, dense 8-per-row packing
 // and two-level box walk of pack_photons existed for the TPU's VMEM and
 // scalar unit and are not ported. Design: one thread per pixel in 32x8
 // blocks, so a warp reads whole 128-byte rows of each plane (16x16 ran
@@ -269,12 +274,16 @@ struct PhotonTable {
 // Threads a block of K6: 32 x 8 pixels, a warp one 128-byte row of a plane
 constexpr int GATHER_BX = 32, GATHER_BY = 8;
 
+// REPLACE: a photon debug mode's replacement fold-in instead of the add (an
+// instantiation of its own, so the add's code stays as it was)
+template <bool REPLACE>
 __global__ void __launch_bounds__(GATHER_BX * GATHER_BY)
     photon_gather_kernel(int width, int height, const float* __restrict__ ppos,
                          const float* __restrict__ pnrm, const float* __restrict__ phit,
                          const float* __restrict__ pmetal, const float* __restrict__ ptrans,
-                         PhotonTable pt, float spp, float* __restrict__ color,
-                         float* __restrict__ diffuse) {
+                         PhotonTable pt, float spp, float dbg_scale, float* __restrict__ color,
+                         float* __restrict__ primary, float* __restrict__ diffuse,
+                         float* __restrict__ specular, float* __restrict__ shadow) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= width || y >= height) return;
@@ -321,17 +330,41 @@ __global__ void __launch_bounds__(GATHER_BX * GATHER_BY)
           gathered += 1;
         }
       }
-  if (!(weight > 0.0f)) return;
+  if (!(weight > 0.0f) && !REPLACE) return;
   float area = F(3.14159265) * radius_sq;
   float kc = __ldg(pt.intensity);
-  V3 delta = v3(caustic.x / area * kc * spp, caustic.y / area * kc * spp,
-                caustic.z / area * kc * spp);
-  color[p] = color[p] + delta.x;
-  color[plane + p] = color[plane + p] + delta.y;
-  color[2 * plane + p] = color[2 * plane + p] + delta.z;
-  diffuse[p] = diffuse[p] + delta.x;
-  diffuse[plane + p] = diffuse[plane + p] + delta.y;
-  diffuse[2 * plane + p] = diffuse[2 * plane + p] + delta.z;
+  V3 delta = v3(0.0f, 0.0f, 0.0f);
+  if (weight > 0.0f)
+    delta = v3(caustic.x / area * kc * spp, caustic.y / area * kc * spp,
+               caustic.z / area * kc * spp);
+  if constexpr (REPLACE) {
+    // a photon debug mode (RayGen.hlsl:509-518): the caustic times the
+    // debug scale replaces the depth-0 contribution at every eligible
+    // pixel, lit or not; the specular record is cleared, the SIGMA record lit
+    V3 d = scale(delta, dbg_scale);
+    color[p] = color[p] - primary[p] + d.x;
+    color[plane + p] = color[plane + p] - primary[plane + p] + d.y;
+    color[2 * plane + p] = color[2 * plane + p] - primary[2 * plane + p] + d.z;
+    primary[p] = d.x;
+    primary[plane + p] = d.y;
+    primary[2 * plane + p] = d.z;
+    diffuse[p] = d.x;
+    diffuse[plane + p] = d.y;
+    diffuse[2 * plane + p] = d.z;
+    specular[p] = 0.0f;
+    specular[plane + p] = 0.0f;
+    specular[2 * plane + p] = 0.0f;
+    shadow[p] = 1.0f;
+    shadow[plane + p] = 0.0f;
+    shadow[2 * plane + p] = FP16_MAX;
+  } else {
+    color[p] = color[p] + delta.x;
+    color[plane + p] = color[plane + p] + delta.y;
+    color[2 * plane + p] = color[2 * plane + p] + delta.z;
+    diffuse[p] = diffuse[p] + delta.x;
+    diffuse[plane + p] = diffuse[plane + p] + delta.y;
+    diffuse[2 * plane + p] = diffuse[2 * plane + p] + delta.z;
+  }
 }
 
 }  // namespace
@@ -359,19 +392,30 @@ extern "C" int rtvs_photon_trace(const float* ftab, const int* itab, int S, int 
 // sorted photon map (pos/dir/col [n,3], pow [n], valid [n] u8, cell_start/
 // cell_count [65536] int32, count/radius/intensity 0-d on the device). Adds
 // the caustic times spp into color and diffuse [3,H,W] (the accumulator's
-// planes) where the gather found weight. Returns the launch's cudaError_t.
+// planes) where the gather found weight; given replace (a photon debug
+// mode), at every eligible pixel it instead sets color to color - primary +
+// the caustic times spp times scale, primary and diffuse to that term,
+// specular [3,H,W] to 0 and the shadow planes [3,H,W] (visibility,
+// penumbra, distance) to 1, 0, FP16_MAX. Returns the launch's cudaError_t.
 extern "C" int rtvs_photon_gather(int width, int height, const float* pos, const float* nrm,
                                   const float* hit, const float* metal, const float* trans,
                                   const float* ph_pos, const float* ph_dir, const float* ph_col,
                                   const float* ph_pow, const uint8_t* ph_valid, int n,
                                   const int* cell_start, const int* cell_count, const int* count,
                                   const float* radius, const float* intensity, float spp,
-                                  float* color, float* diffuse, void* stream) {
+                                  int replace, float dbg_scale, float* color, float* primary,
+                                  float* diffuse, float* specular, float* shadow, void* stream) {
   PhotonTable pt = {ph_pos, ph_dir, ph_col, ph_pow, ph_valid, cell_start, cell_count,
                     count, radius, intensity, n};
   dim3 block(GATHER_BX, GATHER_BY);
   dim3 grid((width + GATHER_BX - 1) / GATHER_BX, (height + GATHER_BY - 1) / GATHER_BY);
-  photon_gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      width, height, pos, nrm, hit, metal, trans, pt, spp, color, diffuse);
+  if (replace)
+    photon_gather_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        width, height, pos, nrm, hit, metal, trans, pt, spp, dbg_scale, color, primary, diffuse,
+        specular, shadow);
+  else
+    photon_gather_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        width, height, pos, nrm, hit, metal, trans, pt, spp, dbg_scale, color, primary, diffuse,
+        specular, shadow);
   return (int)cudaGetLastError();
 }

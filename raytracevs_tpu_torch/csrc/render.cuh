@@ -59,6 +59,13 @@
 // K8 is what bounds K1 and K1-mesh; K8 adds scattered reads of 7 and
 // read-modify-writes of 5 floats a resumed pixel.
 //
+// The photon debug modes 3 and 4 (make_kernel's cfg.photon_debug_mode, the
+// plain ops/wavefront.py::shade_and_spawn) come in the entries' flags word,
+// bits 4-5, as Cfg::debug: at a depth-0 hit the colour and the diffuse
+// record become the clipped transmission (mode 3) or metallic (mode 4) as
+// grey and the specular record 0. A warp-uniform test of a parameter, so
+// mode 0 keeps its instantiation and its registers (PERF.md, PR 9).
+//
 // MODE (closest.cuh): MODE_MESH the mesh walks, MODE_THREADED along the
 // threaded links, MODE_COUNT the counting build, which adds the walks'
 // node fetches, box and triangle tests by ray class and the DFS's
@@ -814,6 +821,14 @@ __device__ bool shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
     V3 diff_lit = add(ambient, scale(ddiff, direct_weight));
     V3 col = is_glass ? add(highlight, emission)
                       : clamp3(add(add(diff_lit, dspec), emission), 0.0f, INFINITY);
+    // photon debug modes 3/4 (ClosestHit.hlsl:141-157): transmission or
+    // metallic as grey at depth-0 hits, also as the diffuse record, with no
+    // specular record; deeper bounces still contribute
+    bool dbg = depth0 && c.debug != 0;
+    if (dbg) {
+      float v = clampn(c.debug == 1 ? transmission : metallic, 0.0f, 1.0f);
+      col = v3(v, v, v);
+    }
     if (!finite3(col)) col = mul(tp, sky_color(ray.d));  // NaN/Inf guard (RayGen.hlsl:250-260)
     if (fused) col = mul(col, beer);
     V3 contrib = mul(ray.tp, col);
@@ -822,8 +837,8 @@ __device__ bool shade_and_spawn(const Cfg& c, const Scene& sc, uint32_t px, uint
       // depth-0 records (RayGen.hlsl:560-589): each sample records once;
       // SIGMA takes the first sample's, the primary record the first hit
       pl.add3(CH_PRIMARY, add(v3(0.0f, 0.0f, 0.0f), contrib), first);
-      record(pl, first, is_glass ? v3(0.0f, 0.0f, 0.0f) : add(diff_lit, emission),
-             is_glass ? highlight : dspec, h.t, is_glass ? 1.0f : best_vis,
+      record(pl, first, dbg ? col : (is_glass ? v3(0.0f, 0.0f, 0.0f) : add(diff_lit, emission)),
+             dbg ? v3(0.0f, 0.0f, 0.0f) : (is_glass ? highlight : dspec), h.t, is_glass ? 1.0f : best_vis,
              is_glass ? 0.0f : best_pen, is_glass ? FP16_MAX : best_dist);
       if (!prim_hit) {
         prim_hit = true;

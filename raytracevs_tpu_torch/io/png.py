@@ -1,4 +1,6 @@
-"""Minimal pure-Python PNG reader (no PIL dependency), for the blue-noise asset."""
+"""Minimal pure-Python PNG reader and writer (no PIL dependency): the
+blue-noise asset, and the CLI's output where PIL is not installed. The
+writer is copied from raytracevs_tpu/io/png.py."""
 from __future__ import annotations
 
 import struct
@@ -87,3 +89,34 @@ def read_png(path: str) -> np.ndarray:
         prev = cur
 
     return out.reshape(height, width, channels)
+
+
+def encode_png(rgba: np.ndarray, compress_level: int = 6) -> bytes:
+    """Encode an RGBA8 [H,W,4] / RGB8 [H,W,3] / gray [H,W] array as PNG bytes."""
+    a = np.asarray(rgba, dtype=np.uint8)
+    h, w = a.shape[:2]
+    channels = a.shape[2] if a.ndim == 3 else 1
+    color_type = {1: 0, 3: 2, 4: 6}[channels]
+
+    raw = b"".join(b"\x00" + a[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return (
+            struct.pack(">I", len(data))
+            + tag
+            + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+        )
+
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw, compress_level))
+        + chunk(b"IEND", b"")
+    )
+
+
+def write_png(path: str, rgba: np.ndarray) -> None:
+    """Write an RGBA8 [H,W,4] (or RGB8 [H,W,3]) array as a PNG file."""
+    with open(path, "wb") as f:
+        f.write(encode_png(rgba))

@@ -79,8 +79,9 @@ SIGNATURES = {
     "rtvs_photon_trace": (_P, _P) + (_I,) * 8 + (_P,) * 5 + (_P,),
     # W, H, pos, nrm, hit, metal, trans, ph_pos, ph_dir, ph_col, ph_pow,
     # ph_valid, n, cell_start, cell_count, count, radius, intensity, spp,
-    # color, diffuse, stream
-    "rtvs_photon_gather": (_I, _I) + (_P,) * 10 + (_I,) + (_P,) * 5 + (_F, _P, _P, _P),
+    # replace, scale, color, primary, diffuse, specular, shadow, stream
+    "rtvs_photon_gather": (_I, _I) + (_P,) * 10 + (_I,) + (_P,) * 5 + (_F, _I, _F)
+                          + (_P,) * 6,
 }
 
 

@@ -180,12 +180,13 @@ def _check(scene, cfg, name):
             raise ValueError(f"{name}: scene.{n} on {leaf.device}, expected {dev}")
     if scene.mesh is not None:
         check_mesh(scene.mesh, name)
-    if cfg.photon_debug_mode:  # num_photons is not read: the caustics pass follows K1
-        raise NotImplementedError("photon debug modes: not ported yet")
     if not (1 <= cfg.max_soft_samples <= 16):
         raise ValueError(f"max_soft_samples {cfg.max_soft_samples} outside 1..16")
+    # num_photons is not read: the caustics pass follows K1; of the photon
+    # debug modes only 3 and 4 reach the shading
+    debug = {3: 1, 4: 2}.get(cfg.photon_debug_mode, 0)
     return (int(cfg.has_lights) | int(cfg.any_glass) << 1 | int(cfg.any_metal) << 2
-            | int(cfg.any_absorption) << 3)
+            | int(cfg.any_absorption) << 3 | debug << 4)
 
 
 def _launch(entry, scene, cfg, flags, tables, lead, counts=None, band=None):

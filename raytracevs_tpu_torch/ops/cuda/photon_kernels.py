@@ -70,14 +70,17 @@ def emit_and_trace(scene, total_photons: int, offset: int, count: int, tables=No
     return out[0], out[1], out[2], out_power, out_mask
 
 
-def add_caustics(pmap: plain.PhotonMap, acc, spp: int):
+def add_caustics(pmap: plain.PhotonMap, acc, spp: int, replace: bool = False,
+                 scale: float = 1.0):
     """K6: adds the caustic, times spp, into the colour and diffuse planes
     of the accumulator acc [NUM_CH,H,W] in place, at the eligible primary
-    hits whose gather finds weight; returns acc (see ops/photon.py::
+    hits whose gather finds weight; with replace (a photon debug mode), the
+    caustic times spp times scale replaces the depth-0 contribution at
+    every eligible pixel instead. Returns acc (see ops/photon.py::
     add_caustics)."""
     dev = _device(acc)
     if dev.type == "cpu":
-        return plain.add_caustics(pmap, acc, spp)
+        return plain.add_caustics(pmap, acc, spp, replace, scale)
     _, h, w = acc.shape
     _check("acc", acc, (R.NUM_CH, h, w), _F32, dev)
     n = pmap.position.shape[0]
@@ -107,8 +110,9 @@ def add_caustics(pmap: plain.PhotonMap, acc, spp: int):
             ch(R.CH_TRANSMISSION), pmap.position.data_ptr(), pmap.direction.data_ptr(),
             pmap.color.data_ptr(), pmap.power.data_ptr(), pmap.valid.data_ptr(), n,
             pmap.cell_start.data_ptr(), pmap.cell_count.data_ptr(), pmap.count.data_ptr(),
-            pmap.radius.data_ptr(), pmap.intensity.data_ptr(), float(spp), ch(R.CH_COLOR),
-            ch(R.CH_DIFFUSE), torch.cuda.current_stream(dev).cuda_stream)
+            pmap.radius.data_ptr(), pmap.intensity.data_ptr(), float(spp), int(bool(replace)),
+            float(scale), ch(R.CH_COLOR), ch(R.CH_PRIMARY), ch(R.CH_DIFFUSE), ch(R.CH_SPECULAR),
+            ch(R.CH_SHADOW_VIS), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "rtvs_photon_gather")
     add_caustics.launches += 1
     return acc

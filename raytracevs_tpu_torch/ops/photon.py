@@ -404,7 +404,7 @@ def _gather_weighted(pmap: PhotonMap, position, normal):
     return caustic * pmap.intensity, weight
 
 
-def add_caustics(pmap: PhotonMap, acc, spp: int):
+def add_caustics(pmap: PhotonMap, acc, spp: int, replace: bool = False, scale: float = 1.0):
     """Plain version of K6: adds the caustic, times spp, into the colour
     and diffuse planes of the accumulator acc [NUM_CH,H,W] (contiguous) in
     place at its lit pixels; returns acc. A pixel is gathered where it is
@@ -412,7 +412,14 @@ def add_caustics(pmap: PhotonMap, acc, spp: int):
     transmission <= 0.01; RayGen.hlsl:505-533), at its first-hit record,
     and lit where the gather finds weight; no other pixel or plane is
     written. raytracevs_tpu/ops/render.py::caustics_delta's delta added to
-    the colour, as the JAX frame adds it (which adds +0.0 elsewhere)."""
+    the colour, as the JAX frame adds it (which adds +0.0 elsewhere).
+
+    With replace (a nonzero photon debug mode), every eligible pixel, lit
+    or not, takes the JAX package's replacement fold-in
+    (raytracevs_tpu/ops/render_cf.py::_apply_caustics_cf): with d the
+    caustic times spp times scale, colour = colour - primary + d, primary
+    = diffuse = d, specular 0, and the SIGMA record visibility 1, penumbra
+    0, distance NRD_FP16_MAX."""
     _, h, w = acc.shape
     eligible = ((acc[render.CH_PRIM_HIT] > 0.5) & (acc[render.CH_METALLIC] < 0.5)
                 & (acc[render.CH_TRANSMISSION] <= 0.01)).reshape(-1)
@@ -421,6 +428,17 @@ def add_caustics(pmap: PhotonMap, acc, spp: int):
     nrm = flat[render.CH_NORMAL:render.CH_NORMAL + 3].T
     lanes = torch.nonzero(eligible).squeeze(1)
     caustic, weight = _gather_weighted(pmap, pos[lanes], nrm[lanes])
+    if replace:
+        d = ((caustic * float(spp)) * float(scale)).T
+        cc, cp = render.CH_COLOR, render.CH_PRIMARY
+        flat[cc:cc + 3, lanes] = flat[cc:cc + 3, lanes] - flat[cp:cp + 3, lanes] + d
+        for ch in (render.CH_PRIMARY, render.CH_DIFFUSE):
+            flat[ch:ch + 3, lanes] = d
+        flat[render.CH_SPECULAR:render.CH_SPECULAR + 3, lanes] = 0.0
+        for ch, v in ((render.CH_SHADOW_VIS, 1.0), (render.CH_SHADOW_PEN, 0.0),
+                      (render.CH_SHADOW_DIST, C.NRD_FP16_MAX)):
+            flat[ch, lanes] = v
+        return acc
     lit = weight > 0.0
     lanes, delta = lanes[lit], (caustic[lit] * float(spp)).T
     for ch in (render.CH_COLOR, render.CH_DIFFUSE):

@@ -112,6 +112,15 @@ def assemble_frame_cf(scene, cfg, acc: dict) -> FrameOutputCF:
     inv = 1.0 / cfg.samples_per_pixel
     final_color = acc["color"] * inv
     prim_hit = acc["prim_hit"]
+
+    # Photon debug modes 1/2 (RayGen.hlsl:859-891): the bounce count over
+    # the budget as grey, or the colour without its depth-0 contribution
+    if cfg.photon_debug_mode == 2:
+        ratio = torch.clamp(vec.div_const(acc["bounce"] * inv, float(max(cfg.max_bounces, 1))),
+                            0.0, 1.0)
+        final_color = ratio[None].expand_as(final_color)
+    elif cfg.photon_debug_mode == 1:
+        final_color = torch.clamp((acc["color"] - acc["primary"]) * inv, min=0.0)
     up3 = torch.tensor([0.0, 1.0, 0.0], dtype=F32, device=final_color.device)[:, None, None]
     world_normal = torch.where(prim_hit, acc["prim_normal"], up3)
     out_rough = torch.where(prim_hit, acc["prim_rough"], 1.0)
@@ -207,7 +216,9 @@ def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None) -> torch.Tenso
     trace the photons (K5, on `tables`, the frame's pack_tables, when
     given), build the hash, and add the caustic gathered at the eligible
     primary hits of the accumulator planes `acc` into their colour and
-    diffuse planes in place (K6; RayGen.hlsl:505-533). Returns acc. The
+    diffuse planes in place (K6; RayGen.hlsl:505-533); a nonzero photon
+    debug mode replaces the depth-0 contribution with the caustic times
+    photon_debug_scale instead (RayGen.hlsl:509-518). Returns acc. The
     photon map is rebuilt every frame."""
     if cfg.num_photons <= 0:
         return acc
@@ -215,7 +226,9 @@ def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None) -> torch.Tenso
     from .cuda import photon_kernels
 
     pmap = photon.emit_and_trace(scene, cfg.num_photons, tables)
-    return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel)
+    return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel,
+                                       replace=cfg.photon_debug_mode != 0,
+                                       scale=cfg.photon_debug_scale)
 
 
 def render_rows_cf(scene, cfg, two_phase=False, aperture_size=None) -> FrameOutputCF:

@@ -445,6 +445,14 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     diff_lit = ambient + direct_diffuse * direct_weight[:, None]
     final = torch.clamp(diff_lit + direct_specular + emission, min=0.0)
     color = vec.where3(is_glass, glass_color, final)
+    # Photon debug 3/4: transmission or metallic as grey at depth-0 hits
+    # (ClosestHit.hlsl:141-157); deeper bounces still contribute
+    dbg_on = None
+    if cfg.photon_debug_mode in (3, 4):
+        v = torch.clamp(transmission if cfg.photon_debug_mode == 3 else metallic, 0.0, 1.0)
+        dbg = torch.stack([v, v, v], dim=-1)
+        dbg_on = (state.depth == 0) & hit_mask
+        color = vec.where3(dbg_on, dbg, color)
     # Miss: sky * pathSkyBoost (Miss.hlsl:4-16)
     sky = shade.sky_color(state.direction)
     color = vec.where3(hit_mask, color, sky * state.sky_boost[:, None])
@@ -457,6 +465,9 @@ def shade_and_spawn(scene, cfg, px, py, sample_index, state: RayState, traced):
     diff_rad = vec.where3(hit_mask, diff_rad, sky * state.sky_boost[:, None])
     spec_rad = vec.where3(is_glass, highlight, direct_specular)
     spec_rad = vec.where3(hit_mask, spec_rad, zeros3)
+    if dbg_on is not None:
+        diff_rad = vec.where3(dbg_on, dbg, diff_rad)
+        spec_rad = vec.where3(dbg_on, zeros3, spec_rad)
     lit_rec = hit_mask & ~is_glass
     records = {
         "color": color,

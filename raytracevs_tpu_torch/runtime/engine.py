@@ -20,14 +20,22 @@ Triangle meshes come from a mesh service (io/mesh_cache.MeshCacheService):
 mesh's BVH once (the Engine's BLASCache) and retransforming it when an
 instance moves.
 
+Scene files: `load_rtvs(path)` loads a .rtvs node graph (scene/rtvs.py),
+evaluates it (scene/evaluator.py) and updates the scene; its FBX nodes
+resolve against a mesh service, found next to the file when the Engine has
+none. `render(fail_safe=True)`, `copy_pixels_into`, `validate_frame` and
+`render_debug_view` are the rest of the JAX Engine's surface.
+
 Example:
     engine = Engine(1920, 1080, mesh_service=meshes)   # on the card
     # or Engine(1920, 1080, mesh_service=meshes, two_phase=True), spp 1
     engine.update_scene(scene_data)      # evaluated SceneData
+    # or engine.load_rtvs("scene.rtvs")
     img = engine.render()                # np.uint8 [H, W, 4]
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -41,19 +49,25 @@ from ..post import composite as composite_mod
 from ..post import denoise as denoise_mod
 from ..post import tonemap
 from ..scene.data import SceneData
+from ..scene.evaluator import evaluate_scene
 from ..scene.flatten import FlatScene, RenderConfig, flatten_scene, make_config, to_device
+from ..scene.rtvs import load_graph
 from ..scene.sanitize import sanitize_scene
 from ..utils.checksum import scene_content_checksum
+from ..utils.logging import log_debug, log_error
 
 
 def render_frame(scene, cfg: RenderConfig, denoise_state, two_phase=False, aperture_size=None):
     """One frame on the scene tensors' device: render -> (denoise) ->
     composite -> RGBA8. Returns (rgba uint8 [H,W,4] tensor, rays tensor,
-    new denoiser state, linear HDR colour [3,H,W] tensor). two_phase and
-    aperture_size (the host's): render_rows_cf's."""
+    new denoiser state, linear HDR colour [3,H,W] tensor, channel-first
+    G-buffer, denoised (diffuse [3,H,W], specular [3,H,W], shadow [2,H,W])
+    or None). two_phase and aperture_size (the host's): render_rows_cf's."""
     out = render_rows_cf(scene, cfg, two_phase, aperture_size)
+    denoised = None
     if cfg.enable_denoiser:
-        dd, ds, _dshadow, denoise_state = denoise_mod.denoise_frame_cf(out.gbuffer, denoise_state)
+        dd, ds, dshadow, denoise_state = denoise_mod.denoise_frame_cf(out.gbuffer, denoise_state)
+        denoised = (dd, ds, dshadow)
         color01 = composite_mod.composite_cf(
             out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
             denoised_diffuse=dd, denoised_specular=ds, use_denoised=True,
@@ -63,7 +77,7 @@ def render_frame(scene, cfg: RenderConfig, denoise_state, two_phase=False, apert
         color01 = composite_mod.composite_cf(
             out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
             use_denoised=False)
-    return tonemap.to_rgba8_cf(color01), out.rays, denoise_state, out.color
+    return tonemap.to_rgba8_cf(color01), out.rays, denoise_state, out.color, out.gbuffer, denoised
 
 
 class Engine:
@@ -90,6 +104,11 @@ class Engine:
         self._checksum = None
         self._last_rgba: Optional[np.ndarray] = None
         self._last_hdr_t: Optional[torch.Tensor] = None  # [3,H,W] on the device
+        # the last frame's channel-first G-buffer and denoised planes, on the
+        # device: every frame makes new tensors for them (K6 and the
+        # denoiser write in place only into tensors of their own frame)
+        self._last_gbuffer = None
+        self._last_denoised = None  # (diffuse [3,H,W], specular [3,H,W], shadow [2,H,W])
         self._last_rays = 0
         self._last_render_ms = 0.0
         self._prev_view_proj = None
@@ -111,6 +130,15 @@ class Engine:
         ValueError and leaves the Engine's scene, configuration and history
         as they were."""
         clean = sanitize_scene(scene)
+        # per-object scene dump at the interop boundary (EngineWrapper.cpp:
+        # 222-230), gated by the log level as in the reference
+        log_debug(
+            "UpdateScene: %d objects (%s), %d lights, spp=%d bounces=%d",
+            len(clean.objects),
+            ", ".join(type(o).__name__ for o in clean.objects) or "empty",
+            len(clean.lights), clean.settings.samples_per_pixel,
+            clean.settings.max_bounces,
+        )
         cfg = make_config(clean, self.width, self.height, **config_overrides)
         flat = flatten_scene(clean, frame_index=self._frame_index,
                              aspect=self.width / self.height,
@@ -128,15 +156,78 @@ class Engine:
         self._prev_view_proj = np.asarray(self._flat.view_proj)
         self._scene_t = to_device(self._flat, self.device)
 
+    def load_rtvs(self, path: str, cache_dir: Optional[str] = None, **config_overrides):
+        """Load a .rtvs file and update the scene; returns the loaded
+        NodeGraph, so a caller that keeps editing it can re-evaluate and
+        push updates. cache_dir: as load_rtvs_graph's."""
+        graph = self.load_rtvs_graph(path, cache_dir)
+        self.update_scene(evaluate_scene(graph), **config_overrides)
+        return graph
+
+    def load_rtvs_graph(self, path: str, cache_dir: Optional[str] = None):
+        """Load a .rtvs node graph without updating the scene.
+
+        Without a mesh service, FBX mesh names resolve against the first
+        model directory that exists of: $RAYTRACEVS_MODEL_PATH,
+        Resource/Model next to the scene file, Model next to it
+        (MeshCacheService.cs:54-72, DXRPipeline.cpp:191-342); its converted
+        meshes are cached in cache_dir/meshcache, or without cache_dir in
+        the package's _build/meshcache (the CLI's --cache-dir passes one,
+        runtime/cache.py). FBX nodes whose mesh is missing are dropped at
+        load (SceneFileService.cs:52-62)."""
+        if self.mesh_service is None:
+            scene_dir = os.path.dirname(os.path.abspath(path))
+            for candidate in (
+                os.environ.get("RAYTRACEVS_MODEL_PATH", ""),
+                os.path.join(scene_dir, "Resource", "Model"),
+                os.path.join(scene_dir, "Model"),
+            ):
+                if os.path.isdir(candidate):
+                    from ..io.mesh_cache import MeshCacheService
+                    from ..ops.cuda import _build
+
+                    svc = MeshCacheService(candidate, cache_dir=os.path.join(
+                        cache_dir or _build.BUILD_DIR, "meshcache"))
+                    try:
+                        svc.initialize()
+                        self.mesh_service = svc
+                    except OSError:
+                        pass
+                    break
+        resolver = self.mesh_service.get_mesh if self.mesh_service is not None else None
+        return load_graph(path, mesh_resolver=resolver)
+
     # -- rendering --------------------------------------------------------
-    def render(self) -> np.ndarray:
-        """Render a frame; returns RGBA8 np.uint8 [H, W, 4]."""
+    def _sentinel(self, rgb) -> np.ndarray:
+        """Colour-coded failure fill (NativeBridge.cpp:266-356)."""
+        img = np.zeros((self.height, self.width, 4), np.uint8)
+        img[..., 0], img[..., 1], img[..., 2], img[..., 3] = (*rgb, 255)
+        return img
+
+    def render(self, fail_safe: bool = False) -> np.ndarray:
+        """Render a frame; returns RGBA8 np.uint8 [H, W, 4].
+
+        With fail_safe=True (the caller's opt-in; the card's path never
+        falls back to the CPU), a failure returns the reference's
+        colour-coded fill instead of raising: magenta for an exception
+        during the render, orange for an all-zero frame
+        (NativeBridge.cpp:266-356)."""
+        if fail_safe:
+            try:
+                img = self.render(fail_safe=False)
+            except Exception:
+                log_error("render failed; returning magenta sentinel")
+                return self._sentinel((255, 0, 255))
+            if not img[..., :3].any():
+                return self._sentinel((255, 165, 0))
+            return img
         if self._flat is None:
             raise RuntimeError("update_scene() must be called before render()")
         if self._cfg.enable_denoiser and self._denoise_state is None:
             self._denoise_state = denoise_mod.init_state_cf(self.height, self.width, self.device)
         start = time.perf_counter()
-        rgba_t, rays_t, self._denoise_state, self._last_hdr_t = render_frame(
+        (rgba_t, rays_t, self._denoise_state, self._last_hdr_t, self._last_gbuffer,
+         self._last_denoised) = render_frame(
             self._scene_t, self._cfg, self._denoise_state, self.two_phase,
             float(self._flat.aperture_size))
         rgba = rgba_t.cpu().numpy()  # waits for the device
@@ -149,11 +240,117 @@ class Engine:
             self._frame_index, dtype=torch.int64, device=self.device))
         return rgba
 
+    def render_debug_view(self, mode: int) -> np.ndarray:
+        """Composite debug visualization of the last frame as RGBA8
+        (Composite.hlsl:184-371, the render window's DebugMode selector:
+        1 = G-buffer tile strip, 2-4 = shadow input/denoised/split,
+        5 = magenta fill, 6-8 = diffuse taps, 9/10 = photon views), from the
+        last frame's planes on the device (post/debug_modes.py)."""
+        if self._last_gbuffer is None:
+            raise RuntimeError("render() must be called before render_debug_view()")
+        from ..post.debug_modes import composite_debug
+
+        dd = ds = dsh = None
+        if self._last_denoised is not None:
+            dd, ds, dsh = self._last_denoised
+        out01 = composite_debug(
+            int(mode), self._last_gbuffer, denoised_diffuse=dd, denoised_specular=ds,
+            denoised_shadow=dsh,
+            exposure=float(self._scene.settings.exposure) if self._scene else 1.0,
+            photon_map_size=self._cfg.num_photons if self._cfg else 0)
+        return tonemap.to_rgba8_cf(out01).cpu().numpy()
+
+    def validate_frame(self) -> dict:
+        """Debug-layer analog (SURVEY §5.2): render one frame of the current
+        scene through the Engine's own path (the kernels on the card, their
+        plain versions on the CPU), without advancing the frame, and audit
+        every output channel for NaN/Inf and its contract. Returns
+        {"ok": bool, "violations": [str]}, with the JAX Engine's contracts
+        and messages."""
+        from .. import constants as C
+
+        if self._flat is None:
+            raise RuntimeError("update_scene() must be called before validate_frame()")
+        out = render_rows_cf(self._scene_t, self._cfg, self.two_phase,
+                             float(self._flat.aperture_size))
+        g = out.gbuffer
+        v = []
+
+        def host(a):
+            return a.detach().cpu().numpy()
+
+        def finite(name, a):
+            if not np.isfinite(a).all():
+                v.append(f"{name}: non-finite values")
+
+        def in_range(name, a, lo, hi):
+            if a.size and (a.min() < lo or a.max() > hi):
+                v.append(f"{name}: out of [{lo}, {hi}] (min {a.min()}, max {a.max()})")
+
+        color = host(out.color)
+        finite("color", color)
+        in_range("color", color, 0.0, np.inf)
+        finite("raw_specular", host(out.raw_specular))
+        nr = host(g.normal_roughness)
+        finite("normal_roughness", nr)
+        in_range("normal_roughness", nr, 0.0, 1.0)
+        in_range("view_z", host(g.view_z), C.VIEWZ_MIN, C.VIEWZ_SKY)
+        in_range("motion", host(g.motion), -C.MV_CLAMP_PIXELS, C.MV_CLAMP_PIXELS)
+        in_range("albedo", host(g.albedo), 0.0, 1.0)
+        in_range("shadow visibility", host(g.shadow_data[1]), 0.0, 1.0)
+        oid = host(g.obj_id)
+        if oid.size and oid.min() < -1:
+            v.append(f"obj_id: below -1 (min {oid.min()})")
+        sc = self._scene_t
+        color01 = host(composite_mod.composite_cf(
+            g, out.raw_specular, sc.exposure, sc.tone_map_operator, sc.gamma,
+            use_denoised=False))
+        finite("composite", color01)
+        in_range("composite", color01, 0.0, 1.0)
+        return {"ok": not v, "violations": v}
+
     def get_pixel_data(self) -> bytes:
         """Raw RGBA bytes of the last frame (EngineWrapper::GetPixelData)."""
         if self._last_rgba is None:
             raise RuntimeError("render() must be called before get_pixel_data()")
         return self._last_rgba.tobytes()
+
+    def copy_pixels_into(self, buffer) -> bool:
+        """Fill a caller-provided writable buffer with the last frame's RGBA.
+
+        The readback analog of NativeBridge::GetPixelData with its
+        colour-coded failure fills (NativeBridge.cpp:266-356): green = no
+        frame to read, red = zero-size frame, yellow = buffer too small,
+        orange = output was all zeros, magenta = exception. Returns True
+        only on a clean copy."""
+        mv = memoryview(buffer).cast("B")
+        needed = self.width * self.height * 4
+
+        def fill(rgb):
+            n = min(len(mv), needed) if needed else len(mv)
+            arr = np.frombuffer(mv, dtype=np.uint8, count=len(mv))
+            px = arr[: n - n % 4].reshape(-1, 4)
+            px[:, 0], px[:, 1], px[:, 2], px[:, 3] = (*rgb, 255)
+            return False
+
+        try:
+            if needed == 0:
+                return fill((255, 0, 0))  # red: zero-size frame
+            if len(mv) < needed:
+                return fill((255, 255, 0))  # yellow: buffer too small
+            if self._last_rgba is None:
+                return fill((0, 255, 0))  # green: no pixels to read
+            data = self._last_rgba
+            if not data[..., :3].any():
+                return fill((255, 165, 0))  # orange: all-zero output
+            np.frombuffer(mv, dtype=np.uint8, count=needed)[:] = data.reshape(-1)
+            return True
+        except Exception:
+            log_error("copy_pixels_into failed; filling magenta sentinel")
+            try:
+                return fill((255, 0, 255))  # magenta: exception
+            except Exception:
+                return False
 
     @property
     def last_hdr(self) -> Optional[np.ndarray]:
@@ -178,3 +375,11 @@ class Engine:
         if self._last_render_ms <= 0:
             return 0.0
         return self._last_rays / (self._last_render_ms * 1e-3) / 1e6
+
+
+def render_rtvs(path: str, width: int = 512, height: int = 512, **overrides) -> np.ndarray:
+    """One-shot: render a .rtvs scene file to an RGBA8 array, on the card
+    (Engine(width, height))."""
+    engine = Engine(width, height)
+    engine.load_rtvs(path, **overrides)
+    return engine.render()

@@ -397,8 +397,7 @@ def to_device(flat: FlatScene, device) -> FlatScene:
 def make_config(scene: SceneData, width: int, height: int, **overrides) -> RenderConfig:
     """Static render configuration for a scene (raytracevs_tpu make_config
     semantics). Caustics (the scene's enable_caustics, or the override of
-    that name) set num_photons to the photon budget; the photon debug modes
-    are not part of this port yet and raise."""
+    that name) set num_photons to the photon budget."""
     spp, max_bounces = effective_budget(
         scene.settings.samples_per_pixel, scene.settings.max_bounces
     )
@@ -416,8 +415,6 @@ def make_config(scene: SceneData, width: int, height: int, **overrides) -> Rende
         from ..ops.photon import photon_budget
 
         num_photons = photon_budget(scene)
-    if int(overrides.get("photon_debug_mode", scene.settings.photon_debug_mode)):
-        raise NotImplementedError("photon debug modes: not ported yet")
     cfg = dict(
         width=int(width),
         height=int(height),

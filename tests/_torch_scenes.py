@@ -15,6 +15,8 @@ from raytracevs_tpu_torch.scene.transform import euler_deg_to_quat, obb_axes_fro
 DEMO_OVERRIDES = {"max_soft_samples": 4}
 DEMO_LOOK_AT = np.array([0.0, 0.8, 0.6])
 DEMO_EYE = np.array([0.0, 1.9, -4.4])
+# the rotation of the demo scene's glass box
+DEMO_BOX_QUAT = euler_deg_to_quat([0.0, 35.0, 10.0])
 
 
 def orbit_eye(frame: int, degrees_per_frame: float = 2.0, eye=DEMO_EYE,
@@ -37,7 +39,7 @@ def demo_scene(D, frame: int = 0):
     s = D.SceneData()
     s.camera.position = orbit_eye(frame)
     s.camera.look_at = DEMO_LOOK_AT.copy()
-    ax, ay, az = obb_axes_from_quat(euler_deg_to_quat([0.0, 35.0, 10.0]))
+    ax, ay, az = obb_axes_from_quat(DEMO_BOX_QUAT)
     s.objects += [
         D.PlaneData(),
         D.SphereData(position=np.array([-1.7, 1.0, 0.8]), radius=1.0,
@@ -345,3 +347,88 @@ def deep_forest_scene(D):
         D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
     ]
     return s
+
+
+def scene_graph(N, G, scene, box_quats=()):
+    """A node graph of `N` and `G` (a package's scene.nodes and scene.graph)
+    that evaluates to `scene`: a SceneNode with the scene's settings, a
+    CameraNode, an object node per object with its MaterialBSDFNode, a light
+    node per light. box_quats: each box's rotation quaternion in order (the
+    identity for a box not given one); a box's axes must be its rotation's.
+    Its materials must have the node's specular, 0.5. A DirectionalLightNode
+    normalizes its direction, so the graph evaluates to as_evaluated(scene)."""
+    import copy
+
+    g = G.NodeGraph()
+    sn = g.add_node(N.SceneNode(num_object_sockets=len(scene.objects),
+                                num_light_sockets=len(scene.lights)))
+    sn.settings = copy.deepcopy(scene.settings)
+    cam = g.add_node(N.CameraNode())
+    c = scene.camera
+    cam.camera_position, cam.look_at, cam.up = (np.array(v, float) for v in
+                                                (c.position, c.look_at, c.up))
+    (cam.field_of_view, cam.near, cam.far, cam.aperture_size,
+     cam.focus_distance) = (c.field_of_view, c.near, c.far, c.aperture_size, c.focus_distance)
+    g.connect(cam.find_output("Camera"), sn.find_input("Camera"))
+    quats = list(box_quats)
+    for i, o in enumerate(scene.objects):
+        kind = type(o).__name__
+        if kind == "SphereData":
+            node = N.SphereNode()
+            node.object_transform.position = np.array(o.position, float)
+            node.radius = float(o.radius)
+        elif kind == "PlaneData":
+            node = N.PlaneNode()
+            node.object_transform.position = np.array(o.position, float)
+            node.normal = np.array(o.normal, float)
+        elif kind == "BoxData":
+            node = N.BoxNode()
+            node.object_transform.position = np.array(o.center, float)
+            node.object_transform.rotation = np.array(
+                quats.pop(0) if quats else [0.0, 0.0, 0.0, 1.0], float)
+            node.size = np.array(o.size, float) * 2.0
+        else:
+            node = N.FBXMeshNode(o.mesh_name)
+            node.object_transform = copy.deepcopy(o.transform)
+        m = o.material
+        assert m.specular == 0.5, "MaterialBSDFNode's specular is 0.5"
+        mat = g.add_node(N.MaterialBSDFNode())
+        mat.base_color, mat.emission, mat.absorption = (np.array(v, float) for v in
+                                                        (m.base_color, m.emission, m.absorption))
+        mat.metallic, mat.roughness, mat.transmission, mat.ior = (
+            m.metallic, m.roughness, m.transmission, m.ior)
+        g.add_node(node)
+        g.connect(mat.find_output("Material"), node.find_input("Material"))
+        g.connect(node.find_output("Object"), sn.find_input(f"Object{i + 1}"))
+    for i, lt in enumerate(scene.lights):
+        kind = int(lt.type)
+        if kind == 1:  # point
+            node = N.PointLightNode()
+            node.light_position = np.array(lt.position, float)
+            node.attenuation, node.radius = lt.attenuation, lt.radius
+            node.soft_shadow_samples = lt.soft_shadow_samples
+        elif kind == 2:  # directional
+            node = N.DirectionalLightNode()
+            node.direction = np.array(lt.direction, float)
+            node.angular_radius = lt.radius
+            node.soft_shadow_samples = lt.soft_shadow_samples
+        else:  # ambient
+            node = N.AmbientLightNode()
+        node.color, node.intensity = np.array(lt.color, float), lt.intensity
+        g.add_node(node)
+        g.connect(node.find_output("Light"), sn.find_input(f"Light{i + 1}"))
+    return g
+
+
+def as_evaluated(scene):
+    """A copy of `scene` with each directional light's direction normalized
+    as DirectionalLightNode normalizes it: what scene_graph(scene)
+    evaluates to."""
+    import copy
+
+    out = copy.deepcopy(scene)
+    for lt in out.lights:
+        if int(lt.type) == 2:
+            d = np.asarray(lt.direction, float)
+            lt.direction = d / np.linalg.norm(d)
+    return out

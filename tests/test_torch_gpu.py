@@ -18,7 +18,11 @@ walks'. K1 and K7 also bit for bit, with K7's continuation and hit planes,
 at odd sizes and sample counts; the counting build's counts equal the plain
 version's; a mesh deeper than the kernels' walk stack renders through the
 threaded instantiations as its plain version does; a frame rendered in
-row bands (K1, K1-mesh, the two-phase path) is bit-equal to one launch."""
+row bands (K1, K1-mesh, the two-phase path) is bit-equal to one launch. In
+the photon debug modes: K1 and K1-mesh in modes 3 and 4, and K7 in mode 3,
+bit for bit at 64x32, and K7+K8 against K1 in mode 3; K6's replacement
+fold-in within 1e-5 * max(1, |plain|) on the planes it writes, every other
+plane's bits kept."""
 import os
 import sys
 
@@ -644,3 +648,74 @@ def test_wrappers_reject_bad_inputs():
     pmap = PP.emit_and_trace(sc, 256)
     with pytest.raises(ValueError, match="shape"):
         PK.add_caustics(pmap, torch.zeros((8, 16, 16), device="cuda"), 2)
+
+
+# ---- the photon debug modes ------------------------------------------------
+
+@pytest.mark.parametrize("mode", [3, 4])
+@pytest.mark.parametrize("name", ["demo", "mesh_demo"])
+def test_k1_debug_modes_bit_equal_to_plain(name, mode):
+    """K1 (analytic) and K1-mesh in photon debug modes 3 and 4 (transmission
+    or metallic as grey at depth-0 hits) at 64x32, every plane bit for bit;
+    the mode changes the frame."""
+    _need_cuda()
+    meshes = S.MESH_DEMO_SMALL if name == "mesh_demo" else None
+    build = S.mesh_demo_scene if meshes else S.demo_scene
+    ms = None if meshes is None else S.mesh_service(PMC, meshes)
+    scene = build(D)
+    w, h = 64, 32
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3,
+                                 mesh_service=ms), "cuda")
+    cfg = make_config(scene, w, h, **dict(S.DEMO_OVERRIDES, photon_debug_mode=mode))
+    got = MK.render_accum(sc, cfg)
+    want = R.render_accum(sc, cfg)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    assert not torch.equal(got, MK.render_accum(sc, cfg._replace(photon_debug_mode=0)))
+
+
+def test_k7_debug_mode_bit_equal_to_plain_and_k7_k8_match_k1():
+    """K7 in photon debug mode 3 at 64x32 (spp 1), bit for bit with plain
+    phase A; K7 + sort + K8 against K1 in mode 3 as in mode 0."""
+    _need_cuda()
+    scene = S.demo_scene(D)
+    w, h = 64, 32
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3), "cuda")
+    cfg = make_config(scene, w, h, **dict(S.DEMO_OVERRIDES, samples_per_pixel=1,
+                                          photon_debug_mode=3))
+    got = MK.render_phase_a(sc, cfg)
+    want = R.render_accum_phase_a(sc, cfg)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want)
+    k1 = MK.render_accum(sc, cfg)
+    two = TP.render_accum_two_phase(sc, cfg, 0.0)
+    assert torch.equal(two[R.CH_RAYS], k1[R.CH_RAYS])
+    assert torch.equal(two[RECORD_PLANES], k1[RECORD_PLANES])
+    c1, c2 = k1[0:3], two[0:3]
+    assert bool(((c2 - c1).abs() <= 2e-5 * c1.abs().clamp(min=1.0)).all())
+
+
+@pytest.mark.parametrize("scale", [1.0, 4.0])
+def test_k6_replacement_mode_matches_plain(scale):
+    """K6 in replacement mode (a nonzero photon debug mode) at 64x32 on K1's
+    planes of a caustics frame: the colour, primary, diffuse, specular and
+    shadow planes within 1e-5 * max(1, |plain|) of the plain version's,
+    every other plane's bits kept."""
+    _need_cuda()
+    scene, sc = _photon_scene("demo")
+    cfg = make_config(scene, 64, 32, enable_caustics=True)
+    acc = MK.render_accum(sc, cfg)
+    pmap = PP.emit_and_trace(sc, cfg.num_photons)
+    ch = [c for r in (R.CH_COLOR, R.CH_PRIMARY, R.CH_DIFFUSE, R.CH_SPECULAR)
+          for c in range(r, r + 3)] + [R.CH_SHADOW_VIS, R.CH_SHADOW_PEN, R.CH_SHADOW_DIST]
+    others = [c for c in range(R.NUM_CH) if c not in ch]
+    got, want = acc.clone(), acc.clone()
+    before = PK.add_caustics.launches
+    assert PK.add_caustics(pmap, got, cfg.samples_per_pixel, replace=True, scale=scale) is got
+    assert PK.add_caustics.launches == before + 1
+    PP.add_caustics(pmap, want, cfg.samples_per_pixel, replace=True, scale=scale)
+    torch.cuda.synchronize()
+    assert bool((want[ch] != acc[ch]).any())
+    assert bool(((got[ch] - want[ch]).abs() <= 1e-5 * want[ch].abs().clamp(min=1.0)).all()), \
+        float((got[ch] - want[ch]).abs().max())
+    assert _bits_equal(got[others], acc[others])

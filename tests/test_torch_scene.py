@@ -201,7 +201,8 @@ def test_to_device_keeps_values():
 def test_mesh_instance_raises_in_flatten_and_make_config_rejects_caustics():
     """A mesh without triangles raises in the BVH build, as in the JAX
     package; caustics are ported: make_config takes the JAX package's
-    photon budget (the photon debug modes still raise)."""
+    photon budget, and a photon debug mode and its scale as the JAX
+    package's make_config does."""
     s = S.demo_scene(PD)
     s.objects.append(PD.MeshObjectData(mesh_name="Empty"))
     empty = PMC.MeshCacheService(".")
@@ -213,6 +214,10 @@ def test_mesh_instance_raises_in_flatten_and_make_config_rejects_caustics():
     want = j_make_config(j_sanitize(S.demo_scene(JD)), 8, 8, enable_caustics=True).num_photons
     assert make_config(c, 8, 8, enable_caustics=True).num_photons == want == 16384
     assert make_config(c, 8, 8).num_photons == 0
-    c.settings.photon_debug_mode = 1
-    with pytest.raises(NotImplementedError, match="photon debug"):
-        make_config(c, 8, 8, enable_caustics=True)
+    c.settings.photon_debug_mode, c.settings.photon_debug_scale = 1, 4.0
+    j = S.demo_scene(JD)
+    j.settings.photon_debug_mode, j.settings.photon_debug_scale = 1, 4.0
+    got = make_config(c, 8, 8, enable_caustics=True)
+    assert (got.photon_debug_mode, got.photon_debug_scale, got.num_photons) == (1, 4.0, 16384)
+    assert got._asdict() == j_make_config(j_sanitize(j), 8, 8, enable_caustics=True)._asdict()
+    assert make_config(c, 8, 8, photon_debug_mode=3).photon_debug_mode == 3
