@@ -55,7 +55,15 @@ modes 1-10 after a 1080p caustics frame; the Engine's surface on the card
 (validate_frame, copy_pixels_into's fills, render(fail_safe=True)); and
 the CLI (python -m raytracevs_tpu_torch.api.cli, a process of its own,
 three 1080p frames of the demo scene's file), its PNG equal to the
-Engine's frame. Phase 3 prints the mode-0 instantiations' registers and
+Engine's frame. Then the row-sharded paths (phase 4a: K2's slab form and the per-pass
+a-trous kernel against their plain versions at 1080p and 1917x1079, the
+three passes against the fused K3; phase 12: Engine(1920, 1080,
+device_mesh=make_mesh([cuda:0] * 4)) over three orbiting frames of each of
+the four paths, bit-equal to the single-device Engine's, every kernel of
+the path launched) and the live viewer (phase 13: api/viewer.py on the
+card at 1280x720 on an ephemeral 127.0.0.1 port: five frames, a setprop
+and its undo, the photon debug mode 1 with K5 and K6 launched, debug
+mode 3, a resolution switch). Phase 3 prints the mode-0 instantiations' registers and
 spills beside PR 8's and fails if K1 or K7 pass 128 registers or spill,
 or K1-mesh leaves 184 registers without spills. It prints a JSON line of
 the kernels (debug_modes_max_abs_err: the photon debug modes' check), the
@@ -98,6 +106,10 @@ KERNELS = [
      "raytracevs_tpu/ops/pallas/megakernel.py:2443"),
     ("render_phase_b", "raytracevs_tpu_torch/csrc/render.cuh",
      "raytracevs_tpu/ops/pallas/megakernel.py:2569"),
+    ("K2-slab", "raytracevs_tpu_torch/csrc/denoise.cu",
+     "raytracevs_tpu/ops/pallas/denoise_kernels.py:99"),
+    ("K3-pass", "raytracevs_tpu_torch/csrc/denoise.cu",
+     "raytracevs_tpu/ops/pallas/denoise_kernels.py:589"),
 ]
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory bytes/s and float32 operations/s outside the tensor cores.
@@ -149,6 +161,13 @@ PHOTON_BOUNCE_OPS, EMIT_OPS, GATHER_PHOTON_OPS = 60, 75, 30
 # per pixel of K2 (two bilinear fetches of 16 and 7 channels, the blends),
 # K3 (anti-firefly, then 3 passes of 8 taps) and K4 (25 taps), by hand
 REPROJECT_OPS, ATROUS_OPS, SHADOW_OPS = 370, 930, 606
+# per pixel of one a-trous pass (8 taps of a depth weight with its
+# division and expf, the normal term, 6 weighted sums; the guide's two
+# expf and the 6 final divisions) and of the anti-firefly clamp before it
+# (two luminances, 16 maxima, the ratio and 6 products), by hand
+PASS_OPS, CLAMP_OPS = 275, 40
+# the sharded paths: row slabs a frame (make_mesh([cuda:0] * SHARDS))
+SHARDS = 4
 # the bands of tests/test_megakernel.py:190-197 for the photon store fields
 # (position, direction, colour, power): atol, and rtol 1e-3
 STORE_ATOL = (5e-3, 1e-4, 1e-5, 1e-4)
@@ -1349,6 +1368,298 @@ def check_k6_replace(P, PP, PK, R, MK, sc, scene, w, h):
     return err
 
 
+# ---- row-sharded rendering and the live viewer ----
+
+def reached_history(ext, motion, motion_spec, halo, row0, global_h):
+    """(bytes, rows) of the extended history [16, rows + 2 halo, W] that
+    K2's slab form must read on this input: the 16 planes at each element
+    one of its surface-motion bilinear taps reaches, and the 7 specular
+    planes at each further element a virtual-motion tap of a pixel whose
+    virtual motion lands in the frame reaches (taps of nonzero weight,
+    clamped to the buffer as the kernel clamps them); rows, those holding
+    such an element."""
+    hx, w = ext.shape[1:]
+    h = motion.shape[1]
+    ys = torch.arange(h, device=ext.device, dtype=torch.float32)[:, None] + row0
+    xs = torch.arange(w, device=ext.device, dtype=torch.float32)[None, :]
+
+    def reached(m, keep):
+        px, py = xs - m[0], ys - m[1]
+        fx, fy = torch.floor(px), torch.floor(py)
+        x0, y0 = fx.long(), fy.long() + (halo - row0)
+        hit = torch.zeros(hx * w, dtype=torch.bool, device=ext.device)
+        for dy in (0, 1):
+            for dx in (0, 1):
+                # a tap of weight 0 (an integral coordinate) is not needed
+                need = keep & ((px != fx) if dx else True) & ((py != fy) if dy else True)
+                idx = (y0 + dy).clamp(0, hx - 1) * w + (x0 + dx).clamp(0, w - 1)
+                hit[idx[need]] = True
+        return hit
+
+    surf = reached(motion, torch.ones(h, w, dtype=torch.bool, device=ext.device))
+    vx, vy = xs - motion_spec[0], ys - motion_spec[1]
+    virt_in = (vx >= 0) & (vx <= w - 1) & (vy >= 0) & (vy <= global_h - 1)
+    spec = reached(motion_spec, virt_in) & ~surf
+    nbytes = 4 * (16 * int(surf.sum()) + 7 * int(spec.sum()))
+    return nbytes, int((surf | spec).view(hx, w).any(1).sum())
+
+
+def check_slab_kernels(K, PD, k2_args, k3_args):
+    """Phase 4a: the per-pass a-trous kernel at strides 1, 2 and 4, with and
+    without the clamp, bit-equal to its plain version on the 1080p
+    G-buffer's planes and on them cut to 1917x1079, and its chain of three
+    launches bit-equal to the fused K3; K2's slab form on the 270-row slabs
+    at row0 270 and 810, the history extended by TEMPORAL_HALO rows, within
+    1e-5 of its plain version (which is bit-equal to the whole frame's
+    rows). Times both at the sharded path's shapes (an interior slab).
+    Returns their kernel rows."""
+    k3_err = 0.0
+    for cut in (None, (FULL_H - 1, FULL_W - 3)):
+        args = k3_args if cut is None else [a[..., :cut[0], :cut[1]].contiguous()
+                                            for a in k3_args]
+        h, w = args[1].shape
+        for stride in (1, 2, 4):
+            for clamp in (False, True):
+                got = K.atrous_pass(*args, stride, clamp)
+                want = PD.atrous_single_pass(*args, stride, clamp)
+                err = float((got - want).abs().max())
+                k3_err = max(k3_err, err)
+                if not same_bits(got, want):
+                    raise AssertionError(f"atrous_pass stride {stride} clamp {clamp} {w}x{h}: "
+                                         f"max |d| {err:.3g}")
+        chain = args[0]
+        for p in range(PD.ATROUS_PASSES):
+            chain = K.atrous_pass(chain, *args[1:], 1 << p, p == 0)
+        fused = same_bits(chain, K.atrous(*args))
+        print(f"phase 4a K3-pass {w}x{h}: strides 1, 2, 4 with and without the clamp bit-equal "
+              f"to the plain version; the chain of three launches bit-equal to the fused K3 "
+              f"{fused}", flush=True)
+        if not fused:
+            raise AssertionError("the three per-pass launches differ from the fused K3")
+    rows, halo = FULL_H // SHARDS, PD.TEMPORAL_HALO
+    state, rest = k2_args[0], k2_args[1:]
+    ext = PD.exchange_row_halo([state[:, i * rows:(i + 1) * rows] for i in range(SHARDS)], halo)
+    whole = PD.temporal_accumulate(*k2_args)
+    whole_k = K.reproject_accumulate(*k2_args)
+    k2_err, slab_args = 0.0, {}
+    for i in (1, 3):
+        sl = slice(i * rows, (i + 1) * rows)
+        a = (ext[i],) + tuple(t[..., sl, :].contiguous() for t in rest)
+        got = K.reproject_accumulate(*a, halo, i * rows, FULL_H)
+        want = PD.temporal_accumulate(*a, halo, i * rows, FULL_H)
+        err = float((got - want).abs().max())
+        k2_err = max(k2_err, err)
+        print(f"phase 4a K2-slab rows [{i * rows}, {(i + 1) * rows}) halo {halo}: max |d| "
+              f"{err:.3g} against the plain slab form; the plain slab bit-equal to the whole "
+              f"frame's rows {same_bits(want, whole[:, sl])}; the kernel's slab bit-equal to the "
+              f"whole-frame kernel's rows {same_bits(got, whole_k[:, sl])}", flush=True)
+        if err > 1e-5 or not same_bits(want, whole[:, sl]):
+            raise AssertionError("K2's slab form disagrees with its plain version")
+        slab_args[i] = a
+    a, slab = slab_args[1], (halo, rows, FULL_H)  # the slab at row0 270
+    ms = gpu_ms(lambda: K.reproject_accumulate(*a, *slab), 20)
+    dev_t = device_ms(lambda: K.reproject_accumulate(*a, *slab), 20)
+    plain_ms = gpu_ms(lambda: PD.temporal_accumulate(*a, *slab), 5)
+    px = rows * FULL_W
+    hist_bytes, hist_rows = reached_history(a[0], a[2], a[5], halo, rows, FULL_H)
+    nbytes = hist_bytes + sum(t.nbytes for t in a[1:]) + 16 * px * 4
+    print(f"  K2-slab ({rows} rows, history {rows + 2 * halo}, of which the taps reach "
+          f"{hist_rows} rows, {hist_bytes / 1e6:.1f} MB): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms", flush=True)
+    rows_out = {"K2-slab": kernel_row(k2_err, ms, plain_ms, nbytes, px * REPROJECT_OPS, dev_t)}
+    # the three passes of an interior slab, each on its input extended by
+    # its halo (stride rows, one more with the clamp)
+    by_stride, sums = {}, np.zeros(5)
+    for p in range(3):
+        stride, clamp = 1 << p, p == 0
+        hh = stride + int(clamp)
+        args = [t[..., rows - hh:2 * rows + hh, :].contiguous() for t in k3_args]
+        t_ms = gpu_ms(lambda: K.atrous_pass(*args, stride, clamp), 20)
+        t_dev = device_ms(lambda: K.atrous_pass(*args, stride, clamp), 20)
+        t_plain = gpu_ms(lambda: PD.atrous_single_pass(*args, stride, clamp), 5)
+        epx = args[1].numel()
+        nb = sum(t.nbytes for t in args) + 6 * epx * 4
+        ops = epx * (PASS_OPS + (CLAMP_OPS if clamp else 0))
+        b_ms = bound(nb, ops)[0]
+        by_stride[str(stride)] = dict(ms=t_ms, device_ms=t_dev[0], plain_ms=t_plain,
+                                      bound_ms=b_ms, clamp=clamp, rows=args[1].shape[0])
+        sums += (t_ms, t_dev[0], t_plain, nb, ops)
+        print(f"  K3-pass stride {stride}{' with the clamp' if clamp else ''} on "
+              f"{args[1].shape[0]} rows: kernel {t_ms:.4f} ms, device {t_dev[0]:.4f} ms "
+              f"({t_dev[1]}), plain {t_plain:.4f} ms, bound {b_ms:.4f} ms", flush=True)
+    # the row: the mean of one launch over the three passes
+    ms, dev, plain_ms, nb, ops = sums / 3
+    rows_out["K3-pass"] = dict(kernel_row(k3_err, ms, plain_ms, nb, ops, (dev, "profiler")),
+                               by_stride=by_stride)
+    return rows_out
+
+
+def run_sharded(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, two_phase=False,
+                timing=False):
+    """Phase 12: FRAMES orbiting 1080p frames through Engine(1920, 1080,
+    device_mesh=make_mesh([cuda:0] * SHARDS)), after the same frames
+    through the single-device Engine: RGBA, HDR, the denoised planes and
+    the history (its slabs stitched) bit-equal frame by frame. Every launch
+    count is set to 0 just before the sharded frames and read just after.
+    With timing, then both Engines' render() over 10 more frames of the
+    last scene, by CUDA events and by the device's own time. Returns the
+    launches (K2-slab: K2's slab-form launches)."""
+    from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
+    from raytracevs_tpu_torch.parallel.tiles import make_mesh
+
+    ms = None if meshes is None else mesh_service(meshes)
+    one = P.Engine(FULL_W, FULL_H, mesh_service=ms, two_phase=two_phase)
+    ref = []
+    for f in range(FRAMES):
+        one.update_scene(build(D, f), **overrides)
+        ref.append((one.render(), one._last_hdr_t, one._last_denoised, one._denoise_state.packed,
+                    one.last_render_ms))
+    for c in counters.values():
+        c.launches = 0
+    K.reproject_accumulate.slab_launches = 0
+    four = P.Engine(FULL_W, FULL_H, mesh_service=ms, two_phase=two_phase,
+                    device_mesh=make_mesh(["cuda:0"] * SHARDS))
+    for f in range(FRAMES):
+        four.update_scene(build(D, f), **overrides)
+        img = four.render()
+        img1, hdr1, den1, st1, ms1 = ref[f]
+        same = dict(rgba=bool(np.array_equal(img, img1)), hdr=same_bits(four._last_hdr_t, hdr1),
+                    denoised=all(same_bits(a, b) for a, b in zip(four._last_denoised, den1)),
+                    state=same_bits(torch.cat([s.packed for s in four._denoise_state], 1), st1))
+        print(f"phase 12 {label} frame {f}: sharded {four.last_render_ms:.2f} ms, one device "
+              f"{ms1:.2f} ms; bit-equal {same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"{label}: the sharded frame {f} differs from the single-device "
+                                 "frame")
+    launches = {name: c.launches for name, c in counters.items()}
+    launches["K2-slab"] = K.reproject_accumulate.slab_launches
+    print(f"phase 12 {label} launches: {launches}", flush=True)
+    if timing:
+        for name, e in (("one device", one), ("sharded", four)):
+            ms = gpu_ms(e.render, 10)
+            dev = device_ms(e.render, 10)
+            print(f"phase 12 {label} {name}: render() {ms:.3f} ms a frame by CUDA events, the "
+                  f"device busy {dev[0]:.3f} ms of it ({dev[1]})", flush=True)
+    del one
+    n = FRAMES * SHARDS
+    want = {"K2-slab": n, "atrous_pass": 3 * n, "shadow_denoise": n, "atrous": 0}
+    if two_phase:
+        want.update(render_phase_a=n, render_phase_b=n)
+    else:
+        want["render_accum_mesh" if meshes else "render_accum"] = n
+    if overrides.get("enable_caustics"):
+        want.update(photon_trace=n, photon_gather=n)
+    for name, k in want.items():
+        if launches[name] != k:
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times in {FRAMES} "
+                                 f"sharded frames, not {k}")
+    return launches
+
+
+def check_viewer(path, counters):
+    """Phase 13: the port's viewer on the card (ViewerState(path, 1280, 720))
+    served on an ephemeral 127.0.0.1 port: five 1280x720 /frame.png, a
+    setprop and its undo through /cmd (the graph changed, then restored),
+    op=photon (photon debug mode 1: caustics on, K5 and K6 launch) with a
+    frame served in it, op=debug 3 and back to 0, a resolution switch; its
+    fps and render ms. The loop and the server stop at the end."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from raytracevs_tpu_torch.api import viewer as V
+
+    w, h = 1280, 720
+    state = V.ViewerState(path, w, h, overrides=dict(OVERRIDES), device="cuda")
+    server = V.make_server(state, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+
+    def get(q):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{q}", timeout=120) as r:
+            return r.status, r.read()
+
+    def status():
+        return json.loads(get("/status")[1])
+
+    def wait_frames(n):
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            s = status()
+            if s["frames"] >= n:
+                return s
+            time.sleep(0.02)
+        raise AssertionError(f"the viewer served fewer than {n} frames")
+
+    def frame_png(shape):
+        code, png = get("/frame.png")
+        with tempfile.NamedTemporaryFile(suffix=".png") as f:
+            f.write(png)
+            f.flush()
+            img = read_png_any(f.name)
+        if code != 200 or img.shape[:2] != shape:
+            raise AssertionError(f"/frame.png: {code}, {img.shape}, expected {shape}")
+        return img
+
+    def cmd(q):
+        out = json.loads(get("/cmd?" + q)[1])
+        if "error" in out:
+            raise AssertionError(f"/cmd?{q}: {out['error']}")
+        return out
+
+    try:
+        for k in range(5):
+            wait_frames(k + 1)
+            frame_png((h, w))
+        s = status()
+        print(f"phase 13 viewer {w}x{h}: 5 frames served; {s['fps']:.1f} fps, render "
+              f"{s['render_ms']:.2f} ms, {s['frames']} frames in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        graph = json.loads(get("/graph")[1])
+        sphere = next(n for n in graph["nodes"] if n["type"] == "SphereNode")
+        props = dict(sphere["properties"], Radius=sphere["properties"]["Radius"] + 0.1)
+        from urllib.parse import quote
+
+        cmd(f"op=setprop&node={sphere['id']}&props={quote(json.dumps(props))}")
+        edited = json.loads(get("/graph")[1])
+        cmd("op=undo")
+        restored = json.loads(get("/graph")[1])
+        changed, back = edited != graph, restored["nodes"] == graph["nodes"]
+        print(f"phase 13 viewer setprop: the graph changed {changed}; undo restored it {back}",
+              flush=True)
+        if not (changed and back):
+            raise AssertionError("the viewer's setprop/undo")
+        for name in ("photon_trace", "photon_gather"):
+            counters[name].launches = 0
+        out = cmd("op=photon")
+        s = wait_frames(out["frames"] + 2)
+        frame_png((h, w))
+        k5, k6 = counters["photon_trace"].launches, counters["photon_gather"].launches
+        print(f"phase 13 viewer photon debug mode {s['photon_debug_mode']}: {s['render_ms']:.2f} "
+              f"ms a frame; K5 launched {k5}, K6 {k6} times", flush=True)
+        if s["photon_debug_mode"] != 1 or not (k5 and k6):
+            raise AssertionError("the viewer's photon mode did not run the photon pass")
+        for mode in (3, 0):
+            out = cmd(f"op=debug&mode={mode}")
+            wait_frames(out["frames"] + 2)
+            frame_png((h, w))
+        out = cmd("op=res&dir=1")
+        s = wait_frames(out["frames"] + 3)
+        res = V.RESOLUTIONS
+        nw, nh = res[(res.index((w, h)) + 1) % len(res)]
+        frame_png((nh, nw))
+        print(f"phase 13 viewer after the switch to {s['width']}x{s['height']}: {s['fps']:.1f} "
+              f"fps, render {s['render_ms']:.2f} ms; {time.perf_counter() - t0:.1f} s in all",
+              flush=True)
+        return s
+    finally:
+        server.shutdown()
+        server.server_close()
+        state.loop.stop()
+
+
 def check_debug_views(P, D, PDM):
     """render_debug_view modes 1-10 after a 1080p caustics frame: each the
     frame's shape, its colour (post/debug_modes.py) finite. Returns the
@@ -1557,6 +1868,9 @@ def main():
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
         nbytes = sum(a.nbytes for a in args) + out_planes * px * 4
         results[name] = kernel_row(err, ms, plain_ms, nbytes, px * ops, dev_t)
+    # phase 4a: the sharded denoise's kernel forms, K2's slab form and the
+    # per-pass a-trous kernel
+    results.update(check_slab_kernels(K, PD, k2_args, k3_args))
     del k2_args, new_state, k3_args, k4_args
 
     # K5 on the demo scene's tables at its budget and at the reference's
@@ -1722,7 +2036,8 @@ def main():
                 "atrous": K.atrous, "shadow_denoise": K.shadow_denoise,
                 "render_accum_mesh": MK.render_accum_mesh,
                 "photon_trace": PK.emit_and_trace, "photon_gather": PK.add_caustics,
-                "render_phase_a": MK.render_phase_a, "render_phase_b": MK.render_phase_b}
+                "render_phase_a": MK.render_phase_a, "render_phase_b": MK.render_phase_b,
+                "atrous_pass": K.atrous_pass}
     launches, aeng = run_engine(P, D, "analytic", demo_scene, counters)
     if launches["render_accum"] < FRAMES:
         raise AssertionError(f"render_accum launched {launches['render_accum']} times in "
@@ -1804,6 +2119,17 @@ def main():
     print_stages("two-phase mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene,
                                                      MESH_DEMO, SPP1, two_phase=True))
 
+    # phase 12: the four paths row-sharded over four slabs on the card,
+    # against the single-device Engine
+    t_new = time.perf_counter()
+    sharded = run_sharded(P, D, "analytic", demo_scene, counters, timing=True)
+    launches["K2-slab"], launches["K3-pass"] = sharded["K2-slab"], sharded["atrous_pass"]
+    run_sharded(P, D, "mesh", mesh_demo_scene, counters, MESH_DEMO)
+    run_sharded(P, D, "caustics", demo_scene, counters, overrides=CAUSTICS)
+    run_sharded(P, D, "two-phase mesh", mesh_demo_scene, counters, MESH_DEMO, SPP1,
+                two_phase=True)
+    print(f"phase 12: {time.perf_counter() - t_new:.1f} s", flush=True)
+
     # phase 8: the demo and mesh demo scenes as .rtvs files through
     # Engine(1920, 1080).load_rtvs, the counts set to 0 just before each
     import tempfile
@@ -1850,7 +2176,12 @@ def main():
 
         # phase 11: the CLI from the demo scene's file, in a process of its own
         check_cli(P, demo_path, os.path.join(tmp, "out.png"))
-    print(f"phases 8-11: {time.perf_counter() - t_new:.1f} s", flush=True)
+        print(f"phases 8-11: {time.perf_counter() - t_new:.1f} s", flush=True)
+
+        # phase 13: the viewer on the card, serving the demo scene's file
+        t_new = time.perf_counter()
+        check_viewer(demo_path, counters)
+        print(f"phase 13: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     line = {"kernels": [
         dict({"name": name, "route": "cuda", "source": src, "replaces": rep,

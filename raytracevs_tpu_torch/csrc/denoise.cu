@@ -15,9 +15,15 @@
 //   about 110 words, 440 bytes. Taps of neighbouring threads overlap, so
 //   L1/L2 absorb most of the gather; the state is read and written
 //   ping-pong (never in place).
+//   It takes the slab form (the TPU kernel's row_offset/global_h, which the
+//   row-sharded denoise runs): a slab's rows from frame row row0, the
+//   history extended by a halo of rows on each side, each tap's weights
+//   from the global row coordinate and its row shifted by halo - row0, so a
+//   slab equals the whole frame's rows bit for bit; a whole frame is the
+//   slab with no halo at row 0.
 //
-// K3 rtvs_atrous replaces denoise_kernels.py::_atrous_fused_kernel (and
-//   _atrous_pass_kernel): the anti-firefly 3x3 luminance clamp and the
+// K3 rtvs_atrous replaces denoise_kernels.py::_atrous_fused_kernel: the
+//   anti-firefly 3x3 luminance clamp and the
 //   three guided edge-stopping passes (strides 1, 2, 4) in one launch. A
 //   block owns an AT_W x AT_H tile of output pixels and runs the chain
 //   over shrinking windows in shared memory: luminance on the tile +- 8,
@@ -40,6 +46,16 @@
 //   version's edge padding of each pass's output does. The depth divide
 //   stays a division at every tap (a hoisted reciprocal would change
 //   bits).
+//
+// K3-pass rtvs_atrous_pass replaces denoise_kernels.py::_atrous_pass_kernel
+//   (atrous_single_pass): one guided pass at stride 1, 2 or 4, the
+//   anti-firefly clamp first when asked, which the row-sharded denoise
+//   runs between its halo exchanges. A block loads a 32x8 tile and its
+//   halo (the stride, one row and column more for the clamp's luminance)
+//   of the 6 image planes and of z and normal into shared memory once,
+//   clamps there in place, and runs the 8 taps from there. Bound: device
+//   memory (the 12 input and 6 output planes once; 0.011 ms for a 274-row
+//   slab at 1920) and the exact expf and division at every tap, as K3's.
 //
 // K4 rtvs_shadow_denoise replaces denoise_kernels.py::_shadow_kernel: the
 //   ShadowDenoise.hlsl 5x5 filter with an exact int32 object-id match.
@@ -82,12 +98,14 @@ __device__ __forceinline__ float div0(float a, float b) {
   return zero ? a : q;
 }
 
-// bilinear taps of `nch` planes (channel list `chans`) at (xf, yf)
+// bilinear taps of `nch` planes (channel list `chans`) at (xf, yf); row y
+// of the coordinates is row y + row_shift of img
 __device__ __forceinline__ void bilinear(const float* __restrict__ img, const int* chans, int nch,
-                                         int H, int W, float xf, float yf, float* outv) {
+                                         int H, int W, float xf, float yf, float* outv,
+                                         int row_shift) {
   float x0f = floorf(xf), y0f = floorf(yf);
   float fx = xf - x0f, fy = yf - y0f;
-  int x0 = (int)x0f, y0 = (int)y0f;
+  int x0 = (int)x0f, y0 = (int)y0f + row_shift;
   int xa = clampi(x0, 0, W - 1), xb = clampi(x0 + 1, 0, W - 1);
   int ya = clampi(y0, 0, H - 1), yb = clampi(y0 + 1, 0, H - 1);
   size_t plane = (size_t)H * W;
@@ -107,32 +125,43 @@ __device__ __forceinline__ float clamp_to_fast(float slow, float fast) {
   return minn(maxn(slow, minn(lo, hi)), maxn(lo, hi));
 }
 
+// A row slab of H rows from frame row row0 of a global_h-row frame; the
+// state holds the slab's history extended by `halo` rows on each side
+// (H + 2 halo rows), the current planes and the output the slab's rows.
+// Rows are global: the tap at global row y reads state row y - row0 +
+// halo, its weights from the global coordinate, and the predicates test
+// global_h - 1 (the jnp oracle's sharded form, without its rounding of
+// prev_y - row0 + halo). The whole frame is the slab with halo 0, row0 0
+// and global_h H, where this arithmetic is the whole frame's own.
 __global__ void reproject_kernel(const float* __restrict__ state, const float* __restrict__ curr,
                                  const float* __restrict__ motion,
                                  const float* __restrict__ motion_spec,
                                  const float* __restrict__ view_z,
                                  const float* __restrict__ roughness, float* __restrict__ out,
-                                 int H, int W) {
+                                 int H, int W, int halo, int row0, int global_h) {
   int x = blockIdx.x * blockDim.x + threadIdx.x;
   int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= W || y >= H) return;
   size_t plane = (size_t)H * W, i = (size_t)y * W + x;
-  float xs = (float)x, ys = (float)y;
+  const int HS = H + 2 * halo;  // the state's rows
+  const int shift = halo - row0;
+  const float last_y = (float)(global_h - 1);
+  float xs = (float)x, ys = (float)(y + row0);
   float prev_x = xs - __ldg(motion + i), prev_y = ys - __ldg(motion + plane + i);
   const int all[16] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15};
   float hist[16];
-  bilinear(state, all, 16, H, W, prev_x, prev_y, hist);
+  bilinear(state, all, 16, HS, W, prev_x, prev_y, hist, shift);
   // specular history by virtual motion, where that lands inside the frame
   float pvx = xs - __ldg(motion_spec + i), pvy = ys - __ldg(motion_spec + plane + i);
   const int spec[7] = {4, 5, 6, 7, 11, 12, 13};
   float vh[7];
-  bilinear(state, spec, 7, H, W, pvx, pvy, vh);
-  bool virt_in = pvx >= 0.0f && pvx <= (float)(W - 1) && pvy >= 0.0f && pvy <= (float)(H - 1);
+  bilinear(state, spec, 7, HS, W, pvx, pvy, vh, shift);
+  bool virt_in = pvx >= 0.0f && pvx <= (float)(W - 1) && pvy >= 0.0f && pvy <= last_y;
   if (virt_in)
     for (int k = 0; k < 7; ++k) hist[spec[k]] = vh[k];
   float vz = __ldg(view_z + i);
   bool in_bounds =
-      prev_x >= 0.0f && prev_x <= (float)(W - 1) && prev_y >= 0.0f && prev_y <= (float)(H - 1);
+      prev_x >= 0.0f && prev_x <= (float)(W - 1) && prev_y >= 0.0f && prev_y <= last_y;
   bool depth_ok = fabsf(hist[15] - vz) <= F(0.1) * maxn(vz, VIEWZ_MIN);
   bool valid = in_bounds && depth_ok && vz < NOT_SKY_Z;
   float frames = valid ? minn(hist[14] + 1.0f, F(16.0)) : 0.0f;
@@ -373,6 +402,136 @@ __global__ void __launch_bounds__(AT_THREADS, AT_BLOCKS)
     atrous_tile<true>(smem, img, view_z, normal, guide, out, H, W, x0, y0);
 }
 
+// The per-pass a-trous kernel: one guided pass at stride S over a
+// PW_W x PW_H output tile, with AF the anti-firefly clamp applied to the
+// pass's input first. The tile's window of the image (+- S, and + 1 for
+// the clamp's luminance) and of z and normal (+- S) is loaded once into
+// shared memory, by frame coordinate and for in-frame pixels only; every
+// read clamps its frame coordinate first, so the clamp's output at the
+// frame's edge is the edge pixel's own, as the plain version pads it.
+constexpr int PW_W = 32, PW_H = 8;
+
+template <int R>
+struct PassWin {
+  static constexpr int P = PW_W + 2 * R, N = P * (PW_H + 2 * R);
+  // the slot of frame pixel (x, y), clamped into the frame, of the tile at (x0, y0)
+  static __device__ __forceinline__ int at(int x, int y, int x0, int y0, int H, int W) {
+    return (clampi(y, 0, H - 1) - y0 + R) * P + (clampi(x, 0, W - 1) - x0 + R);
+  }
+};
+
+template <int S, bool AF>
+__global__ void __launch_bounds__(PW_W * PW_H)
+    atrous_pass_kernel(const float* __restrict__ img, const float* __restrict__ view_z,
+                       const float* __restrict__ normal, const float* __restrict__ guide,
+                       float* __restrict__ out, int H, int W) {
+  constexpr int R = S + (AF ? 1 : 0);
+  using WI = PassWin<R>;
+  using WZ = PassWin<S>;
+  __shared__ float4 s_a[WI::N];  // channels 0-3; the clamp writes its output here
+  __shared__ float2 s_b[WI::N];  // channels 4-5
+  __shared__ float2 s_lum[AF ? WI::N : 1];  // each group's luminance
+  __shared__ float4 s_zn[WZ::N];  // view_z, normal
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * PW_W, y0 = blockIdx.y * PW_H;
+  const size_t plane = (size_t)H * W;
+  for (int k = tid; k < WI::N; k += PW_W * PW_H) {
+    int ly = k / WI::P;
+    int x = x0 - R + (k - ly * WI::P), y = y0 - R + ly;
+    if (x < 0 || x >= W || y < 0 || y >= H) continue;
+    size_t q = (size_t)y * W + x;
+    float c[6];
+#pragma unroll
+    for (int ch = 0; ch < 6; ++ch) c[ch] = __ldg(img + ch * plane + q);
+    s_a[k] = make_float4(c[0], c[1], c[2], c[3]);
+    s_b[k] = make_float2(c[4], c[5]);
+    if (AF)
+      s_lum[k] = make_float2(c[0] * F(0.2126) + c[1] * F(0.7152) + c[2] * F(0.0722),
+                             c[3] * F(0.2126) + c[4] * F(0.7152) + c[5] * F(0.0722));
+  }
+  for (int k = tid; k < WZ::N; k += PW_W * PW_H) {
+    int ly = k / WZ::P;
+    int x = x0 - S + (k - ly * WZ::P), y = y0 - S + ly;
+    if (x < 0 || x >= W || y < 0 || y >= H) continue;
+    size_t q = (size_t)y * W + x;
+    s_zn[k] = make_float4(__ldg(view_z + q), __ldg(normal + q), __ldg(normal + plane + q),
+                          __ldg(normal + 2 * plane + q));
+  }
+  __syncthreads();
+  if (AF) {
+    // the clamp on the in-frame pixels of the tile +- S, in place: a
+    // pixel's own slots are the only image slots this stage writes or reads
+    for (int k = tid; k < WZ::N; k += PW_W * PW_H) {
+      int ly = k / WZ::P;
+      int x = x0 - S + (k - ly * WZ::P), y = y0 - S + ly;
+      if (x < 0 || x >= W || y < 0 || y >= H) continue;
+      float2 m = make_float2(0.0f, 0.0f);
+      bool first = true;
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+        for (int dx = -1; dx <= 1; ++dx) {
+          if (dy == 0 && dx == 0) continue;
+          float2 l = s_lum[WI::at(x + dx, y + dy, x0, y0, H, W)];
+          m.x = first ? l.x : maxn(m.x, l.x);
+          m.y = first ? l.y : maxn(m.y, l.y);
+          first = false;
+        }
+      const int c = WI::at(x, y, x0, y0, H, W);
+      const float2 lc = s_lum[c];
+      float s_d = minn(div0(m.x, maxn(lc.x, F(1e-6))), 1.0f);
+      float s_s = minn(div0(m.y, maxn(lc.y, F(1e-6))), 1.0f);
+      const float4 a = s_a[c];
+      const float2 b = s_b[c];
+      s_a[c] = make_float4(a.x * s_d, a.y * s_d, a.z * s_d, a.w * s_s);
+      s_b[c] = make_float2(b.x * s_s, b.y * s_s);
+    }
+    __syncthreads();
+  }
+  const int x = x0 + tid % PW_W, y = y0 + tid / PW_W;
+  if (x >= W || y >= H) return;
+  const size_t i = (size_t)y * W + x;
+  // the pass: atrous_px's arithmetic, the taps by clamped frame coordinate
+  const float4 zc4 = s_zn[WZ::at(x, y, x0, y0, H, W)];
+  const float vz = zc4.x, n0 = zc4.y, n1 = zc4.z, n2 = zc4.w;
+  float zc = F(0.05) * maxn(vz, VIEWZ_MIN);
+  float s2 = (float)(S * S);
+  float rd = maxn(__ldg(guide + i), F(1e-3));
+  float rs = maxn(__ldg(guide + plane + i), F(1e-3));
+  float g_d = expf(-s2 / (rd * rd));
+  float g_s = expf(-s2 / (rs * rs));
+  const int ci = WI::at(x, y, x0, y0, H, W);
+  const float4 ca = s_a[ci];
+  const float2 cb = s_b[ci];
+  float acc[6] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y};
+  float wsum_d = 1.0f, wsum_s = 1.0f;
+  const int offs[8][2] = {{-1, -1}, {-1, 0}, {-1, 1}, {0, -1}, {0, 1}, {1, -1}, {1, 0}, {1, 1}};
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int dx = offs[t][1] * S, dy = offs[t][0] * S;
+    const float4 q = s_zn[WZ::at(x + dx, y + dy, x0, y0, H, W)];
+    const int qi = WI::at(x + dx, y + dy, x0, y0, H, W);
+    const float4 qa = s_a[qi];
+    const float2 qb = s_b[qi];
+    float w_depth = expf(div0(-fabsf(q.x - vz), zc));
+    float ndot = q.y * n0 + q.z * n1 + q.w * n2;
+    float wt = w_depth * pow8(maxn(ndot, 0.0f)) * F(2.0 / 3.0);
+    float w_d = wt * g_d, w_s = wt * g_s;
+    acc[0] = acc[0] + qa.x * w_d;
+    acc[1] = acc[1] + qa.y * w_d;
+    acc[2] = acc[2] + qa.z * w_d;
+    acc[3] = acc[3] + qa.w * w_s;
+    acc[4] = acc[4] + qb.x * w_s;
+    acc[5] = acc[5] + qb.y * w_s;
+    wsum_d = wsum_d + w_d;
+    wsum_s = wsum_s + w_s;
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k * plane + i] = div0(acc[k], wsum_d);
+#pragma unroll
+  for (int k = 3; k < 6; ++k) out[k * plane + i] = div0(acc[k], wsum_s);
+}
+
 // K4's tile: one thread per output pixel, SH_W x SH_H a block
 constexpr int SH_W = 32, SH_H = 16;
 constexpr int SH_P = SH_W + 2 * SHADOW_RADIUS, SH_N = SH_P * (SH_H + 2 * SHADOW_RADIUS);
@@ -445,12 +604,15 @@ inline dim3 grid_for(int H, int W) { return dim3((W + 15) / 16, (H + 15) / 16); 
 
 // Every entry point launches on `stream`, allocates nothing and returns the
 // launch's cudaError_t. Every input pointer is required.
+// H: the current planes' rows; the state has H + 2 halo. A whole frame
+// passes halo 0, row0 0, global_h H.
 extern "C" int rtvs_reproject_accumulate(const float* state, const float* curr,
                                          const float* motion, const float* motion_spec,
                                          const float* view_z, const float* roughness, float* out,
-                                         int H, int W, void* stream) {
+                                         int H, int W, int halo, int row0, int global_h,
+                                         void* stream) {
   reproject_kernel<<<grid_for(H, W), dim3(16, 16), 0, (cudaStream_t)stream>>>(
-      state, curr, motion, motion_spec, view_z, roughness, out, H, W);
+      state, curr, motion, motion_spec, view_z, roughness, out, H, W, halo, row0, global_h);
   return (int)cudaGetLastError();
 }
 
@@ -476,6 +638,28 @@ extern "C" int rtvs_atrous(const float* img, const float* view_z, const float* n
   if (err != cudaSuccess) return (int)err;
   atrous_kernel<<<dim3((W + AT_W - 1) / AT_W, (H + AT_H - 1) / AT_H), AT_THREADS, AT_SMEM_BYTES,
                   (cudaStream_t)stream>>>(img, view_z, normal, guide, out, H, W);
+  return (int)cudaGetLastError();
+}
+
+// One a-trous pass at stride 1, 2 or 4, the anti-firefly clamp first when
+// anti_firefly is nonzero; another stride returns cudaErrorInvalidValue.
+extern "C" int rtvs_atrous_pass(const float* img, const float* view_z, const float* normal,
+                                const float* guide, float* out, int H, int W, int stride,
+                                int anti_firefly, void* stream) {
+  const dim3 grid((W + PW_W - 1) / PW_W, (H + PW_H - 1) / PW_H), block(PW_W * PW_H);
+  cudaStream_t st = (cudaStream_t)stream;
+#define RTVS_PASS(S, AF) atrous_pass_kernel<S, AF><<<grid, block, 0, st>>>(img, view_z, normal, \
+                                                                           guide, out, H, W)
+  switch (stride * 2 + (anti_firefly ? 1 : 0)) {
+    case 2: RTVS_PASS(1, false); break;
+    case 3: RTVS_PASS(1, true); break;
+    case 4: RTVS_PASS(2, false); break;
+    case 5: RTVS_PASS(2, true); break;
+    case 8: RTVS_PASS(4, false); break;
+    case 9: RTVS_PASS(4, true); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RTVS_PASS
   return (int)cudaGetLastError();
 }
 

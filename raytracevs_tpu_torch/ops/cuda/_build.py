@@ -66,10 +66,13 @@ SIGNATURES = {
     # nodes, plane, inst, inst_tbl, T, I, Nn, threaded, n, o, d, max_dist,
     # blocked, vis, color, occ, stream
     "rtvs_mesh_shadow": (_P,) * 4 + (_I,) * 5 + (_P,) * 8,
-    # state, curr, motion, motion_spec, view_z, roughness, out, H, W, stream
-    "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 2 + (_P,),
+    # state, curr, motion, motion_spec, view_z, roughness, out, H, W, halo,
+    # row0, global_h, stream
+    "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 5 + (_P,),
     # img6, view_z, normal3, guide2, out6, H, W, stream
     "rtvs_atrous": (_P,) * 5 + (_I,) * 2 + (_P,),
+    # img6, view_z, normal3, guide2, out6, H, W, stride, anti_firefly, stream
+    "rtvs_atrous_pass": (_P,) * 5 + (_I,) * 4 + (_P,),
     # shadow2, obj_id, view_z, normal3, out2, H, W, stream
     "rtvs_shadow_denoise": (_P,) * 5 + (_I,) * 2 + (_P,),
     # int out[3]: K3's shared bytes a block, K3's and K4's blocks an SM

@@ -1,9 +1,11 @@
-"""Wrappers of kernels K2-K4 (csrc/denoise.cu): reprojection, a-trous and
-the shadow filter.
+"""Wrappers of kernels K2-K4 (csrc/denoise.cu): reprojection (whole frames
+and row slabs), a-trous (the fused chain, and one pass a launch for the
+sharded denoise) and the shadow filter.
 
 On CPU tensors each wrapper runs its plain version from post/denoise.py; on
 CUDA tensors it launches its kernel or raises. Each wrapper's ``launches``
-counts its kernel launches, one a call.
+counts its kernel launches, one a call; ``reproject_accumulate.
+slab_launches`` counts those of K2's slab form among them.
 """
 from __future__ import annotations
 
@@ -37,27 +39,38 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def reproject_accumulate(packed, curr, motion, view_z, roughness, motion_spec):
+def reproject_accumulate(packed, curr, motion, view_z, roughness, motion_spec, halo=0, row0=0,
+                         global_h=None):
     """K2: temporal reprojection + accumulation -> new packed state [16,H,W]
-    (see post/denoise.py::temporal_accumulate)."""
+    (see post/denoise.py::temporal_accumulate). For a row slab of H rows
+    from frame row `row0` of a `global_h`-row frame, `packed` is the
+    slab's history extended by `halo` rows on each side, [16,H+2 halo,W]."""
     dev = _device(packed)
     if dev.type == "cpu":
-        return plain.temporal_accumulate(packed, curr, motion, view_z, roughness, motion_spec)
+        return plain.temporal_accumulate(packed, curr, motion, view_z, roughness, motion_spec,
+                                         halo, row0, global_h)
     h, w = view_z.shape
-    _check("packed", packed, (plain.STATE_CH, h, w), _F32, dev)
+    global_h = h if global_h is None else int(global_h)
+    if not (halo >= 0 and 0 <= row0 and row0 + h <= global_h):
+        raise ValueError(f"reproject_accumulate: slab [{row0}, {row0 + h}) of {global_h} rows, "
+                         f"halo {halo}")
+    _check("packed", packed, (plain.STATE_CH, h + 2 * halo, w), _F32, dev)
     _check("curr", curr, (8, h, w), _F32, dev)
     _check("motion", motion, (2, h, w), _F32, dev)
     _check("view_z", view_z, (h, w), _F32, dev)
     _check("roughness", roughness, (h, w), _F32, dev)
     _check("motion_spec", motion_spec, (2, h, w), _F32, dev)
-    out = torch.empty_like(packed)
+    out = torch.empty((plain.STATE_CH, h, w), dtype=_F32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.rtvs_reproject_accumulate(
             packed.data_ptr(), curr.data_ptr(), motion.data_ptr(), motion_spec.data_ptr(),
-            view_z.data_ptr(), roughness.data_ptr(), out.data_ptr(), h, w, _stream(dev))
+            view_z.data_ptr(), roughness.data_ptr(), out.data_ptr(), h, w, int(halo), int(row0),
+            global_h, _stream(dev))
     _build.check(err, "rtvs_reproject_accumulate")
     reproject_accumulate.launches += 1
+    if (halo, row0, global_h) != (0, 0, h):  # a row slab
+        reproject_accumulate.slab_launches += 1
     return out
 
 
@@ -83,6 +96,33 @@ def atrous(img, view_z, normal, guide):
     return out
 
 
+def atrous_pass(img, view_z, normal, guide, stride, anti_firefly):
+    """One guided edge-stopping a-trous pass at `stride` (1, 2 or 4) over
+    the 6-channel diffuse+specular img [6,H,W], with `anti_firefly` the
+    3x3 luminance clamp applied to img first; one launch (see
+    post/denoise.py::atrous_single_pass). The sharded denoise runs the
+    passes one at a time, with a halo exchange between them."""
+    dev = _device(img)
+    if dev.type == "cpu":
+        return plain.atrous_single_pass(img, view_z, normal, guide, stride, anti_firefly)
+    if stride not in (1, 2, 4):
+        raise ValueError(f"atrous_pass: stride {stride}, the kernel takes 1, 2 or 4")
+    h, w = view_z.shape
+    _check("img", img, (6, h, w), _F32, dev)
+    _check("view_z", view_z, (h, w), _F32, dev)
+    _check("normal", normal, (3, h, w), _F32, dev)
+    _check("guide", guide, (2, h, w), _F32, dev)
+    out = torch.empty_like(img)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.rtvs_atrous_pass(img.data_ptr(), view_z.data_ptr(), normal.data_ptr(),
+                                   guide.data_ptr(), out.data_ptr(), h, w, int(stride),
+                                   int(bool(anti_firefly)), _stream(dev))
+    _build.check(err, "rtvs_atrous_pass")
+    atrous_pass.launches += 1
+    return out
+
+
 def shadow_denoise(shadow, obj_id, view_z, normal):
     """K4: the ShadowDenoise.hlsl filter on (penumbra, visibility) [2,H,W]
     (see post/denoise.py::shadow_denoise)."""
@@ -105,5 +145,7 @@ def shadow_denoise(shadow, obj_id, view_z, normal):
 
 
 reproject_accumulate.launches = 0
+reproject_accumulate.slab_launches = 0
 atrous.launches = 0
+atrous_pass.launches = 0
 shadow_denoise.launches = 0

@@ -219,46 +219,53 @@ def _launch(entry, scene, cfg, flags, tables, lead, counts=None, band=None):
     _build.check(err, entry)
 
 
-def _render_bands(entry, wrapper, scene, cfg, flags, tables, channels, bands, counts):
-    """The [channels, height, width] planes of the frame, a launch of
-    `entry` a row band: into the frame's planes for a single band, else
-    into a band buffer each, copied into them."""
+def _render_bands(entry, wrapper, scene, cfg, flags, tables, channels, slab, limit, counts):
+    """The [channels, rows, width] planes of the row slab (row_start, rows)
+    of the frame, a launch of `entry` a row band of row_bands(..., limit)
+    over it: into the slab's planes for a single band, else into a band
+    buffer each, copied into them."""
+    row_start, rows = slab
+    bands = [(row_start + r0, n) for r0, n in row_bands(cfg.width, rows, channels, limit)]
     dev = scene.cam_pos.device
-    out = torch.empty((channels, cfg.height, cfg.width), dtype=_F32, device=dev)
+    out = torch.empty((channels, rows, cfg.width), dtype=_F32, device=dev)
     tables = pack_tables(scene) if tables is None else tables
-    for row0, rows in bands:
-        buf = out if len(bands) == 1 else torch.empty((channels, rows, cfg.width), dtype=_F32,
+    for row0, n in bands:
+        buf = out if len(bands) == 1 else torch.empty((channels, n, cfg.width), dtype=_F32,
                                                       device=dev)
-        _launch(entry, scene, cfg, flags, tables, [buf.data_ptr()], counts, (row0, rows))
+        _launch(entry, scene, cfg, flags, tables, [buf.data_ptr()], counts, (row0, n))
         wrapper.launches += 1
         if buf is not out:
-            out[:, row0:row0 + rows].copy_(buf)
+            out[:, row0 - row_start:row0 - row_start + n].copy_(buf)
     return out
 
 
-def render_accum(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT) -> torch.Tensor:
+def render_accum(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT, row_start=0,
+                 num_rows=None) -> torch.Tensor:
     """K1: the [NUM_CH, height, width] accumulator planes of the frame
     (K1-mesh when the scene has meshes), a launch per row band of
-    row_bands(..., limit). `tables`: pack_tables(scene), when the caller
-    packed them already; `counts`: see the module."""
+    row_bands(..., limit); given `num_rows`, the [NUM_CH, num_rows, width]
+    planes of the row slab from `row_start` alone (ops/render.py::
+    render_accum's). `tables`: pack_tables(scene), when the caller packed
+    them already; `counts`: see the module."""
     if scene.cam_pos.device.type == "cpu":
-        return R.render_accum(scene, cfg, counts)
+        return R.render_accum(scene, cfg, counts, row_start, num_rows)
     if scene.mesh is not None:
-        return render_accum_mesh(scene, cfg, counts, tables, limit)
+        return render_accum_mesh(scene, cfg, counts, tables, limit, row_start, num_rows)
     flags = _check(scene, cfg, "render_accum")
     return _render_bands("rtvs_render_accum", render_accum, scene, cfg, flags, tables, R.NUM_CH,
-                         row_bands(cfg.width, cfg.height, R.NUM_CH, limit), counts)
+                         R.row_slab(cfg, row_start, num_rows), limit, counts)
 
 
-def render_accum_mesh(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT) -> torch.Tensor:
+def render_accum_mesh(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT, row_start=0,
+                      num_rows=None) -> torch.Tensor:
     """K1-mesh: render_accum for a scene with triangle meshes."""
     if scene.cam_pos.device.type == "cpu":
-        return R.render_accum(scene, cfg, counts)
+        return R.render_accum(scene, cfg, counts, row_start, num_rows)
     if scene.mesh is None:
         raise ValueError("render_accum_mesh: the scene has no mesh leaf")
     flags = _check(scene, cfg, "render_accum_mesh")
     return _render_bands("rtvs_render_accum", render_accum_mesh, scene, cfg, flags, tables,
-                         R.NUM_CH, row_bands(cfg.width, cfg.height, R.NUM_CH, limit), counts)
+                         R.NUM_CH, R.row_slab(cfg, row_start, num_rows), limit, counts)
 
 
 def render_phase_a(scene, cfg, tables=None, counts=None, band=None,
@@ -266,21 +273,17 @@ def render_phase_a(scene, cfg, tables=None, counts=None, band=None,
     """K7, phase A of the two-phase renderer (spp 1): the [NUM_CH_A,
     height, width] planes of one DFS iteration per pixel and the
     continuation it spawned, a launch per row band of row_bands(...,
-    limit); given `band` (row0, rows) on the card, the [NUM_CH_A, rows,
-    width] planes of that band alone, one launch. `tables`:
+    limit); given `band` (row0, rows), the [NUM_CH_A, rows, width] planes
+    of that band alone, on the card in one launch. `tables`:
     pack_tables(scene), when the caller packed them already."""
     if scene.cam_pos.device.type == "cpu":
-        if band is not None:
-            raise ValueError("render_phase_a: row bands are the kernels'; the plain version "
-                             "renders the whole frame")
-        return R.render_accum_phase_a(scene, cfg, counts)
+        return R.render_accum_phase_a(scene, cfg, counts, *((0, None) if band is None else band))
     if cfg.samples_per_pixel != 1:
         raise ValueError(f"render_phase_a: samples_per_pixel {cfg.samples_per_pixel}, not 1")
     flags = _check(scene, cfg, "render_phase_a")
     if band is None:
         return _render_bands("rtvs_render_phase_a", render_phase_a, scene, cfg, flags, tables,
-                             R.NUM_CH_A, row_bands(cfg.width, cfg.height, R.NUM_CH_A, limit),
-                             counts)
+                             R.NUM_CH_A, (0, cfg.height), limit, counts)
     row0, rows = _check_band(band, cfg, R.NUM_CH_A, limit, "render_phase_a")
     out = torch.empty((R.NUM_CH_A, rows, cfg.width), dtype=_F32, device=scene.cam_pos.device)
     _launch("rtvs_render_phase_a", scene, cfg, flags,
@@ -305,14 +308,12 @@ def render_phase_b(scene, cfg, order, count, acc, hits, tables=None, counts=None
     primary rays' closest hits K7 traced (`hits`, its [NUM_CH_HIT, H, W]
     planes from CH_HIT) and folds each subtree into the phase-A planes
     `acc` ([NUM_CH, H, W] float32, updated in place and returned). Given
-    `band` (row0, rows) on the card, acc and hits are that band's
-    [C, rows, W] planes and the ids are the band's. The count stays on the
-    device: the kernel reads it, so the launch needs no host sync."""
+    `band` (row0, rows), acc and hits are that band's [C, rows, W] planes
+    and the ids are the band's. On the card the count stays on the device:
+    the kernel reads it, so the launch needs no host sync."""
     if scene.cam_pos.device.type == "cpu":
-        if band is not None:
-            raise ValueError("render_phase_b: row bands are the kernels'; the plain version "
-                             "renders the whole frame")
-        return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc, hits, counts)
+        return R.render_accum_phase_b(scene, cfg, order[:int(count)], acc, hits, counts,
+                                      0 if band is None else band[0])
     if cfg.samples_per_pixel != 1:
         raise ValueError(f"render_phase_b: samples_per_pixel {cfg.samples_per_pixel}, not 1")
     flags = _check(scene, cfg, "render_phase_b")

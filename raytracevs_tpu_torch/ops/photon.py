@@ -110,6 +110,32 @@ def trace_photon_slice(scene, total_photons: int, offset: int, count: int, table
     return photon_kernels.emit_and_trace(scene, total_photons, offset, count, tables)
 
 
+def sharded_photon_map(scenes, total_photons: int, tables=None):
+    """The photon map of a row-sharded frame (JAX parallel/tiles.py::
+    _sharded_photon_map): slab i's scene (scenes[i], on its device) emits
+    and traces photons [i*per, (i+1)*per) of the batch, per =
+    total_photons / len(scenes), on its tables (tables[i], or None); the
+    stores are concatenated in index order onto every distinct device, and
+    each builds the hash. Every photon is keyed on its global index, so
+    each map equals the single-device one. Returns a map per slab (slabs
+    on one device share it), or None when caustics are off or the count
+    does not divide evenly (the caller then builds the map itself)."""
+    n = len(scenes)
+    if total_photons <= 0 or total_photons % n:
+        return None
+    per = total_photons // n
+    stores = [trace_photon_slice(sc, total_photons, i * per, per,
+                                 None if tables is None else tables[i])
+              for i, sc in enumerate(scenes)]
+    maps = {}
+    for sc in scenes:
+        dev = sc.cam_pos.device
+        if dev not in maps:
+            maps[dev] = build_photon_hash(*(torch.cat([s[k].to(dev) for s in stores])
+                                            for k in range(len(stores[0]))))
+    return [maps[sc.cam_pos.device] for sc in scenes]
+
+
 def _emit_photons(scene, total_photons: int, offset: int = 0, count: int = None):
     """Photon emission (PhotonEmit.hlsl:44-117): light selection and the
     first rays. Returns (origin, direction, color [P,3], power, alive [P]).

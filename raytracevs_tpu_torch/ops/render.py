@@ -116,17 +116,33 @@ def counted(scene, counts):
     return scene, counts[nw:]
 
 
-def _render_samples(scene, cfg, max_iters=None, counts=None):
+def row_slab(cfg, row_start, num_rows):
+    """(row_start, num_rows) of a row slab of the frame, the whole frame's
+    rows without num_rows; raises ValueError outside the frame."""
+    rows = cfg.height - row_start if num_rows is None else num_rows
+    if not (0 <= row_start and 0 < rows and row_start + rows <= cfg.height):
+        raise ValueError(f"rows [{row_start}, {row_start + rows}) outside a frame of "
+                         f"{cfg.height}")
+    return row_start, rows
+
+
+def _slab_pixels(cfg, row_start, rows, dev):
+    """(px, py) of the slab's pixels in row-major order, frame coordinates."""
+    idx = torch.arange(cfg.width * rows, device=dev)
+    return idx % cfg.width, row_start + idx // cfg.width
+
+
+def _render_samples(scene, cfg, max_iters=None, counts=None, row_start=0, num_rows=None):
     """Every sample's DFS (up to `max_iters` iterations each), summed into
-    the [NUM_CH, height, width] accumulator planes. Returns (planes, the
-    last sample's current rays where its DFS stopped). counts: the DFS rows
-    of COUNT_ROWS to add to."""
+    the [NUM_CH, rows, width] accumulator planes of the slab of `num_rows`
+    rows from `row_start` (the whole frame by default). Returns (planes,
+    the last sample's current rays where its DFS stopped). counts: the DFS
+    rows of COUNT_ROWS to add to."""
     dev = scene.cam_pos.device
-    w, h = cfg.width, cfg.height
+    row_start, h = row_slab(cfg, row_start, num_rows)
+    w = cfg.width
     n = w * h
-    idx = torch.arange(n, device=dev)
-    px = idx % w
-    py = idx // w
+    px, py = _slab_pixels(cfg, row_start, h, dev)
     tile = sampling.blue_noise_tile(dev)
     f32 = torch.float32
     zero3 = torch.zeros((n, 3), dtype=f32, device=dev)
@@ -177,14 +193,18 @@ def _render_samples(scene, cfg, max_iters=None, counts=None):
     return torch.cat(chans, dim=0).contiguous(), cur
 
 
-def render_accum(scene, cfg, counts=None) -> torch.Tensor:
+def render_accum(scene, cfg, counts=None, row_start=0, num_rows=None) -> torch.Tensor:
     """Render the frame: every sample's DFS, summed into the
     [NUM_CH, height, width] float32 accumulator planes
     (colour sums over samples, first-sample SIGMA shadow record, first-hit
-    primary record). Runs on the device of the scene tensors. Given
-    `counts`, adds its work to it (COUNT_ROWS)."""
+    primary record). Given `num_rows`, the [NUM_CH, num_rows, width] planes
+    of the row slab from `row_start` alone (JAX render_rows): the camera,
+    the pixels' random keys and cfg.height stay the frame's. Runs on the
+    device of the scene tensors. Given `counts`, adds its work to it
+    (COUNT_ROWS)."""
     scene, dfs_counts = counted(scene, counts)
-    return _render_samples(scene, cfg, counts=dfs_counts)[0]
+    return _render_samples(scene, cfg, counts=dfs_counts, row_start=row_start,
+                           num_rows=num_rows)[0]
 
 
 def _require_spp1(cfg, name):
@@ -193,17 +213,16 @@ def _require_spp1(cfg, name):
                          f"got {cfg.samples_per_pixel}")
 
 
-def _primary_hit_planes(scene, cfg):
-    """[NUM_CH_HIT, H*W] the primary ray's closest hit as iteration 0
-    traces it (wavefront._hit_context); no hit (t 1e30, type INVALID)
-    where the primary is not traced (max_bounces 0)."""
+def _primary_hit_planes(scene, cfg, row_start, rows):
+    """[NUM_CH_HIT, rows*W] the primary ray's closest hit as iteration 0
+    traces it (wavefront._hit_context) for the slab's pixels; no hit (t
+    1e30, type INVALID) where the primary is not traced (max_bounces 0)."""
     dev = scene.cam_pos.device
-    n = cfg.width * cfg.height
+    n = cfg.width * rows
     zero = torch.zeros((n,), dtype=torch.float32, device=dev)
     zero_i = torch.zeros((n,), dtype=torch.int64, device=dev)
     if cfg.max_bounces > 0:
-        idx = torch.arange(n, device=dev)
-        primary = primary_rays(scene, cfg, idx % cfg.width, idx // cfg.width, 0,
+        primary = primary_rays(scene, cfg, *_slab_pixels(cfg, row_start, rows, dev), 0,
                                sampling.blue_noise_tile(dev))
         h = wavefront._hit_context(scene, cfg, primary,
                                    torch.ones((n,), dtype=torch.bool, device=dev))[1]["hit"]
@@ -239,7 +258,7 @@ def hit_from_planes(scene, planes):
                          obj_index=obj_index, mat_slot=slot, **mesh)
 
 
-def render_accum_phase_a(scene, cfg, counts=None) -> torch.Tensor:
+def render_accum_phase_a(scene, cfg, counts=None, row_start=0, num_rows=None) -> torch.Tensor:
     """Phase A of the two-phase renderer, the plain version of kernel K7
     (raytracevs_tpu/ops/pallas/megakernel.py::make_kernel(phase_a=True)),
     spp 1: one DFS iteration per pixel (the primary ray traced and shaded,
@@ -248,18 +267,21 @@ def render_accum_phase_a(scene, cfg, counts=None) -> torch.Tensor:
     spawned (valid, origin, direction; (0,0,0) and (0,0,1) where none),
     then the primary ray's closest hit (CH_HIT). Given `counts`, adds
     the iteration's work to it (COUNT_ROWS; the hit planes' own trace of
-    the primaries is not counted)."""
+    the primaries is not counted). Given `num_rows`, the planes of the row
+    slab from `row_start` alone, as render_accum's."""
     _require_spp1(cfg, "render_accum_phase_a")
+    row_start, h = row_slab(cfg, row_start, num_rows)
     counted_scene, dfs_counts = counted(scene, counts)
-    planes, cur = _render_samples(counted_scene, cfg, max_iters=1, counts=dfs_counts)
-    h, w = cfg.height, cfg.width
+    planes, cur = _render_samples(counted_scene, cfg, max_iters=1, counts=dfs_counts,
+                                  row_start=row_start, num_rows=h)
+    w = cfg.width
     spawn = torch.cat([cur.valid.to(torch.float32)[None], cur.origin.T, cur.direction.T])
     return torch.cat([planes, spawn.reshape(7, h, w),
-                      _primary_hit_planes(scene, cfg).reshape(NUM_CH_HIT, h, w)],
+                      _primary_hit_planes(scene, cfg, row_start, h).reshape(NUM_CH_HIT, h, w)],
                      dim=0).contiguous()
 
 
-def render_accum_phase_b(scene, cfg, order, acc, hits, counts=None) -> torch.Tensor:
+def render_accum_phase_b(scene, cfg, order, acc, hits, counts=None, row_start=0) -> torch.Tensor:
     """Phase B of the two-phase renderer, the plain version of kernel K8
     (megakernel.py::make_kernel_b), spp 1. Resumes each pixel listed in
     `order` ([M] row-major pixel ids whose phase A spawned a continuation,
@@ -270,7 +292,9 @@ def render_accum_phase_b(scene, cfg, order, acc, hits, counts=None) -> torch.Ten
     ([NUM_CH, height, width], updated in place and returned): colour
     added, rays added, bounce the maximum. Nothing else changes: the
     records are depth-0 only and the primary ray is not counted again.
-    Given `counts`, adds the resumed DFS's work to it (COUNT_ROWS)."""
+    Given `counts`, adds the resumed DFS's work to it (COUNT_ROWS). For a
+    row slab from `row_start`, acc and hits are the slab's planes and the
+    ids in `order` the slab's."""
     _require_spp1(cfg, "render_accum_phase_b")
     scene, dfs_counts = counted(scene, counts)
     dev = scene.cam_pos.device
@@ -279,7 +303,7 @@ def render_accum_phase_b(scene, cfg, order, acc, hits, counts=None) -> torch.Ten
     live = torch.arange(n, device=dev) < m
     pix = torch.cat([order.to(torch.int64), torch.zeros((n - m,), dtype=torch.int64, device=dev)])
     px = pix % cfg.width
-    py = pix // cfg.width
+    py = row_start + pix // cfg.width
     primary = primary_rays(scene, cfg, px, py, 0, sampling.blue_noise_tile(dev))
     primary = primary._replace(valid=live)
     # a fresh primary is never capped (max_bounces >= 1 where phase A

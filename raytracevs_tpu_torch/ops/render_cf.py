@@ -211,42 +211,54 @@ def assemble_frame_cf(scene, cfg, acc: dict) -> FrameOutputCF:
     )
 
 
-def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None) -> torch.Tensor:
+def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None, pmap=None) -> torch.Tensor:
     """The photon pass of a frame with caustics (num_photons > 0): emit and
     trace the photons (K5, on `tables`, the frame's pack_tables, when
     given), build the hash, and add the caustic gathered at the eligible
     primary hits of the accumulator planes `acc` into their colour and
     diffuse planes in place (K6; RayGen.hlsl:505-533); a nonzero photon
     debug mode replaces the depth-0 contribution with the caustic times
-    photon_debug_scale instead (RayGen.hlsl:509-518). Returns acc. The
-    photon map is rebuilt every frame."""
+    photon_debug_scale instead (RayGen.hlsl:509-518). Given `pmap` (a
+    photon map built already, ops/photon.py::sharded_photon_map), the
+    gather reads it and nothing is emitted. Returns acc. The photon map is
+    rebuilt every frame. `acc` may be a row slab's planes."""
     if cfg.num_photons <= 0:
         return acc
     from . import photon
     from .cuda import photon_kernels
 
-    pmap = photon.emit_and_trace(scene, cfg.num_photons, tables)
+    if pmap is None:
+        pmap = photon.emit_and_trace(scene, cfg.num_photons, tables)
     return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel,
                                        replace=cfg.photon_debug_mode != 0,
                                        scale=cfg.photon_debug_scale)
 
 
-def render_rows_cf(scene, cfg, two_phase=False, aperture_size=None) -> FrameOutputCF:
+def render_rows_cf(scene, cfg, row_start=0, num_rows=None, two_phase=False, aperture_size=None,
+                   pmap=None, tables=None) -> FrameOutputCF:
     """Render the frame through kernel K1 (or its plain version on the CPU),
     or with two_phase through the two-phase renderer (K7, the coherence
     sort, K8: ops/twophase.py; spp 1, and `aperture_size`, the host
-    FlatScene's, at most 1e-3), add the caustics when they are on (K5, K6)
-    and assemble the channel-first frame. On the card the scene's tables
-    are packed once, for the render kernels and K5. The accumulator planes
-    are the frame's own: the caustic goes into them in place."""
+    FlatScene's, at most 1e-3), add the caustics when they are on (K5, K6;
+    given `pmap`, its gather alone) and assemble the channel-first frame.
+    Given `num_rows`, the row slab of that many rows from `row_start`
+    alone (JAX render_rows_cf): its pixels keep their frame coordinates, so
+    a slab equals those rows of the whole frame. On the card the scene's
+    tables are packed once (`tables`, megakernel.pack_tables(scene), when
+    the caller packed them already), for the render kernels and K5. The
+    accumulator planes are the frame's own: the caustic goes into them in
+    place."""
     from .cuda import megakernel
 
-    tables = megakernel.pack_tables(scene) if scene.cam_pos.device.type == "cuda" else None
+    if tables is None and scene.cam_pos.device.type == "cuda":
+        tables = megakernel.pack_tables(scene)
     if two_phase:
         from .twophase import render_accum_two_phase
 
-        acc = render_accum_two_phase(scene, cfg, aperture_size, tables)
+        acc = render_accum_two_phase(scene, cfg, aperture_size, tables, row_start=row_start,
+                                     num_rows=num_rows)
     else:
-        acc = megakernel.render_accum(scene, cfg, tables=tables)
-    acc = apply_caustics_cf(scene, cfg, acc, tables)
+        acc = megakernel.render_accum(scene, cfg, tables=tables, row_start=row_start,
+                                      num_rows=num_rows)
+    acc = apply_caustics_cf(scene, cfg, acc, tables, pmap)
     return assemble_frame_cf(scene, cfg, accum_dict(acc))

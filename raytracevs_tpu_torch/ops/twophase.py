@@ -83,26 +83,23 @@ def check_two_phase(cfg, aperture_size) -> None:
                          f"re-derives primary rays without depth of field), got {aperture_size}")
 
 
-def render_accum_two_phase(scene, cfg, aperture_size, tables=None, limit=None) -> torch.Tensor:
+def render_accum_two_phase(scene, cfg, aperture_size, tables=None, limit=None, row_start=0,
+                           num_rows=None) -> torch.Tensor:
     """The [NUM_CH, H, W] accumulator planes of the frame through the two
     phases: K7, the coherence sort, K8 on CUDA tensors (one packing of the
     scene tables for both: `tables`, pack_tables(scene), when the caller
-    packed them already); their plain versions on CPU tensors.
+    packed them already); their plain versions on CPU tensors. Given
+    `num_rows`, the [NUM_CH, num_rows, W] planes of the row slab from
+    `row_start` alone, its continuations sorted on their own.
     `aperture_size`: the host FlatScene's, for check_two_phase. On the
-    card a frame whose K7 planes pass `limit` floats (the kernels' 32-bit
+    card a slab whose K7 planes pass `limit` floats (the kernels' 32-bit
     plane index by default) runs the three steps per row band
     (megakernel.row_bands); a pixel's result does not depend on the sort
     order, so the frame is the same."""
     from .cuda import megakernel as MK
 
     check_two_phase(cfg, aperture_size)
-    if scene.cam_pos.device.type != "cuda":
-        planes = MK.render_phase_a(scene, cfg)
-        order, count = coherence_order(planes)
-        return MK.render_phase_b(scene, cfg, order, count, planes[:R.NUM_CH], planes[R.CH_HIT:])
-    tables = MK.pack_tables(scene) if tables is None else tables
-    bands = MK.row_bands(cfg.width, cfg.height, R.NUM_CH_A,
-                         MK.PLANE_LIMIT if limit is None else limit)
+    row_start, rows = R.row_slab(cfg, row_start, num_rows)
 
     def band_planes(band):
         planes = MK.render_phase_a(scene, cfg, tables, band=band)
@@ -110,10 +107,14 @@ def render_accum_two_phase(scene, cfg, aperture_size, tables=None, limit=None) -
         return MK.render_phase_b(scene, cfg, order, count, planes[:R.NUM_CH], planes[R.CH_HIT:],
                                  tables, band=band)
 
+    if scene.cam_pos.device.type != "cuda":
+        return band_planes((row_start, rows))
+    tables = MK.pack_tables(scene) if tables is None else tables
+    bands = MK.row_bands(cfg.width, rows, R.NUM_CH_A, MK.PLANE_LIMIT if limit is None else limit)
     if len(bands) == 1:
-        return band_planes(bands[0])
-    out = torch.empty((R.NUM_CH, cfg.height, cfg.width), dtype=torch.float32,
+        return band_planes((row_start, rows))
+    out = torch.empty((R.NUM_CH, rows, cfg.width), dtype=torch.float32,
                       device=scene.cam_pos.device)
-    for row0, rows in bands:
-        out[:, row0:row0 + rows].copy_(band_planes((row0, rows)))
+    for row0, n in bands:
+        out[:, row0:row0 + n].copy_(band_planes((row_start + row0, n)))
     return out

@@ -160,27 +160,30 @@ def blur_radius_planes(frames, spec_hitdist, view_z, roughness):
     return base, r_spec
 
 
-def _bilinear(img, xf, yf):
-    """Bilinear sample of img [C,H,W] at float pixel coords (xf, yf) [H,W],
-    taps clamped to the frame."""
+def _bilinear(img, xf, yf, row_shift: int = 0):
+    """Bilinear sample of img [C,H,W] at float pixel coords (xf, yf) [h,w]
+    (any grid), taps clamped to img. Returns [C,h,w]. With row_shift,
+    coordinate row y is img's row y + row_shift; the weights come from the
+    unshifted coordinate, so they are the same bits."""
     c, h, w = img.shape
     x0 = torch.floor(xf)
     y0 = torch.floor(yf)
     fx = (xf - x0)[None]
     fy = (yf - y0)[None]
     x0 = x0.to(torch.int64)
-    y0 = y0.to(torch.int64)
+    y0 = y0.to(torch.int64) + row_shift
     flat = img.reshape(c, h * w)
 
     def tap(yi, xi):
         idx = torch.clamp(yi, 0, h - 1) * w + torch.clamp(xi, 0, w - 1)
-        return flat[:, idx.reshape(-1)].reshape(c, h, w)
+        return flat[:, idx.reshape(-1)].reshape(c, *xf.shape)
 
     return (tap(y0, x0) * (1 - fx) * (1 - fy) + tap(y0, x0 + 1) * fx * (1 - fy)
             + tap(y0 + 1, x0) * (1 - fx) * fy + tap(y0 + 1, x0 + 1) * fx * fy)
 
 
-def temporal_accumulate(packed, curr, motion, view_z, roughness, motion_spec):
+def temporal_accumulate(packed, curr, motion, view_z, roughness, motion_spec, halo=0, row0=0,
+                        global_h=None):
     """Plain version of K2: motion-reprojected accumulation with a 16-frame
     slow and a 4-frame fast history, the slow one clamped to the fast.
 
@@ -191,26 +194,40 @@ def temporal_accumulate(packed, curr, motion, view_z, roughness, motion_spec):
     history by virtual motion, per pixel falling back to surface motion
     outside the frame. History is
     rejected outside the frame, on a depth mismatch and on sky. Returns
-    the new packed state [16,H,W]."""
+    the new packed state [16,H,W].
+
+    Row slab form (the JAX package's jnp temporal_accumulate with
+    packed_ext): the planes hold H rows from frame row `row0` of a
+    `global_h`-row frame, and `packed` is their history extended by `halo`
+    rows on each side, [16,H+2 halo,W]. Rows are global: the bilinear tap
+    at global row y reads history row y - row0 + halo, and the in-frame
+    tests take global_h - 1. The tap's weights come from the global
+    coordinate (the jnp form's prev_y - row0 + halo rounds its fraction
+    where the sum grows past a power of two), so each slab row equals the
+    whole frame's bit for bit."""
     h, w = view_z.shape
+    global_h = h if global_h is None else global_h
     dev = view_z.device
     ys = torch.arange(h, device=dev, dtype=F32)[:, None].expand(h, w)
+    if row0:
+        ys = ys + row0
     xs = torch.arange(w, device=dev, dtype=F32)[None, :].expand(h, w)
+    shift = halo - row0
     prev_x = xs - motion[0]
     prev_y = ys - motion[1]
-    hist = _bilinear(packed, prev_x, prev_y)
+    hist = _bilinear(packed, prev_x, prev_y, shift)
     hist_d, hist_s = hist[0:4], hist[4:8]
     fast_d, fast_s = hist[8:11], hist[11:14]
     hist_frames, hist_z = hist[14], hist[15]
 
     pvx = xs - motion_spec[0]
     pvy = ys - motion_spec[1]
-    vh = _bilinear(torch.cat([packed[4:8], packed[11:14]], dim=0), pvx, pvy)
-    virt_in = ((pvx >= 0) & (pvx <= w - 1) & (pvy >= 0) & (pvy <= h - 1))[None]
+    vh = _bilinear(torch.cat([packed[4:8], packed[11:14]], dim=0), pvx, pvy, shift)
+    virt_in = ((pvx >= 0) & (pvx <= w - 1) & (pvy >= 0) & (pvy <= global_h - 1))[None]
     hist_s = torch.where(virt_in, vh[0:4], hist_s)
     fast_s = torch.where(virt_in, vh[4:7], fast_s)
 
-    in_bounds = (prev_x >= 0) & (prev_x <= w - 1) & (prev_y >= 0) & (prev_y <= h - 1)
+    in_bounds = (prev_x >= 0) & (prev_x <= w - 1) & (prev_y >= 0) & (prev_y <= global_h - 1)
     depth_ok = torch.abs(hist_z - view_z) <= 0.1 * torch.clamp(view_z, min=C.VIEWZ_MIN)
     not_sky = view_z < C.VIEWZ_SKY * 0.99
     valid = in_bounds & depth_ok & not_sky
@@ -278,6 +295,14 @@ def atrous(img, view_z, normal, guide):
     for p in range(ATROUS_PASSES):
         out = atrous_pass(out, view_z, normal, 1 << p, guide)
     return out
+
+
+def atrous_single_pass(img, view_z, normal, guide, stride: int, anti_firefly_first: bool):
+    """Plain version of the per-pass a-trous kernel (JAX denoise_kernels.py::
+    atrous_single_pass): the anti-firefly clamp when asked, then one
+    guided pass at `stride`."""
+    return atrous_pass(anti_firefly(img) if anti_firefly_first else img, view_z, normal, stride,
+                       guide)
 
 
 def shadow_denoise(shadow, obj_id, view_z, normal):
@@ -355,3 +380,124 @@ def denoise_frame_cf(gbuf_cf, state: DenoiserStateCF):
                        normal, guide)
     out_shadow = dk.shadow_denoise(gbuf_cf.shadow_data, gbuf_cf.obj_id, gbuf_cf.view_z, normal)
     return out_ds[0:3], out_ds[3:6], out_shadow, DenoiserStateCF(packed=new_packed)
+
+
+# ---- row-sharded denoise with halo-row exchange ------------------------------
+#
+# The denoiser is the frame's only cross-pixel stage, so it is the only
+# place where row slabs read each other's rows: each slab is extended by
+# its neighbours' boundary rows, filtered, and cropped back, which gives the
+# whole frame's result bit for bit (JAX post/denoise.py:758-1057, the lane
+# path's halos).
+
+# The reprojection reaches at most MV_CLAMP_PIXELS (64) rows plus the
+# bilinear +1 tap
+TEMPORAL_HALO = 72
+# reblur_prepass reaches 7 rows (the specular prepass's outer ring)
+PREPASS_HALO = 8
+SHADOW_HALO = SHADOW_RADIUS
+
+
+def exchange_row_halo(slabs, halo: int):
+    """Each of the equal row slabs [c, rows, W] (in frame order, each on its
+    own device) extended to [c, rows + 2 halo, W] by its neighbours' rows,
+    copied with .to(slab.device); a halo past one slab reaches across
+    several. At the frame's top and bottom the edge rows replicate, as the
+    whole frame's edge padding (JAX exchange_row_halo)."""
+    n, rows = len(slabs), slabs[0].shape[1]
+    last = n * rows - 1
+    out = []
+    for i, slab in enumerate(slabs):
+        if halo == 0:
+            out.append(slab)
+            continue
+        rows_above = [min(max(g, 0), last) for g in range(i * rows - halo, i * rows)]
+        rows_below = [min(max(g, 0), last) for g in range((i + 1) * rows, (i + 1) * rows + halo)]
+        out.append(torch.cat(_gather_rows(slabs, rows, rows_above, slab.device) + [slab]
+                             + _gather_rows(slabs, rows, rows_below, slab.device), dim=1))
+    return out
+
+
+def _gather_rows(slabs, rows, global_rows, device):
+    """The frame rows `global_rows` (ascending, an edge row repeated where
+    the frame ends), a view or a broadcast a run, on `device`: no index
+    tensor, so no copy from the host."""
+    pieces, k = [], 0
+    while k < len(global_rows):
+        g = global_rows[k]
+        e = k + 1
+        if e < len(global_rows) and global_rows[e] == g:  # a replicated edge row
+            while e < len(global_rows) and global_rows[e] == g:
+                e += 1
+            src = slabs[g // rows][:, g % rows:g % rows + 1]
+            pieces.append(src.expand(-1, e - k, *src.shape[2:]).to(device))
+        else:
+            while (e < len(global_rows) and global_rows[e] == global_rows[e - 1] + 1
+                   and global_rows[e] // rows == g // rows):
+                e += 1
+            a = g % rows
+            pieces.append(slabs[g // rows][:, a:a + e - k].to(device))
+        k = e
+    return pieces
+
+
+def _frame_rows(ext, row0: int, rows: int, halo: int, global_h: int):
+    """(ext without its rows outside the frame, the slab's first row in it):
+    the rows that exchange_row_halo replicated at the frame's top or bottom
+    cut away, so that a kernel's own edge clamp is the frame's. A chain of
+    two stencils (the clamp, then a pass) then reads at the frame's edge
+    what the whole frame reads: the edge pixel's clamped value, not that of
+    a replicated row."""
+    lo = max(0, halo - row0)
+    hi = ext.shape[1] - max(0, row0 + rows + halo - global_h)
+    return ext[:, lo:hi], halo - lo
+
+
+def denoise_frame_sharded_cf(gbufs, states, global_h: int):
+    """The frame's denoise over row slabs: gbufs and states are each slab's
+    channel-first G-buffer and DenoiserStateCF, in frame order, each on its
+    slab's device; global_h the frame's height. Runs stage by stage over all
+    slabs with a halo exchange before each stage that reads across a cut:
+    the prepass (PREPASS_HALO rows), K2 on the history extended by
+    TEMPORAL_HALO rows (its slab form), the a-trous passes one launch each
+    (the per-pass kernel: `stride` rows, and one more on pass 0 for the
+    anti-firefly clamp; the guide and normals ride along) and K4
+    (SHADOW_HALO rows). Returns per-slab lists (diffuse [3,rows,W],
+    specular [3,rows,W], shadow [2,rows,W], new state), each slab equal to
+    those rows of denoise_frame_cf on the whole frame."""
+    from ..ops.cuda import denoise_kernels as dk
+
+    rows = gbufs[0].view_z.shape[0]
+    row0s = [i * rows for i in range(len(gbufs))]
+    packed_ext = exchange_row_halo([s.packed for s in states], TEMPORAL_HALO)
+    pp = exchange_row_halo([torch.cat([g.diffuse_hitdist, g.specular_hitdist, g.view_z[None],
+                                       g.normal_roughness[3:4]], dim=0) for g in gbufs],
+                           PREPASS_HALO)
+    packed, normals, guides = [], [], []
+    for g, ext, ppe, row0 in zip(gbufs, packed_ext, pp, row0s):
+        curr = reblur_prepass(ppe[0:8], ppe[8], ppe[9])[:, PREPASS_HALO:PREPASS_HALO + rows]
+        sqrt_rough = g.normal_roughness[3]
+        new_packed = dk.reproject_accumulate(ext, curr.contiguous(), g.motion, g.view_z,
+                                             torch.square(sqrt_rough), g.motion_spec,
+                                             TEMPORAL_HALO, row0, global_h)
+        packed.append(new_packed)
+        normals.append(decode_oct_cf(g.normal_roughness))
+        guides.append(guide_cf(new_packed, g.view_z, sqrt_rough))
+    six = [torch.cat([p[0:3], p[4:7]], dim=0) for p in packed]
+    for p in range(ATROUS_PASSES):
+        stride = 1 << p
+        halo = stride + (1 if p == 0 else 0)
+        spe = exchange_row_halo([torch.cat([s, g.view_z[None], n, gd], dim=0)
+                                 for s, g, n, gd in zip(six, gbufs, normals, guides)], halo)
+        six = []
+        for ext, row0 in zip(spe, row0s):
+            ext, at = _frame_rows(ext, row0, rows, halo, global_h)
+            out = dk.atrous_pass(ext[0:6].contiguous(), ext[6].contiguous(),
+                                 ext[7:10].contiguous(), ext[10:12].contiguous(), stride, p == 0)
+            six.append(out[:, at:at + rows])
+    she = exchange_row_halo([torch.cat([g.shadow_data, g.obj_id.to(F32)[None], g.view_z[None], n],
+                                       dim=0) for g, n in zip(gbufs, normals)], SHADOW_HALO)
+    shadows = [dk.shadow_denoise(e[0:2], e[2].to(torch.int32), e[3], e[4:7])
+               [:, SHADOW_HALO:SHADOW_HALO + rows] for e in she]
+    return ([s[0:3] for s in six], [s[3:6] for s in six], shadows,
+            [DenoiserStateCF(packed=p) for p in packed])

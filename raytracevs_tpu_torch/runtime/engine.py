@@ -9,6 +9,12 @@ the photon gather K6); it raises when PyTorch sees no CUDA device. On
 "cpu", asked for by name, the same pipeline runs their plain PyTorch
 versions.
 
+`device_mesh` shards the frame's rows over a list of devices
+(parallel/tiles.py): each slab renders on its device, the denoiser
+exchanges halo rows between neighbouring slabs (K2's slab form, one
+a-trous launch a pass), and the stitched frame equals the single-device
+one bit for bit; the denoiser history is kept per slab.
+
 `two_phase=True` renders through the two-phase renderer instead of K1:
 phase A (K7), the coherence sort, phase B (K8) (ops/twophase.py), the
 counterpart of the JAX package's backend "pallas2" (or RTVS_TWOPHASE=1).
@@ -45,6 +51,7 @@ import torch
 from ..ops.bvh import BLASCache
 from ..ops.render_cf import render_rows_cf
 from ..ops.twophase import check_two_phase
+from ..parallel.tiles import make_mesh, render_pipeline_sharded
 from ..post import composite as composite_mod
 from ..post import denoise as denoise_mod
 from ..post import tonemap
@@ -63,28 +70,25 @@ def render_frame(scene, cfg: RenderConfig, denoise_state, two_phase=False, apert
     new denoiser state, linear HDR colour [3,H,W] tensor, channel-first
     G-buffer, denoised (diffuse [3,H,W], specular [3,H,W], shadow [2,H,W])
     or None). two_phase and aperture_size (the host's): render_rows_cf's."""
-    out = render_rows_cf(scene, cfg, two_phase, aperture_size)
+    out = render_rows_cf(scene, cfg, two_phase=two_phase, aperture_size=aperture_size)
     denoised = None
     if cfg.enable_denoiser:
         dd, ds, dshadow, denoise_state = denoise_mod.denoise_frame_cf(out.gbuffer, denoise_state)
         denoised = (dd, ds, dshadow)
-        color01 = composite_mod.composite_cf(
-            out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
-            denoised_diffuse=dd, denoised_specular=ds, use_denoised=True,
-            nrd_bypass_distance=scene.nrd_bypass_distance,
-            nrd_bypass_blend=scene.nrd_bypass_blend)
-    else:
-        color01 = composite_mod.composite_cf(
-            out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
-            use_denoised=False)
-    return tonemap.to_rgba8_cf(color01), out.rays, denoise_state, out.color, out.gbuffer, denoised
+    return (composite_mod.composite_rgba8(scene, out, denoised), out.rays, denoise_state, out.color, out.gbuffer,
+            denoised)
 
 
 class Engine:
     """Render engine with the EngineWrapper-compatible surface."""
 
     def __init__(self, width: int, height: int, device="cuda", mesh_service=None,
-                 two_phase=False):
+                 two_phase=False, device_mesh="auto"):
+        """device_mesh: a list of devices to shard the frame's rows over
+        (parallel/tiles.py::make_mesh; a device may repeat), None for one
+        device, or "auto": shard over every visible CUDA device when there
+        is more than one and the height divides by their number (None on
+        the CPU and with a single card)."""
         self.width = int(width)
         self.height = int(height)
         self.mesh_service = mesh_service
@@ -96,6 +100,14 @@ class Engine:
                                    "False; pass device='cpu' for the plain PyTorch pipeline")
         elif self.device.type != "cpu":
             raise ValueError(f"Engine: unsupported device {self.device}")
+        if isinstance(device_mesh, str):
+            if device_mesh != "auto":
+                raise ValueError(f"Engine: device_mesh {device_mesh!r}")
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 0
+            device_mesh = make_mesh() if n > 1 and self.height % n == 0 else None
+        elif device_mesh is not None:
+            device_mesh = make_mesh(device_mesh)
+        self.device_mesh = device_mesh
         self._flat: Optional[FlatScene] = None  # numpy tables
         self._scene_t: Optional[FlatScene] = None  # the same on the device
         self._cfg: Optional[RenderConfig] = None
@@ -223,13 +235,28 @@ class Engine:
             return img
         if self._flat is None:
             raise RuntimeError("update_scene() must be called before render()")
+        mesh = self.device_mesh
         if self._cfg.enable_denoiser and self._denoise_state is None:
-            self._denoise_state = denoise_mod.init_state_cf(self.height, self.width, self.device)
+            if mesh is None:
+                self._denoise_state = denoise_mod.init_state_cf(self.height, self.width,
+                                                                self.device)
+            else:  # one history a slab, on its device
+                self._denoise_state = [
+                    denoise_mod.init_state_cf(self.height // len(mesh), self.width, d)
+                    for d in mesh]
         start = time.perf_counter()
-        (rgba_t, rays_t, self._denoise_state, self._last_hdr_t, self._last_gbuffer,
-         self._last_denoised) = render_frame(
-            self._scene_t, self._cfg, self._denoise_state, self.two_phase,
-            float(self._flat.aperture_size))
+        if mesh is None:
+            (rgba_t, rays_t, self._denoise_state, self._last_hdr_t, self._last_gbuffer,
+             self._last_denoised) = render_frame(
+                self._scene_t, self._cfg, self._denoise_state, self.two_phase,
+                float(self._flat.aperture_size))
+        else:
+            (rgba_t, hdr, rays_t, self._last_gbuffer, self._denoise_state,
+             self._last_denoised) = render_pipeline_sharded(
+                self._scene_t, self._cfg, mesh, self._denoise_state,
+                two_phase=self.two_phase, aperture_size=float(self._flat.aperture_size))
+            self._last_hdr_t = hdr.permute(2, 0, 1)
+            rays_t = rays_t.sum()
         rgba = rgba_t.cpu().numpy()  # waits for the device
         self._last_render_ms = (time.perf_counter() - start) * 1000.0
         self._last_rgba = rgba
@@ -271,8 +298,8 @@ class Engine:
 
         if self._flat is None:
             raise RuntimeError("update_scene() must be called before validate_frame()")
-        out = render_rows_cf(self._scene_t, self._cfg, self.two_phase,
-                             float(self._flat.aperture_size))
+        out = render_rows_cf(self._scene_t, self._cfg, two_phase=self.two_phase,
+                             aperture_size=float(self._flat.aperture_size))
         g = out.gbuffer
         v = []
 

@@ -247,7 +247,9 @@ def test_import_needs_no_jax():
     code = ("import raytracevs_tpu_torch, raytracevs_tpu_torch.api.cli, "
             "raytracevs_tpu_torch.scene.rtvs, raytracevs_tpu_torch.post.debug_modes, "
             "raytracevs_tpu_torch.models, raytracevs_tpu_torch.runtime.profiler, "
-            "raytracevs_tpu_torch.runtime.render_loop, raytracevs_tpu_torch.runtime.cache, sys; "
+            "raytracevs_tpu_torch.runtime.render_loop, raytracevs_tpu_torch.runtime.cache, "
+            "raytracevs_tpu_torch.parallel.tiles, raytracevs_tpu_torch.scene.commands, "
+            "raytracevs_tpu_torch.io.settings, raytracevs_tpu_torch.api.viewer, sys; "
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules), "
             "[m for m in sys.modules if m.startswith('jax')]")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -14,7 +14,10 @@ added into the colour and diffuse planes in place) |d| <= 1e-5 * max(1,
 K7 and K8 as K1, and K7+K8 against K1 at spp 1: rays, bounce and record
 planes bit-equal, colour within 2e-5 * max(1, |K1|); the mesh walks alone
 and the counting build's triangle tests and walks bit-equal to the plain
-walks'. K1 and K7 also bit for bit, with K7's continuation and hit planes,
+walks'. The per-pass a-trous kernel bit for bit (and its
+chain of three launches against K3); K2's slab form within 1e-5; the
+sharded Engine over [cuda:0] * 4 bit-equal to the single-device one.
+K1 and K7 also bit for bit, with K7's continuation and hit planes,
 at odd sizes and sample counts; the counting build's counts equal the plain
 version's; a mesh deeper than the kernels' walk stack renders through the
 threaded instantiations as its plain version does; a frame rendered in
@@ -388,6 +391,75 @@ def test_k4_cuda_matches_plain(size):
     want = PD_.shadow_denoise(x["shadow"], x["obj_id"], x["view_z"], normal)
     torch.cuda.synchronize()
     assert _same_bits(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("size", DENOISE_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_atrous_pass_cuda_matches_plain(size, stride, clamp):
+    """The per-pass a-trous kernel (one pass, the clamp first when asked)
+    bit-equal to its plain version; the chain of three launches bit-equal
+    to the fused K3."""
+    _need_cuda()
+    h, w = size
+    x = _inputs(h, w, 4 + h * w)
+    x["view_z"][:h // 2, :w // 2] = 7.0
+    x["img6"][:, h // 3:, w // 3:] = 0.0
+    normal = PD_.decode_oct_cf(x["nr"])
+    before = K.atrous_pass.launches
+    got = K.atrous_pass(x["img6"], x["view_z"], normal, x["guide"], stride, clamp)
+    assert K.atrous_pass.launches == before + 1
+    want = PD_.atrous_single_pass(x["img6"], x["view_z"], normal, x["guide"], stride, clamp)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want), float((got - want).abs().max())
+    if stride == 1 and clamp:
+        chain = x["img6"]
+        for p in range(PD_.ATROUS_PASSES):
+            chain = K.atrous_pass(chain, x["view_z"], normal, x["guide"], 1 << p, p == 0)
+        assert _same_bits(chain, K.atrous(x["img6"], x["view_z"], normal, x["guide"]))
+
+
+def test_k2_slab_form_cuda_matches_plain():
+    """K2 on 18-row slabs of a 72-row frame, the history extended by
+    TEMPORAL_HALO rows: within 1e-5 of the plain slab form, which is
+    bit-equal to the whole frame's rows."""
+    _need_cuda()
+    h, w, n = 72, 136, 4
+    x = _inputs(h, w, 5)
+    motion = x["motion"] * 9.0
+    ms = motion + 0.5
+    rows, halo = h // n, PD_.TEMPORAL_HALO
+    whole = PD_.temporal_accumulate(x["state"], x["curr"], motion, x["view_z"], x["rough"], ms)
+    ext = PD_.exchange_row_halo([x["state"][:, i * rows:(i + 1) * rows] for i in range(n)], halo)
+    for i in range(n):
+        sl = slice(i * rows, (i + 1) * rows)
+        args = (ext[i], x["curr"][:, sl].contiguous(), motion[:, sl].contiguous(),
+                x["view_z"][sl].contiguous(), x["rough"][sl].contiguous(),
+                ms[:, sl].contiguous())
+        got = K.reproject_accumulate(*args, halo, i * rows, h)
+        want = PD_.temporal_accumulate(*args, halo, i * rows, h)
+        assert torch.equal(want, whole[:, sl])
+        assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_sharded_engine_cuda_bit_equal_to_single_device():
+    """Engine(device_mesh=[cuda:0] * 4) on the card: three orbiting frames
+    bit-equal to the single-device Engine's, the per-pass kernel and K2's
+    slab form launched."""
+    _need_cuda()
+    w, h = 64, 36
+    one = Engine(w, h)
+    four = Engine(w, h, device_mesh=["cuda:0"] * 4)
+    before = K.atrous_pass.launches
+    for f in range(3):
+        for e in (one, four):
+            e.update_scene(S.demo_scene(D, f), **S.DEMO_OVERRIDES)
+        a, b = one.render(), four.render()
+        np.testing.assert_array_equal(a, b)
+        assert _same_bits(one._last_hdr_t, four._last_hdr_t)
+        assert _same_bits(one._denoise_state.packed,
+                          torch.cat([s.packed for s in four._denoise_state], 1))
+    assert K.atrous_pass.launches - before == 3 * 3 * 4
 
 
 def test_engine_cuda_matches_cpu_and_launches_every_kernel():
