@@ -57,13 +57,17 @@ the CLI (python -m raytracevs_tpu_torch.api.cli, a process of its own,
 three 1080p frames of the demo scene's file), its PNG equal to the
 Engine's frame. Then the row-sharded paths (phase 4a: K2's slab form and the per-pass
 a-trous kernel against their plain versions at 1080p and 1917x1079, the
-three passes against the fused K3; phase 12: Engine(1920, 1080,
+per-pass kernel on whole frames and in its slab form (top, second and last
+slabs, the neighbours' rows as views), the three passes against the fused
+K3, its three passes timed in the slab form on an interior slab with their
+registers, spills and blocks an SM; phase 12: Engine(1920, 1080,
 device_mesh=make_mesh([cuda:0] * 4)) over three orbiting frames of each of
 the four paths, bit-equal to the single-device Engine's, every kernel of
-the path launched) and the live viewer (phase 13: api/viewer.py on the
-card at 1280x720 on an ephemeral 127.0.0.1 port: five frames, a setprop
-and its undo, the photon debug mode 1 with K5 and K6 launched, debug
-mode 3, a resolution switch). Phase 3 prints the mode-0 instantiations' registers and
+the path launched, and the sharded demo render()'s ms and device-busy ms)
+and the live viewer (phase 13: api/viewer.py on the card at 1280x720 on
+an ephemeral 127.0.0.1 port: five frames, a setprop and its undo, the
+photon debug mode 1 with K5 and K6 launched, debug mode 3, a resolution
+switch). Phase 3 prints the mode-0 instantiations' registers and
 spills beside PR 8's and fails if K1 or K7 pass 128 registers or spill,
 or K1-mesh leaves 184 registers without spills. It prints a JSON line of
 the kernels (debug_modes_max_abs_err: the photon debug modes' check), the
@@ -168,6 +172,10 @@ REPROJECT_OPS, ATROUS_OPS, SHADOW_OPS = 370, 930, 606
 PASS_OPS, CLAMP_OPS = 275, 40
 # the sharded paths: row slabs a frame (make_mesh([cuda:0] * SHARDS))
 SHARDS = 4
+# the device's busy ms of a sharded demo render() when the a-trous stage
+# still copied the 12 planes of each slab twice a pass (NVIDIA H100 80GB
+# HBM3, 700 W), printed beside today's
+SHARDED_BUSY_BEFORE_MS = 14.064
 # the bands of tests/test_megakernel.py:190-197 for the photon store fields
 # (position, direction, colour, power): atol, and rtol 1e-3
 STORE_ATOL = (5e-3, 1e-4, 1e-5, 1e-4)
@@ -1404,20 +1412,74 @@ def reached_history(ext, motion, motion_spec, halo, row0, global_h):
     return nbytes, int((surf | spec).view(hx, w).any(1).sum())
 
 
+def slab_pass_args(PD, k3_args, row0, rows, stride, clamp, slabs=None):
+    """K3-pass's slab-form arguments for frame rows [row0, row0 + rows) of
+    k3_args = (img6, view_z, normal, guide): the slab, its neighbours' rows
+    as views (of `slabs`, the frame's row slabs, where given: planes a slab
+    apart, as the sharded denoise passes them; else of the frame), and z,
+    normal and guide extended by ATROUS_REACH rows once."""
+    img, view_z, normal, guide = k3_args
+    h = view_z.shape[0]
+    na, nb = PD.pass_halo(row0, rows, h, stride + int(clamp))
+    a0, a1 = max(row0 - PD.ATROUS_REACH, 0), min(row0 + rows + PD.ATROUS_REACH, h)
+    aux = torch.cat([view_z[None], normal, guide])[:, a0:a1].contiguous()
+    if slabs is None:
+        own, above, below = (img[:, row0:row0 + rows].contiguous(), img[:, row0 - na:row0],
+                             img[:, row0 + rows:row0 + rows + nb])
+    else:
+        i = row0 // rows
+        own = slabs[i]
+        above = slabs[i - 1][:, rows - na:] if na else own[:, :0]
+        below = slabs[i + 1][:, :nb] if nb else own[:, :0]
+    return own, above, below, aux[0], aux[1:4], aux[4:6], row0, h, stride, clamp
+
+
+def pass_kernel_occupancy():
+    """{(stride, clamp): (registers, spill stores, shared bytes a block,
+    blocks an SM)} of K3-pass's instantiations: ptxas's log, and
+    rtvs_denoise_occupancy."""
+    import re
+
+    from raytracevs_tpu_torch.ops.cuda import _build
+
+    occ = (ctypes.c_int * 15)()
+    _build.check(_build.load_library().rtvs_denoise_occupancy(occ), "rtvs_denoise_occupancy")
+    found, key, spills = {}, None, None
+    with open(_build.build_log_path()) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                m = re.search(r"atrous_pass_kernelILi(\d)ELb([01])E", line)
+                key = (int(m.group(1)), m.group(2) == "1") if m else None
+            elif key and "spill stores" in line:
+                spills = int(re.search(r"(\d+) bytes spill stores", line).group(1))
+            elif key and "registers" in line:
+                found[key] = (int(re.search(r"Used (\d+) registers", line).group(1)), spills)
+                key = None
+    out = {}
+    keys = ((1, False), (1, True), (2, False), (2, True), (4, False), (4, True))
+    for k, key in enumerate(keys):
+        out[key] = found[key] + (occ[3 + 2 * k], occ[4 + 2 * k])
+    return out
+
+
 def check_slab_kernels(K, PD, k2_args, k3_args):
     """Phase 4a: the per-pass a-trous kernel at strides 1, 2 and 4, with and
     without the clamp, bit-equal to its plain version on the 1080p
-    G-buffer's planes and on them cut to 1917x1079, and its chain of three
-    launches bit-equal to the fused K3; K2's slab form on the 270-row slabs
-    at row0 270 and 810, the history extended by TEMPORAL_HALO rows, within
-    1e-5 of its plain version (which is bit-equal to the whole frame's
-    rows). Times both at the sharded path's shapes (an interior slab).
-    Returns their kernel rows."""
+    G-buffer's planes and on them cut to 1917x1079, whole frames and the
+    slab form (the top, second and last of four row slabs, the last taking
+    the remainder, the neighbours' rows as views), and its chain of three
+    whole-frame launches bit-equal to the fused K3; K2's slab form on the
+    270-row slabs at row0 270 and 810, the history extended by
+    TEMPORAL_HALO rows, within 1e-5 of its plain version (which is
+    bit-equal to the whole frame's rows). Times both at the sharded path's
+    shapes (an interior slab; K3-pass in its slab form with its registers,
+    spills and blocks an SM). Returns their kernel rows."""
     k3_err = 0.0
     for cut in (None, (FULL_H - 1, FULL_W - 3)):
         args = k3_args if cut is None else [a[..., :cut[0], :cut[1]].contiguous()
                                             for a in k3_args]
         h, w = args[1].shape
+        rows = h // SHARDS
         for stride in (1, 2, 4):
             for clamp in (False, True):
                 got = K.atrous_pass(*args, stride, clamp)
@@ -1427,13 +1489,23 @@ def check_slab_kernels(K, PD, k2_args, k3_args):
                 if not same_bits(got, want):
                     raise AssertionError(f"atrous_pass stride {stride} clamp {clamp} {w}x{h}: "
                                          f"max |d| {err:.3g}")
+                for row0, n in ((0, rows), (rows, rows), (3 * rows, h - 3 * rows)):
+                    a = slab_pass_args(PD, args, row0, n, stride, clamp)
+                    got_s = K.atrous_pass_slab(*a)
+                    want_s = PD.atrous_pass_slab(*a)
+                    err = float((got_s - want_s).abs().max())
+                    k3_err = max(k3_err, err)
+                    if not (same_bits(got_s, want_s) and same_bits(want_s, want[:, row0:row0 + n])):
+                        raise AssertionError(f"atrous_pass_slab stride {stride} clamp {clamp} "
+                                             f"{w}x{h} rows [{row0}, {row0 + n}): max |d| "
+                                             f"{err:.3g}")
         chain = args[0]
         for p in range(PD.ATROUS_PASSES):
             chain = K.atrous_pass(chain, *args[1:], 1 << p, p == 0)
         fused = same_bits(chain, K.atrous(*args))
-        print(f"phase 4a K3-pass {w}x{h}: strides 1, 2, 4 with and without the clamp bit-equal "
-              f"to the plain version; the chain of three launches bit-equal to the fused K3 "
-              f"{fused}", flush=True)
+        print(f"phase 4a K3-pass {w}x{h}: strides 1, 2, 4 with and without the clamp, whole "
+              f"frames and the top, second and last slabs, bit-equal to the plain version; the "
+              f"chain of three launches bit-equal to the fused K3 {fused}", flush=True)
         if not fused:
             raise AssertionError("the three per-pass launches differ from the fused K3")
     rows, halo = FULL_H // SHARDS, PD.TEMPORAL_HALO
@@ -1467,26 +1539,34 @@ def check_slab_kernels(K, PD, k2_args, k3_args):
           f"{hist_rows} rows, {hist_bytes / 1e6:.1f} MB): kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms", flush=True)
     rows_out = {"K2-slab": kernel_row(k2_err, ms, plain_ms, nbytes, px * REPROJECT_OPS, dev_t)}
-    # the three passes of an interior slab, each on its input extended by
-    # its halo (stride rows, one more with the clamp)
+    # the three passes of an interior slab as the sharded denoise runs
+    # them: the slab where it lies, its neighbours' rows as views of theirs
+    occ = pass_kernel_occupancy()
+    slabs = [k3_args[0][:, i * rows:(i + 1) * rows].contiguous() for i in range(SHARDS)]
     by_stride, sums = {}, np.zeros(5)
     for p in range(3):
         stride, clamp = 1 << p, p == 0
-        hh = stride + int(clamp)
-        args = [t[..., rows - hh:2 * rows + hh, :].contiguous() for t in k3_args]
-        t_ms = gpu_ms(lambda: K.atrous_pass(*args, stride, clamp), 20)
-        t_dev = device_ms(lambda: K.atrous_pass(*args, stride, clamp), 20)
-        t_plain = gpu_ms(lambda: PD.atrous_single_pass(*args, stride, clamp), 5)
-        epx = args[1].numel()
-        nb = sum(t.nbytes for t in args) + 6 * epx * 4
-        ops = epx * (PASS_OPS + (CLAMP_OPS if clamp else 0))
+        args = slab_pass_args(PD, k3_args, rows, rows, stride, clamp, slabs)
+        t_ms = gpu_ms(lambda: K.atrous_pass_slab(*args), 20)
+        t_dev = device_ms(lambda: K.atrous_pass_slab(*args), 20)
+        t_plain = gpu_ms(lambda: PD.atrous_pass_slab(*args), 5)
+        px = rows * FULL_W
+        # the slab's image rows and halo rows, the z and normal rows the
+        # taps reach, the guide at each pixel, the 6 output planes
+        nb = (6 * (rows + args[1].shape[1] + args[2].shape[1]) * FULL_W + 4 * (rows + 2 * stride)
+              * FULL_W + 2 * px + 6 * px) * 4
+        ops = px * PASS_OPS + ((rows + 2 * stride) * FULL_W * CLAMP_OPS if clamp else 0)
         b_ms = bound(nb, ops)[0]
+        regs, spills, smem, blocks = occ[(stride, clamp)]
         by_stride[str(stride)] = dict(ms=t_ms, device_ms=t_dev[0], plain_ms=t_plain,
-                                      bound_ms=b_ms, clamp=clamp, rows=args[1].shape[0])
+                                      bound_ms=b_ms, clamp=clamp, rows=rows, registers=regs,
+                                      spill_stores=spills, shared_bytes=smem, blocks_an_sm=blocks)
         sums += (t_ms, t_dev[0], t_plain, nb, ops)
-        print(f"  K3-pass stride {stride}{' with the clamp' if clamp else ''} on "
-              f"{args[1].shape[0]} rows: kernel {t_ms:.4f} ms, device {t_dev[0]:.4f} ms "
-              f"({t_dev[1]}), plain {t_plain:.4f} ms, bound {b_ms:.4f} ms", flush=True)
+        print(f"  K3-pass stride {stride}{' with the clamp' if clamp else ''}, slab form on "
+              f"{rows} rows: kernel {t_ms:.4f} ms, device {t_dev[0]:.4f} ms ({t_dev[1]}), plain "
+              f"{t_plain:.4f} ms, bound {b_ms:.4f} ms ({nb / 1e6:.1f} MB), share "
+              f"{b_ms / t_dev[0]:.4f}; {regs} registers, {spills} bytes of spill stores, "
+              f"{smem} bytes of shared memory a block, {blocks} blocks an SM", flush=True)
     # the row: the mean of one launch over the three passes
     ms, dev, plain_ms, nb, ops = sums / 3
     rows_out["K3-pass"] = dict(kernel_row(k3_err, ms, plain_ms, nb, ops, (dev, "profiler")),
@@ -1538,8 +1618,10 @@ def run_sharded(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, 
         for name, e in (("one device", one), ("sharded", four)):
             ms = gpu_ms(e.render, 10)
             dev = device_ms(e.render, 10)
+            before = (f"; with a copy of 12 planes a slab a pass, the device was busy "
+                      f"{SHARDED_BUSY_BEFORE_MS} ms" if name == "sharded" else "")
             print(f"phase 12 {label} {name}: render() {ms:.3f} ms a frame by CUDA events, the "
-                  f"device busy {dev[0]:.3f} ms of it ({dev[1]})", flush=True)
+                  f"device busy {dev[0]:.3f} ms of it ({dev[1]}){before}", flush=True)
     del one
     n = FRAMES * SHARDS
     want = {"K2-slab": n, "atrous_pass": 3 * n, "shadow_denoise": n, "atrous": 0}
@@ -1793,10 +1875,11 @@ def main():
             if ("Compiling entry function" in line or "registers" in line or "spill" in line
                     or "stack frame" in line):
                 print("  ptxas:", line.strip())
-    occ = (ctypes.c_int * 3)()
+    occ = (ctypes.c_int * 15)()
     _build.check(_build.load_library().rtvs_denoise_occupancy(occ), "rtvs_denoise_occupancy")
     print(f"  K3 atrous_kernel: {occ[0]} bytes of dynamic shared memory a block, {occ[1]} blocks "
-          f"an SM; K4 shadow_kernel: {occ[2]} blocks an SM", flush=True)
+          f"an SM; K4 shadow_kernel: {occ[2]} blocks an SM; K3-pass (strides 1, 2, 4, without "
+          f"and with the clamp) bytes and blocks an SM {list(occ)[3:]}", flush=True)
     ptxas_mode0(_build.build_log_path())
     t0 = time.perf_counter()
     native.load_library()

@@ -50,12 +50,23 @@
 // K3-pass rtvs_atrous_pass replaces denoise_kernels.py::_atrous_pass_kernel
 //   (atrous_single_pass): one guided pass at stride 1, 2 or 4, the
 //   anti-firefly clamp first when asked, which the row-sharded denoise
-//   runs between its halo exchanges. A block loads a 32x8 tile and its
-//   halo (the stride, one row and column more for the clamp's luminance)
-//   of the 6 image planes and of z and normal into shared memory once,
-//   clamps there in place, and runs the 8 taps from there. Bound: device
-//   memory (the 12 input and 6 output planes once; 0.011 ms for a 274-row
-//   slab at 1920) and the exact expf and division at every tap, as K3's.
+//   runs pass by pass. One body for whole frames and row slabs: a slab is
+//   read where it lies, its neighbours' rows above and below it from
+//   arrays of their own (views of the neighbour slabs on one card), z,
+//   normal and guide from one array the denoise extends once a frame; a
+//   frame row maps to its array after it is clamped into the frame (the
+//   frame's own edge padding), and only the slab's rows are computed. A
+//   block loads a 32x16 tile's windows into shared memory (the image on the
+//   tile +- the stride, one more for the clamp's luminance; z and normal on
+//   the tile +- the stride), per pixel interleaved, clamps there in place
+//   and runs the 8 taps from there, K3's arithmetic; a tile whose window
+//   stays inside the frame (most of them) reads at constant offsets. The
+//   passes without the clamp load by cp.async, one tile ahead, on a
+//   persistent grid. Bound: device memory (a 270-row slab at 1920, its
+//   halo rows and 6 planes out: 37.5-37.9 MB, 0.011 ms) and, as K3, the
+//   exact expf and division at every tap: with the loads taken away the
+//   three passes still take 0.020 ms a launch (PERF.md), the rest is the
+//   first tile's load on each block and the cp.async instructions.
 //
 // K4 rtvs_shadow_denoise replaces denoise_kernels.py::_shadow_kernel: the
 //   ShadowDenoise.hlsl 5x5 filter with an exact int32 object-id match.
@@ -67,6 +78,7 @@
 //   memory: 74.6 MB at 1080p, 0.022 ms); the tile shape and occupancy
 //   moved nothing.
 
+#include <algorithm>
 #include <atomic>
 
 #include "common.cuh"
@@ -402,134 +414,327 @@ __global__ void __launch_bounds__(AT_THREADS, AT_BLOCKS)
     atrous_tile<true>(smem, img, view_z, normal, guide, out, H, W, x0, y0);
 }
 
-// The per-pass a-trous kernel: one guided pass at stride S over a
-// PW_W x PW_H output tile, with AF the anti-firefly clamp applied to the
-// pass's input first. The tile's window of the image (+- S, and + 1 for
-// the clamp's luminance) and of z and normal (+- S) is loaded once into
-// shared memory, by frame coordinate and for in-frame pixels only; every
-// read clamps its frame coordinate first, so the clamp's output at the
-// frame's edge is the edge pixel's own, as the plain version pads it.
-constexpr int PW_W = 32, PW_H = 8;
+// K3-pass: one guided pass at stride S, with AF the anti-firefly clamp
+// applied to the pass's input first, over 32x16 output tiles of a row
+// slab; a whole frame is the slab with no rows above or below. The rows
+// are read where they lie (PassSrc): the slab's image, its neighbours'
+// rows above and below it, and z, normal and guide, each array with a
+// plane stride of its own; a frame row maps to its array after it is
+// clamped into the frame, which is the frame's own edge padding. Only the
+// slab's rows are computed.
+//
+// A pass without the clamp loads by cp.async on a persistent grid of
+// 512-thread blocks, the next tile's windows landing while the block
+// filters this one; the clamp's pass loads through registers, its
+// luminance computed on the way, one tile a 256-thread block. Either way
+// at most 64 registers a thread and 1024 threads an SM.
+template <bool AF>
+struct PassCfg {
+  static constexpr bool ASYNC = !AF;  // the clamp needs the luminance, computed as it loads
+  static constexpr int THREADS = AF ? 256 : 512, MIN_BLOCKS = 65536 / (64 * THREADS);
+  static constexpr int TW = 32, TH = 16;
+};
 
-template <int R>
-struct PassWin {
-  static constexpr int P = PW_W + 2 * R, N = P * (PW_H + 2 * R);
-  // the slot of frame pixel (x, y), clamped into the frame, of the tile at (x0, y0)
-  static __device__ __forceinline__ int at(int x, int y, int x0, int y0, int H, int W) {
-    return (clampi(y, 0, H - 1) - y0 + R) * P + (clampi(x, 0, W - 1) - x0 + R);
+struct PassSrc {
+  const float* img;    // [6, rows, W]: frame rows [row0, row0 + rows)
+  const float* above;  // [6, n_above, W]: frame rows [row0 - n_above, row0)
+  const float* below;  // [6, n_below, W]: from frame row row0 + rows
+  size_t img_plane, above_plane, below_plane;
+  const float* view_z;  // z [R, W], normal [3, R, W], guide [2, R, W]: from frame row aux_row0
+  const float* normal;
+  const float* guide;
+  size_t normal_plane, guide_plane;
+  int rows, W, row0, H, aux_row0, n_above, n_below, tiles_x, tiles;
+};
+
+// The image row of frame row y, held rows only: its first pixel; plane, its plane stride
+__device__ __forceinline__ const float* pass_row(const PassSrc& s, int y, size_t& plane) {
+  if (y < s.row0) {
+    plane = s.above_plane;
+    return s.above + (size_t)(y - s.row0 + s.n_above) * s.W;
+  }
+  if (y >= s.row0 + s.rows) {
+    plane = s.below_plane;
+    return s.below + (size_t)(y - s.row0 - s.rows) * s.W;
+  }
+  plane = s.img_plane;
+  return s.img + (size_t)(y - s.row0) * s.W;
+}
+
+// A tile's windows: the image on the tile +- R, z and normal on the tile +- S
+template <int S, bool AF>
+struct PassGeom {
+  using C = PassCfg<AF>;
+  static constexpr int TW = C::TW, TH = C::TH, R = S + (AF ? 1 : 0), THREADS = C::THREADS;
+  static constexpr int PI = TW + 2 * R, NI = PI * (TH + 2 * R);
+  static constexpr int PZ = TW + 2 * S, NZ = PZ * (TH + 2 * S);
+  // per pixel interleaved, so that a tap is three vector loads: the image
+  // (channels 0-3 a float4, then z and normal a float4, channels 4-5 a
+  // float2) and the luminance of each group (a float2), 16-byte aligned
+  static constexpr int BYTES = ((NI * 16 + NZ * 16 + NI * 8 + (AF ? NI * 8 : 0)) + 15) / 16 * 16;
+  static constexpr int BUFFERS = C::ASYNC ? 2 : 1;
+  static_assert(THREADS % TW == 0 && TW * TH % THREADS == 0, "whole rows a thread");
+  // the slot of in-window frame pixel (x, y) of the tile at (x0, y0)
+  static __device__ __forceinline__ int ati(int x, int y, int x0, int y0) {
+    return (y - y0 + R) * PI + (x - x0 + R);
+  }
+  static __device__ __forceinline__ int atz(int x, int y, int x0, int y0) {
+    return (y - y0 + S) * PZ + (x - x0 + S);
   }
 };
 
+struct PassBuf {
+  float4* a;
+  float4* zn;
+  float2* b;
+  float2* lum;
+};
+
 template <int S, bool AF>
-__global__ void __launch_bounds__(PW_W * PW_H)
-    atrous_pass_kernel(const float* __restrict__ img, const float* __restrict__ view_z,
-                       const float* __restrict__ normal, const float* __restrict__ guide,
-                       float* __restrict__ out, int H, int W) {
-  constexpr int R = S + (AF ? 1 : 0);
-  using WI = PassWin<R>;
-  using WZ = PassWin<S>;
-  __shared__ float4 s_a[WI::N];  // channels 0-3; the clamp writes its output here
-  __shared__ float2 s_b[WI::N];  // channels 4-5
-  __shared__ float2 s_lum[AF ? WI::N : 1];  // each group's luminance
-  __shared__ float4 s_zn[WZ::N];  // view_z, normal
-  const int tid = threadIdx.x;
-  const int x0 = blockIdx.x * PW_W, y0 = blockIdx.y * PW_H;
-  const size_t plane = (size_t)H * W;
-  for (int k = tid; k < WI::N; k += PW_W * PW_H) {
-    int ly = k / WI::P;
-    int x = x0 - R + (k - ly * WI::P), y = y0 - R + ly;
-    if (x < 0 || x >= W || y < 0 || y >= H) continue;
-    size_t q = (size_t)y * W + x;
-    float c[6];
+__device__ __forceinline__ PassBuf pass_buf(char* base) {
+  using G = PassGeom<S, AF>;
+  PassBuf w;
+  w.a = reinterpret_cast<float4*>(base);
+  w.zn = reinterpret_cast<float4*>(base + G::NI * 16);
+  w.b = reinterpret_cast<float2*>(base + (G::NI + G::NZ) * 16);
+  w.lum = reinterpret_cast<float2*>(base + (G::NI + G::NZ) * 16 + G::NI * 8);
+  return w;
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const float* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest n complete
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ float2 max2(float2 a, float2 b) {
+  return make_float2(maxn(a.x, b.x), maxn(a.y, b.y));
+}
+
+__device__ __forceinline__ float2 lum2(float4 a, float2 b) {
+  return make_float2(a.x * F(0.2126) + a.y * F(0.7152) + a.z * F(0.0722),
+                     a.w * F(0.2126) + b.x * F(0.7152) + b.y * F(0.0722));
+}
+
+// The tile at (x0, y0) whose output rows end at frame row y_end: its
+// windows, the held pixels only (in the frame, rows the slab and its
+// neighbours hold, within reach of an output row). By cp.async each float
+// is a 4-byte copy (the window interleaves the planes, so a wider copy has
+// no contiguous destination, and any width of frame loads alike); through
+// registers the clamp's luminance is computed on the way.
+template <int S, bool AF>
+__device__ __forceinline__ void pass_load(const PassSrc& s, PassBuf w, int x0, int y0, int y_end) {
+  using G = PassGeom<S, AF>;
+  const int ylo = s.row0 - s.n_above, yhi = min(s.row0 + s.rows + s.n_below, y_end + G::R);
+  for (int k = threadIdx.x; k < G::NI; k += G::THREADS) {
+    const int ly = k / G::PI;
+    const int x = x0 - G::R + (k - ly * G::PI), y = y0 - G::R + ly;
+    if (x < 0 || x >= s.W || y < ylo || y >= yhi) continue;
+    size_t plane;
+    const float* p = pass_row(s, y, plane) + x;
+    if constexpr (G::C::ASYNC) {
+      float* a = &w.a[k].x;
+      float* b = &w.b[k].x;
 #pragma unroll
-    for (int ch = 0; ch < 6; ++ch) c[ch] = __ldg(img + ch * plane + q);
-    s_a[k] = make_float4(c[0], c[1], c[2], c[3]);
-    s_b[k] = make_float2(c[4], c[5]);
-    if (AF)
-      s_lum[k] = make_float2(c[0] * F(0.2126) + c[1] * F(0.7152) + c[2] * F(0.0722),
-                             c[3] * F(0.2126) + c[4] * F(0.7152) + c[5] * F(0.0722));
+      for (int c = 0; c < 4; ++c) cp_async4(a + c, p + c * plane);
+      cp_async4(b, p + 4 * plane);
+      cp_async4(b + 1, p + 5 * plane);
+    } else {
+      const float4 a = make_float4(__ldg(p), __ldg(p + plane), __ldg(p + 2 * plane),
+                                   __ldg(p + 3 * plane));
+      const float2 b = make_float2(__ldg(p + 4 * plane), __ldg(p + 5 * plane));
+      w.a[k] = a;
+      w.b[k] = b;
+      if (AF) w.lum[k] = lum2(a, b);
+    }
   }
-  for (int k = tid; k < WZ::N; k += PW_W * PW_H) {
-    int ly = k / WZ::P;
-    int x = x0 - S + (k - ly * WZ::P), y = y0 - S + ly;
-    if (x < 0 || x >= W || y < 0 || y >= H) continue;
-    size_t q = (size_t)y * W + x;
-    s_zn[k] = make_float4(__ldg(view_z + q), __ldg(normal + q), __ldg(normal + plane + q),
-                          __ldg(normal + 2 * plane + q));
+  const int zlo = max(s.row0 - S, 0), zhi = min(min(s.row0 + s.rows + S, s.H), y_end + S);
+  for (int k = threadIdx.x; k < G::NZ; k += G::THREADS) {
+    const int ly = k / G::PZ;
+    const int x = x0 - S + (k - ly * G::PZ), y = y0 - S + ly;
+    if (x < 0 || x >= s.W || y < zlo || y >= zhi) continue;
+    const size_t q = (size_t)(y - s.aux_row0) * s.W + x;
+    if constexpr (G::C::ASYNC) {
+      float* z = &w.zn[k].x;
+      cp_async4(z, s.view_z + q);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) cp_async4(z + 1 + c, s.normal + c * s.normal_plane + q);
+    } else {
+      w.zn[k] = make_float4(__ldg(s.view_z + q), __ldg(s.normal + q),
+                            __ldg(s.normal + s.normal_plane + q),
+                            __ldg(s.normal + 2 * s.normal_plane + q));
+    }
   }
-  __syncthreads();
+}
+
+// The tile's clamp (AF) and pass, its windows loaded (by cp.async: each
+// thread's own copies landed, the block's not yet seen). EDGE: the image
+// window reaches past the frame, so each read clamps its frame coordinate
+// first (the frame's edge padding, of the clamp's output too); else every
+// neighbour is a constant slot offset.
+template <int S, bool AF, bool EDGE>
+__device__ __forceinline__ void pass_compute(const PassSrc& s, PassBuf w, float* __restrict__ out,
+                                             int x0, int y0, int y_end) {
+  using G = PassGeom<S, AF>;
+  const int W = s.W, H = s.H;
+  if constexpr (G::C::ASYNC) __syncthreads();
   if (AF) {
-    // the clamp on the in-frame pixels of the tile +- S, in place: a
-    // pixel's own slots are the only image slots this stage writes or reads
-    for (int k = tid; k < WZ::N; k += PW_W * PW_H) {
-      int ly = k / WZ::P;
-      int x = x0 - S + (k - ly * WZ::P), y = y0 - S + ly;
-      if (x < 0 || x >= W || y < 0 || y >= H) continue;
-      float2 m = make_float2(0.0f, 0.0f);
-      bool first = true;
+    // the clamp on the in-frame pixels of the tile +- S within reach of an
+    // output row, in place: a pixel's own slots are the only image slots
+    // this stage writes or reads
+    const int ylo = max(y0 - S, 0), yhi = min(y_end + S, H);
+    for (int k = threadIdx.x; k < G::NZ; k += G::THREADS) {
+      const int ly = k / G::PZ;
+      const int x = x0 - S + (k - ly * G::PZ), y = y0 - S + ly;
+      if (x < 0 || x >= W || y < ylo || y >= yhi) continue;
+      const int c = G::ati(x, y, x0, y0);
+      float2 l[8];
+      int t = 0;
 #pragma unroll
       for (int dy = -1; dy <= 1; ++dy)
 #pragma unroll
         for (int dx = -1; dx <= 1; ++dx) {
           if (dy == 0 && dx == 0) continue;
-          float2 l = s_lum[WI::at(x + dx, y + dy, x0, y0, H, W)];
-          m.x = first ? l.x : maxn(m.x, l.x);
-          m.y = first ? l.y : maxn(m.y, l.y);
-          first = false;
+          const int q = EDGE ? G::ati(clampi(x + dx, 0, W - 1), clampi(y + dy, 0, H - 1), x0, y0)
+                             : c + dy * G::PI + dx;
+          l[t++] = w.lum[q];
         }
-      const int c = WI::at(x, y, x0, y0, H, W);
-      const float2 lc = s_lum[c];
+      // the plain version's chain of maxima, as a tree three deep: maxn
+      // keeps the later of two equal values and any NaN, so a tree that
+      // keeps the neighbours' order gives the chain's bits
+      const float2 m = max2(max2(max2(l[0], l[1]), max2(l[2], l[3])),
+                            max2(max2(l[4], l[5]), max2(l[6], l[7])));
+      const float2 lc = w.lum[c];
       float s_d = minn(div0(m.x, maxn(lc.x, F(1e-6))), 1.0f);
       float s_s = minn(div0(m.y, maxn(lc.y, F(1e-6))), 1.0f);
-      const float4 a = s_a[c];
-      const float2 b = s_b[c];
-      s_a[c] = make_float4(a.x * s_d, a.y * s_d, a.z * s_d, a.w * s_s);
-      s_b[c] = make_float2(b.x * s_s, b.y * s_s);
+      const float4 a = w.a[c];
+      const float2 b = w.b[c];
+      w.a[c] = make_float4(a.x * s_d, a.y * s_d, a.z * s_d, a.w * s_s);
+      w.b[c] = make_float2(b.x * s_s, b.y * s_s);
     }
     __syncthreads();
   }
-  const int x = x0 + tid % PW_W, y = y0 + tid / PW_W;
-  if (x >= W || y >= H) return;
-  const size_t i = (size_t)y * W + x;
-  // the pass: atrous_px's arithmetic, the taps by clamped frame coordinate
-  const float4 zc4 = s_zn[WZ::at(x, y, x0, y0, H, W)];
-  const float vz = zc4.x, n0 = zc4.y, n1 = zc4.z, n2 = zc4.w;
-  float zc = F(0.05) * maxn(vz, VIEWZ_MIN);
-  float s2 = (float)(S * S);
-  float rd = maxn(__ldg(guide + i), F(1e-3));
-  float rs = maxn(__ldg(guide + plane + i), F(1e-3));
-  float g_d = expf(-s2 / (rd * rd));
-  float g_s = expf(-s2 / (rs * rs));
-  const int ci = WI::at(x, y, x0, y0, H, W);
-  const float4 ca = s_a[ci];
-  const float2 cb = s_b[ci];
-  float acc[6] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y};
-  float wsum_d = 1.0f, wsum_s = 1.0f;
+  const size_t plane = (size_t)s.rows * W;
+  const float s2 = (float)(S * S);
   const int offs[8][2] = {{-1, -1}, {-1, 0}, {-1, 1}, {0, -1}, {0, 1}, {1, -1}, {1, 0}, {1, 1}};
+#pragma unroll 1
+  for (int j = 0; j < G::TW * G::TH / G::THREADS; ++j) {
+    const int x = x0 + threadIdx.x % G::TW;
+    const int y = y0 + threadIdx.x / G::TW + j * (G::THREADS / G::TW);
+    if (x >= W || y >= y_end) continue;
+    // the pass: K3's atrous_px arithmetic
+    const int cz = G::atz(x, y, x0, y0), ci = G::ati(x, y, x0, y0);
+    const float4 zc4 = w.zn[cz];
+    const float vz = zc4.x, n0 = zc4.y, n1 = zc4.z, n2 = zc4.w;
+    float zc = F(0.05) * maxn(vz, VIEWZ_MIN);
+    const size_t g = (size_t)(y - s.aux_row0) * W + x;
+    float rd = maxn(__ldg(s.guide + g), F(1e-3));
+    float rs = maxn(__ldg(s.guide + s.guide_plane + g), F(1e-3));
+    float g_d = expf(-s2 / (rd * rd));
+    float g_s = expf(-s2 / (rs * rs));
+    const float4 ca = w.a[ci];
+    const float2 cb = w.b[ci];
+    float acc[6] = {ca.x, ca.y, ca.z, ca.w, cb.x, cb.y};
+    float wsum_d = 1.0f, wsum_s = 1.0f;
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    const int dx = offs[t][1] * S, dy = offs[t][0] * S;
-    const float4 q = s_zn[WZ::at(x + dx, y + dy, x0, y0, H, W)];
-    const int qi = WI::at(x + dx, y + dy, x0, y0, H, W);
-    const float4 qa = s_a[qi];
-    const float2 qb = s_b[qi];
-    float w_depth = expf(div0(-fabsf(q.x - vz), zc));
-    float ndot = q.y * n0 + q.z * n1 + q.w * n2;
-    float wt = w_depth * pow8(maxn(ndot, 0.0f)) * F(2.0 / 3.0);
-    float w_d = wt * g_d, w_s = wt * g_s;
-    acc[0] = acc[0] + qa.x * w_d;
-    acc[1] = acc[1] + qa.y * w_d;
-    acc[2] = acc[2] + qa.z * w_d;
-    acc[3] = acc[3] + qa.w * w_s;
-    acc[4] = acc[4] + qb.x * w_s;
-    acc[5] = acc[5] + qb.y * w_s;
-    wsum_d = wsum_d + w_d;
-    wsum_s = wsum_s + w_s;
+    for (int t = 0; t < 8; ++t) {
+      const int dx = offs[t][1] * S, dy = offs[t][0] * S;
+      int qz, qi;
+      if (EDGE) {
+        const int xq = clampi(x + dx, 0, W - 1), yq = clampi(y + dy, 0, H - 1);
+        qz = G::atz(xq, yq, x0, y0);
+        qi = G::ati(xq, yq, x0, y0);
+      } else {
+        qz = cz + dy * G::PZ + dx;
+        qi = ci + dy * G::PI + dx;
+      }
+      const float4 q = w.zn[qz];
+      const float4 qa = w.a[qi];
+      const float2 qb = w.b[qi];
+      float w_depth = expf(div0(-fabsf(q.x - vz), zc));
+      float ndot = q.y * n0 + q.z * n1 + q.w * n2;
+      float wt = w_depth * pow8(maxn(ndot, 0.0f)) * F(2.0 / 3.0);
+      float w_d = wt * g_d, w_s = wt * g_s;
+      acc[0] = acc[0] + qa.x * w_d;
+      acc[1] = acc[1] + qa.y * w_d;
+      acc[2] = acc[2] + qa.z * w_d;
+      acc[3] = acc[3] + qa.w * w_s;
+      acc[4] = acc[4] + qb.x * w_s;
+      acc[5] = acc[5] + qb.y * w_s;
+      wsum_d = wsum_d + w_d;
+      wsum_s = wsum_s + w_s;
+    }
+    const size_t i = (size_t)(y - s.row0) * W + x;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) out[k * plane + i] = div0(acc[k], wsum_d);
+#pragma unroll
+    for (int k = 3; k < 6; ++k) out[k * plane + i] = div0(acc[k], wsum_s);
   }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) out[k * plane + i] = div0(acc[k], wsum_d);
-#pragma unroll
-  for (int k = 3; k < 6; ++k) out[k * plane + i] = div0(acc[k], wsum_s);
+}
+
+// Tile t's origin and the end of its output rows; whether its image window
+// stays inside the frame (then it reads at constant offsets)
+template <int S, bool AF>
+__device__ __forceinline__ bool pass_tile(const PassSrc& s, int t, int& x0, int& y0, int& y_end) {
+  using G = PassGeom<S, AF>;
+  x0 = (t % s.tiles_x) * G::TW;
+  y0 = s.row0 + (t / s.tiles_x) * G::TH;
+  y_end = min(y0 + G::TH, s.row0 + s.rows);
+  return x0 >= G::R && x0 + G::TW + G::R <= s.W && y0 >= G::R && y_end + G::R <= s.H;
+}
+
+template <int S, bool AF>
+__device__ __forceinline__ void pass_run(const PassSrc& s, PassBuf w, float* __restrict__ out,
+                                         int t) {
+  int x0, y0, y_end;
+  if (pass_tile<S, AF>(s, t, x0, y0, y_end))
+    pass_compute<S, AF, false>(s, w, out, x0, y0, y_end);
+  else
+    pass_compute<S, AF, true>(s, w, out, x0, y0, y_end);
+}
+
+template <int S, bool AF>
+__global__ void __launch_bounds__(PassCfg<AF>::THREADS, PassCfg<AF>::MIN_BLOCKS)
+    atrous_pass_kernel(const PassSrc s, float* __restrict__ out) {
+  extern __shared__ float4 pass_smem[];
+  using G = PassGeom<S, AF>;
+  char* base = reinterpret_cast<char*>(pass_smem);
+  int x0, y0, y_end;
+  if constexpr (!G::C::ASYNC) {
+    const PassBuf w = pass_buf<S, AF>(base);
+    pass_tile<S, AF>(s, blockIdx.x, x0, y0, y_end);
+    pass_load<S, AF>(s, w, x0, y0, y_end);
+    __syncthreads();
+    pass_run<S, AF>(s, w, out, blockIdx.x);
+  } else {
+    // a persistent grid: each block walks tiles blockIdx.x + i gridDim.x,
+    // loading tile i + 1 into one window while it filters tile i in the
+    // other
+    int t = blockIdx.x;
+    if (t < s.tiles) {
+      pass_tile<S, AF>(s, t, x0, y0, y_end);
+      pass_load<S, AF>(s, pass_buf<S, AF>(base), x0, y0, y_end);
+    }
+    cp_async_commit();
+    for (int i = 0; t < s.tiles; ++i, t += gridDim.x) {
+      const int next = t + gridDim.x;
+      if (next < s.tiles) {
+        pass_tile<S, AF>(s, next, x0, y0, y_end);
+        pass_load<S, AF>(s, pass_buf<S, AF>(base + ((i + 1) & 1) * G::BYTES), x0, y0, y_end);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();  // this thread's copies of tile t have landed
+      pass_run<S, AF>(s, pass_buf<S, AF>(base + (i & 1) * G::BYTES), out, t);
+      __syncthreads();  // its window is free for tile t + 2 gridDim.x
+    }
+  }
 }
 
 // K4's tile: one thread per output pixel, SH_W x SH_H a block
@@ -617,10 +822,11 @@ extern "C" int rtvs_reproject_accumulate(const float* state, const float* curr,
 }
 
 namespace {
+constexpr int MAX_DEVICES = 64;
+
 // Above 48 KB a block's dynamic shared memory needs the kernel's attribute
 // set, once for each device.
 cudaError_t atrous_smem_attribute() {
-  constexpr int MAX_DEVICES = 64;
   static std::atomic<bool> done[MAX_DEVICES];
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
@@ -629,6 +835,45 @@ cudaError_t atrous_smem_attribute() {
                              AT_SMEM_BYTES);
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev].store(true);
   return err;
+}
+
+// A K3-pass instantiation's shared memory a block, its attribute set once
+// for each device; blocks: the blocks an SM holds at once.
+template <int S, bool AF>
+cudaError_t pass_occupancy(int& bytes, int& blocks) {
+  static std::atomic<int> known[MAX_DEVICES];  // blocks an SM, 0 until set
+  using G = PassGeom<S, AF>;
+  bytes = G::BYTES * G::BUFFERS;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  blocks = dev < MAX_DEVICES ? known[dev].load() : 0;
+  if (blocks > 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(atrous_pass_kernel<S, AF>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, atrous_pass_kernel<S, AF>,
+                                                        G::THREADS, bytes);
+  if (err == cudaSuccess && blocks < 1) err = cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess && dev < MAX_DEVICES) known[dev].store(blocks);
+  return err;
+}
+
+// One launch of K3-pass<S, AF> on slab s: a block a tile, or (ASYNC) as
+// many blocks as the card holds at once, each walking the tiles.
+template <int S, bool AF>
+cudaError_t pass_launch(PassSrc s, float* out, cudaStream_t st) {
+  using G = PassGeom<S, AF>;
+  s.tiles_x = (s.W + G::TW - 1) / G::TW;
+  s.tiles = s.tiles_x * ((s.rows + G::TH - 1) / G::TH);
+  int bytes, blocks, dev, sms;
+  cudaError_t err = pass_occupancy<S, AF>(bytes, blocks);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int grid = G::C::ASYNC ? std::min(s.tiles, blocks * sms) : s.tiles;
+  atrous_pass_kernel<S, AF><<<grid, G::THREADS, bytes, st>>>(s, out);
+  return cudaGetLastError();
 }
 }  // namespace
 
@@ -642,25 +887,50 @@ extern "C" int rtvs_atrous(const float* img, const float* view_z, const float* n
 }
 
 // One a-trous pass at stride 1, 2 or 4, the anti-firefly clamp first when
-// anti_firefly is nonzero; another stride returns cudaErrorInvalidValue.
-extern "C" int rtvs_atrous_pass(const float* img, const float* view_z, const float* normal,
-                                const float* guide, float* out, int H, int W, int stride,
+// anti_firefly is nonzero (another stride returns cudaErrorInvalidValue),
+// on the slab of `rows` rows from frame row row0 of a global_h-row frame:
+// img [6, rows, W], the frame rows above and below it (min(reach, the
+// rows to the frame's edge) each, reach = stride + anti_firefly), and
+// view_z, normal and guide from frame row aux_row0; each [.., n, W] array
+// has rows of W floats and planes *_plane floats apart. out [6, rows, W].
+// A whole frame is the slab with row0 0 and global_h rows.
+extern "C" int rtvs_atrous_pass(const float* img, int img_plane, const float* above,
+                                int above_plane, const float* below, int below_plane,
+                                const float* view_z, const float* normal, int normal_plane,
+                                const float* guide, int guide_plane, float* out, int rows, int W,
+                                int row0, int global_h, int aux_row0, int stride,
                                 int anti_firefly, void* stream) {
-  const dim3 grid((W + PW_W - 1) / PW_W, (H + PW_H - 1) / PW_H), block(PW_W * PW_H);
+  if (rows <= 0 || W <= 0) return (int)cudaSuccess;
+  const int reach = stride + (anti_firefly ? 1 : 0);
+  PassSrc s;
+  s.img = img;
+  s.above = above;
+  s.below = below;
+  s.img_plane = (size_t)img_plane;
+  s.above_plane = (size_t)above_plane;
+  s.below_plane = (size_t)below_plane;
+  s.view_z = view_z;
+  s.normal = normal;
+  s.guide = guide;
+  s.normal_plane = (size_t)normal_plane;
+  s.guide_plane = (size_t)guide_plane;
+  s.rows = rows;
+  s.W = W;
+  s.row0 = row0;
+  s.H = global_h;
+  s.aux_row0 = aux_row0;
+  s.n_above = std::min(reach, row0);
+  s.n_below = std::min(reach, global_h - row0 - rows);
   cudaStream_t st = (cudaStream_t)stream;
-#define RTVS_PASS(S, AF) atrous_pass_kernel<S, AF><<<grid, block, 0, st>>>(img, view_z, normal, \
-                                                                           guide, out, H, W)
   switch (stride * 2 + (anti_firefly ? 1 : 0)) {
-    case 2: RTVS_PASS(1, false); break;
-    case 3: RTVS_PASS(1, true); break;
-    case 4: RTVS_PASS(2, false); break;
-    case 5: RTVS_PASS(2, true); break;
-    case 8: RTVS_PASS(4, false); break;
-    case 9: RTVS_PASS(4, true); break;
+    case 2: return (int)pass_launch<1, false>(s, out, st);
+    case 3: return (int)pass_launch<1, true>(s, out, st);
+    case 4: return (int)pass_launch<2, false>(s, out, st);
+    case 5: return (int)pass_launch<2, true>(s, out, st);
+    case 8: return (int)pass_launch<4, false>(s, out, st);
+    case 9: return (int)pass_launch<4, true>(s, out, st);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef RTVS_PASS
-  return (int)cudaGetLastError();
 }
 
 extern "C" int rtvs_shadow_denoise(const float* shadow, const int* obj_id, const float* view_z,
@@ -671,14 +941,22 @@ extern "C" int rtvs_shadow_denoise(const float* shadow, const int* obj_id, const
 }
 
 // For the record: out[0] K3's dynamic shared memory a block in bytes,
-// out[1] K3's and out[2] K4's resident blocks an SM.
+// out[1] K3's and out[2] K4's resident blocks an SM; then K3-pass's
+// shared memory a block and blocks an SM, two ints for each of strides 1,
+// 2, 4, each without and with the clamp (out[3] to out[14]).
 extern "C" int rtvs_denoise_occupancy(int* out) {
   cudaError_t err = atrous_smem_attribute();
   if (err != cudaSuccess) return (int)err;
   out[0] = AT_SMEM_BYTES;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 1, atrous_kernel, AT_THREADS,
                                                       AT_SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, shadow_kernel, SH_W * SH_H,
-                                                            0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out + 2, shadow_kernel, SH_W * SH_H, 0);
+  if (err == cudaSuccess) err = pass_occupancy<1, false>(out[3], out[4]);
+  if (err == cudaSuccess) err = pass_occupancy<1, true>(out[5], out[6]);
+  if (err == cudaSuccess) err = pass_occupancy<2, false>(out[7], out[8]);
+  if (err == cudaSuccess) err = pass_occupancy<2, true>(out[9], out[10]);
+  if (err == cudaSuccess) err = pass_occupancy<4, false>(out[11], out[12]);
+  if (err == cudaSuccess) err = pass_occupancy<4, true>(out[13], out[14]);
+  return (int)err;
 }

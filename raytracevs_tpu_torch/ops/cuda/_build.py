@@ -71,11 +71,15 @@ SIGNATURES = {
     "rtvs_reproject_accumulate": (_P,) * 7 + (_I,) * 5 + (_P,),
     # img6, view_z, normal3, guide2, out6, H, W, stream
     "rtvs_atrous": (_P,) * 5 + (_I,) * 2 + (_P,),
-    # img6, view_z, normal3, guide2, out6, H, W, stride, anti_firefly, stream
-    "rtvs_atrous_pass": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # img6 and its plane stride, the rows above and below each with theirs,
+    # view_z, normal3 and its plane stride, guide2 and its, out6, rows, W,
+    # row0, global_h, aux_row0, stride, anti_firefly, stream
+    "rtvs_atrous_pass": (_P, _I) * 3 + (_P, _P, _I, _P, _I, _P) + (_I,) * 7 + (_P,),
     # shadow2, obj_id, view_z, normal3, out2, H, W, stream
     "rtvs_shadow_denoise": (_P,) * 5 + (_I,) * 2 + (_P,),
-    # int out[3]: K3's shared bytes a block, K3's and K4's blocks an SM
+    # int out[15]: K3's shared bytes a block, K3's and K4's blocks an SM,
+    # then K3-pass's shared bytes and blocks an SM, strides 1, 2, 4, each
+    # without and with the clamp
     "rtvs_denoise_occupancy": (_P,),
     # ftab, itab, S, P, B, M, L, total, offset, n, store_pos, store_dir,
     # store_color, store_power, store_mask, stream

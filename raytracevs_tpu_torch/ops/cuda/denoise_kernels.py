@@ -5,7 +5,9 @@ sharded denoise) and the shadow filter.
 On CPU tensors each wrapper runs its plain version from post/denoise.py; on
 CUDA tensors it launches its kernel or raises. Each wrapper's ``launches``
 counts its kernel launches, one a call; ``reproject_accumulate.
-slab_launches`` counts those of K2's slab form among them.
+slab_launches`` counts those of K2's slab form among them, and
+``atrous_pass.launches`` those of atrous_pass and atrous_pass_slab, one
+kernel.
 """
 from __future__ import annotations
 
@@ -100,24 +102,75 @@ def atrous_pass(img, view_z, normal, guide, stride, anti_firefly):
     """One guided edge-stopping a-trous pass at `stride` (1, 2 or 4) over
     the 6-channel diffuse+specular img [6,H,W], with `anti_firefly` the
     3x3 luminance clamp applied to img first; one launch (see
-    post/denoise.py::atrous_single_pass). The sharded denoise runs the
-    passes one at a time, with a halo exchange between them."""
+    post/denoise.py::atrous_single_pass): the slab form's body on the whole
+    frame, the slab with no rows above or below."""
     dev = _device(img)
     if dev.type == "cpu":
         return plain.atrous_single_pass(img, view_z, normal, guide, stride, anti_firefly)
-    if stride not in (1, 2, 4):
-        raise ValueError(f"atrous_pass: stride {stride}, the kernel takes 1, 2 or 4")
     h, w = view_z.shape
     _check("img", img, (6, h, w), _F32, dev)
     _check("view_z", view_z, (h, w), _F32, dev)
     _check("normal", normal, (3, h, w), _F32, dev)
     _check("guide", guide, (2, h, w), _F32, dev)
-    out = torch.empty_like(img)
+    return _launch_pass(img, img[:, :0], img[:, :0], view_z, normal, guide, 0, h, stride,
+                        anti_firefly)
+
+
+def atrous_pass_slab(img, above, below, view_z, normal, guide, row0, global_h, stride,
+                     anti_firefly):
+    """The pass on a row slab, read where it lies (see post/denoise.py::
+    atrous_pass_slab): img [6,rows,W], frame rows [row0, row0 + rows) of a
+    global_h-row frame; above and below [6,n,W] the frame rows next to it
+    (n from pass_halo, the pass's reach: the stride, one more with the
+    clamp); view_z [R,W], normal [3,R,W] and guide [2,R,W] the slab's rows
+    extended by ATROUS_REACH rows, cut at the frame's edges. Each may be a
+    view whose rows are contiguous (a plane stride of its own): one launch,
+    no copy. Returns [6,rows,W]."""
+    dev = _device(img)
+    if dev.type == "cpu":
+        return plain.atrous_pass_slab(img, above, below, view_z, normal, guide, row0, global_h,
+                                      stride, anti_firefly)
+    rows, w = img.shape[1:]
+    reach = int(stride) + int(bool(anti_firefly))
+    n_above, n_below = plain.pass_halo(row0, rows, global_h, reach)
+    aux = (min(row0 + rows + plain.ATROUS_REACH, global_h)
+           - max(row0 - plain.ATROUS_REACH, 0))
+    for name, t, shape in (("img", img, (6, rows, w)), ("above", above, (6, n_above, w)),
+                           ("below", below, (6, n_below, w)), ("view_z", view_z, (aux, w)),
+                           ("normal", normal, (3, aux, w)), ("guide", guide, (2, aux, w))):
+        _check_rows(name, t, shape, dev)
+    return _launch_pass(img, above, below, view_z, normal, guide, row0, global_h, stride,
+                        anti_firefly)
+
+
+def _check_rows(name, t, shape, device):
+    """As _check, but a view's planes may lie apart: rows of W contiguous
+    floats, planes at any stride the C int holds."""
+    if t.device != device or t.dtype != _F32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on {t.device}, expected float32 "
+                         f"{tuple(shape)} on {device}")
+    if t.stride()[-1] != 1 or (t.dim() > 1 and t.shape[-2] > 1 and t.stride()[-2] != t.shape[-1]):
+        raise ValueError(f"{name}: its rows are not contiguous (strides {t.stride()})")
+    if t.dim() == 3 and t.stride(0) >= 2 ** 31:
+        raise ValueError(f"{name}: plane stride {t.stride(0)} past the kernel's int")
+
+
+def _launch_pass(img, above, below, view_z, normal, guide, row0, global_h, stride, anti_firefly):
+    if stride not in (1, 2, 4):
+        raise ValueError(f"atrous_pass: stride {stride}, the kernel takes 1, 2 or 4")
+    dev = img.device
+    rows, w = img.shape[1:]
+    if not (0 <= row0 and row0 + rows <= global_h):
+        raise ValueError(f"atrous_pass: slab [{row0}, {row0 + rows}) of {global_h} rows")
+    out = torch.empty((6, rows, w), dtype=_F32, device=dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        err = lib.rtvs_atrous_pass(img.data_ptr(), view_z.data_ptr(), normal.data_ptr(),
-                                   guide.data_ptr(), out.data_ptr(), h, w, int(stride),
-                                   int(bool(anti_firefly)), _stream(dev))
+        err = lib.rtvs_atrous_pass(
+            img.data_ptr(), img.stride(0), above.data_ptr(), above.stride(0), below.data_ptr(),
+            below.stride(0), view_z.data_ptr(), normal.data_ptr(), normal.stride(0),
+            guide.data_ptr(), guide.stride(0), out.data_ptr(), rows, w, int(row0),
+            int(global_h), max(int(row0) - plain.ATROUS_REACH, 0), int(stride),
+            int(bool(anti_firefly)), _stream(dev))
     _build.check(err, "rtvs_atrous_pass")
     atrous_pass.launches += 1
     return out

@@ -305,6 +305,38 @@ def atrous_single_pass(img, view_z, normal, guide, stride: int, anti_firefly_fir
                        guide)
 
 
+# The largest a-trous stride: the sharded denoise extends z, the normal and
+# the guide of each slab by this many rows, once a frame, for all passes.
+ATROUS_REACH = 1 << (ATROUS_PASSES - 1)
+
+
+def pass_halo(row0: int, rows: int, global_h: int, reach: int):
+    """(rows above, rows below): the frame rows within `reach` of the slab
+    of `rows` rows from frame row `row0`, cut at the frame's edges."""
+    return min(reach, row0), min(reach, global_h - row0 - rows)
+
+
+def atrous_pass_slab(img, above, below, view_z, normal, guide, row0: int, global_h: int,
+                     stride: int, anti_firefly_first: bool):
+    """Plain version of the per-pass kernel's slab form: the pass on the
+    slab img [6,rows,W], frame rows [row0, row0 + rows) of a global_h-row
+    frame. above and below [6,n,W] hold the frame rows next to it, n from
+    pass_halo with the pass's reach (stride, one more with the clamp);
+    view_z [R,W], normal [3,R,W] and guide [2,R,W] the slab's rows extended
+    by ATROUS_REACH rows on each side, cut at the frame's edges. Returns
+    [6,rows,W], those rows of atrous_single_pass on the whole frame bit for
+    bit: the frame's own edge padding at its edges, whole rows elsewhere."""
+    rows = img.shape[1]
+    ext = torch.cat([above, img, below], dim=1)  # frame rows from row0 - above rows
+    if anti_firefly_first:
+        ext = anti_firefly(ext)
+    e0, a0 = row0 - above.shape[1], max(row0 - ATROUS_REACH, 0)
+    lo, hi = max(row0 - stride, 0), min(row0 + rows + stride, global_h)
+    out = atrous_single_pass(ext[:, lo - e0:hi - e0], view_z[lo - a0:hi - a0],
+                             normal[:, lo - a0:hi - a0], guide[:, lo - a0:hi - a0], stride, False)
+    return out[:, row0 - lo:row0 - lo + rows]
+
+
 def shadow_denoise(shadow, obj_id, view_z, normal):
     """Plain version of K4: the ShadowDenoise.hlsl:39-131 filter on
     (penumbra, visibility) [2,H,W]. Taps need an exact obj_id match
@@ -386,9 +418,10 @@ def denoise_frame_cf(gbuf_cf, state: DenoiserStateCF):
 #
 # The denoiser is the frame's only cross-pixel stage, so it is the only
 # place where row slabs read each other's rows: each slab is extended by
-# its neighbours' boundary rows, filtered, and cropped back, which gives the
-# whole frame's result bit for bit (JAX post/denoise.py:758-1057, the lane
-# path's halos).
+# its neighbours' boundary rows, filtered, and cropped back (the a-trous
+# passes: read with its neighbours' rows in place), which gives the whole
+# frame's result bit for bit (JAX post/denoise.py:758-1057, the lane path's
+# halos).
 
 # The reprojection reaches at most MV_CLAMP_PIXELS (64) rows plus the
 # bilinear +1 tap
@@ -441,16 +474,22 @@ def _gather_rows(slabs, rows, global_rows, device):
     return pieces
 
 
-def _frame_rows(ext, row0: int, rows: int, halo: int, global_h: int):
-    """(ext without its rows outside the frame, the slab's first row in it):
-    the rows that exchange_row_halo replicated at the frame's top or bottom
-    cut away, so that a kernel's own edge clamp is the frame's. A chain of
-    two stencils (the clamp, then a pass) then reads at the frame's edge
-    what the whole frame reads: the edge pixel's clamped value, not that of
-    a replicated row."""
-    lo = max(0, halo - row0)
-    hi = ext.shape[1] - max(0, row0 + rows + halo - global_h)
-    return ext[:, lo:hi], halo - lo
+def _frame_halo(slabs, i: int, n_above: int, n_below: int):
+    """(above, below): the n_above frame rows just above slab i and the
+    n_below just below it, on its device, each a view of its neighbour's
+    rows (.to() copies them to another device) or, where it reaches over
+    several slabs, their rows joined."""
+    rows, slab = slabs[0].shape[1], slabs[i]
+
+    def piece(global_rows):
+        if not global_rows:
+            return slab[:, :0]
+        parts = _gather_rows(slabs, rows, global_rows, slab.device)
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+    row0 = i * rows
+    return (piece(list(range(row0 - n_above, row0))),
+            piece(list(range(row0 + rows, row0 + rows + n_below))))
 
 
 def denoise_frame_sharded_cf(gbufs, states, global_h: int):
@@ -460,11 +499,13 @@ def denoise_frame_sharded_cf(gbufs, states, global_h: int):
     slabs with a halo exchange before each stage that reads across a cut:
     the prepass (PREPASS_HALO rows), K2 on the history extended by
     TEMPORAL_HALO rows (its slab form), the a-trous passes one launch each
-    (the per-pass kernel: `stride` rows, and one more on pass 0 for the
-    anti-firefly clamp; the guide and normals ride along) and K4
-    (SHADOW_HALO rows). Returns per-slab lists (diffuse [3,rows,W],
-    specular [3,rows,W], shadow [2,rows,W], new state), each slab equal to
-    those rows of denoise_frame_cf on the whole frame."""
+    (the per-pass kernel's slab form: each slab read where it lies, its
+    neighbours' `stride` rows, one more on pass 0 for the anti-firefly
+    clamp, as views; z, the normals and the guide extended by ATROUS_REACH
+    rows once a frame) and K4 (SHADOW_HALO rows). Returns per-slab lists
+    (diffuse [3,rows,W], specular [3,rows,W], shadow [2,rows,W], new
+    state), each slab equal to those rows of denoise_frame_cf on the whole
+    frame."""
     from ..ops.cuda import denoise_kernels as dk
 
     rows = gbufs[0].view_z.shape[0]
@@ -484,17 +525,18 @@ def denoise_frame_sharded_cf(gbufs, states, global_h: int):
         normals.append(decode_oct_cf(g.normal_roughness))
         guides.append(guide_cf(new_packed, g.view_z, sqrt_rough))
     six = [torch.cat([p[0:3], p[4:7]], dim=0) for p in packed]
+    # z, the normal and the guide, extended once a frame by ATROUS_REACH rows
+    own = [torch.cat([g.view_z[None], n, gd], dim=0) for g, n, gd in zip(gbufs, normals, guides)]
+    aux = []
+    for i, row0 in enumerate(row0s):
+        above, below = _frame_halo(own, i, *pass_halo(row0, rows, global_h, ATROUS_REACH))
+        aux.append(torch.cat([above, own[i], below], dim=1))
     for p in range(ATROUS_PASSES):
-        stride = 1 << p
-        halo = stride + (1 if p == 0 else 0)
-        spe = exchange_row_halo([torch.cat([s, g.view_z[None], n, gd], dim=0)
-                                 for s, g, n, gd in zip(six, gbufs, normals, guides)], halo)
-        six = []
-        for ext, row0 in zip(spe, row0s):
-            ext, at = _frame_rows(ext, row0, rows, halo, global_h)
-            out = dk.atrous_pass(ext[0:6].contiguous(), ext[6].contiguous(),
-                                 ext[7:10].contiguous(), ext[10:12].contiguous(), stride, p == 0)
-            six.append(out[:, at:at + rows])
+        stride, clamp = 1 << p, p == 0
+        halo = [pass_halo(row0, rows, global_h, stride + (1 if clamp else 0)) for row0 in row0s]
+        six = [dk.atrous_pass_slab(six[i], *_frame_halo(six, i, *halo[i]), a[0], a[1:4], a[4:6],
+                                   row0, global_h, stride, clamp)
+               for i, (a, row0) in enumerate(zip(aux, row0s))]
     she = exchange_row_halo([torch.cat([g.shadow_data, g.obj_id.to(F32)[None], g.view_z[None], n],
                                        dim=0) for g, n in zip(gbufs, normals)], SHADOW_HALO)
     shadows = [dk.shadow_denoise(e[0:2], e[2].to(torch.int32), e[3], e[4:7])

@@ -15,10 +15,15 @@ or of one whose K5 takes emission's tensors), the photon pass as each
 tree's frame runs it (the emission and K5, ops/photon.py::
 trace_photon_slice, on the frame's tables where that tree's K5 takes
 them; then K6 and the fold-in of the caustic into the colour and
-diffuse planes, or K6 adding it into them in place), and K3 (atrous) and
+diffuse planes, or K6 adding it into them in place), K3 (atrous) and
 K4 (shadow_denoise) on the 1080p G-buffer
 of chip_smoke.py's phase 4 (one wrapper call each: one launch, or as many
-as that checkout's wrapper makes), calling the libraries in turns (other,
+as that checkout's wrapper makes), and K3-pass's three passes (stride 1
+with the clamp, 2, 4) on the second of four 270-row slabs of it as each
+tree's sharded denoise runs them (its slab form, the neighbours' rows as
+views; or, where the tree has none, the whole-frame form on the slab
+extended by the pass's reach, its rows cropped after the timed call),
+with the device's time alone of each, calling the libraries in turns (other,
 this, then back) for `--rounds` rounds: each render call is one launch on
 tables packed beforehand, timed by CUDA events. Every call's planes must
 equal the first call's bit for bit.
@@ -314,6 +319,30 @@ def photon_case(entry, tree, sc, cfg, tables):
             lambda delta: torch.cat([acc[0:3] + delta, acc[6:9] + delta]) + 0.0)
 
 
+def k3_pass_case(tree, k3, p):
+    """(before, fn, finish) of a-trous pass p (the module docstring) for one
+    tree, on k3 = (img6, view_z, normal, guide) of the 1080p G-buffer."""
+    img, view_z, normal, guide = k3
+    stride, clamp = 1 << p, p == 0
+    reach = stride + int(clamp)
+    h = view_z.shape[0]
+    rows = row0 = h // 4
+
+    def nothing():
+        pass
+
+    if hasattr(tree.K, "atrous_pass_slab"):
+        slabs = [img[:, i * rows:(i + 1) * rows].contiguous() for i in range(4)]
+        r = tree.PD.ATROUS_REACH
+        aux = torch.cat([view_z[None], normal, guide])[:, row0 - r:row0 + rows + r].contiguous()
+        args = (slabs[1], slabs[0][:, rows - reach:], slabs[2][:, :reach], aux[0], aux[1:4],
+                aux[4:6], row0, h, stride, clamp)
+        return nothing, lambda: tree.K.atrous_pass_slab(*args), lambda out: out
+    ext = [t[..., row0 - reach:row0 + rows + reach, :].contiguous() for t in k3]
+    return (nothing, lambda: tree.K.atrous_pass(*ext, stride, clamp),
+            lambda out: out[:, reach:reach + rows].contiguous())
+
+
 def host_ab(trees, CS, frames):
     """The host's scene update of each tree in turns (the module
     docstring's second part), the device synchronised around each call;
@@ -437,9 +466,12 @@ def main():
                CS.CAUSTICS)]
     cases += [(f"{k}, demo scene G-buffer 1920x1080", entry, None, False, None)
               for k, entry in (("K3 atrous", "atrous"), ("K4 shadow_denoise", "shadow_denoise"))]
+    cases += [(f"K3-pass stride {1 << p}{' with the clamp' if p == 0 else ''}, rows 270-539 of "
+               "the demo scene G-buffer 1920x1080", f"k3_pass_{p}", None, False, None)
+              for p in range(3)]
     cases = [c for c in cases if re.search(args.cases, c[0])]
     results, mismatched = {}, []
-    denoise_entries = ("atrous", "shadow_denoise")
+    denoise_entries = ("atrous", "shadow_denoise", "k3_pass_0", "k3_pass_1", "k3_pass_2")
     order = names + names[::-1]
     denoise = None  # K3's and K4's arguments, made once by this tree
     for label, entry, build, meshes, over in cases:
@@ -449,6 +481,10 @@ def main():
             k3, k4 = timed(t.MK._build, t.lib, lambda: CS.denoise_inputs(
                 t.P, t.D, t.PD, t.K, torch.device("cuda")))[0][2:]
             denoise = {"atrous": k3, "shadow_denoise": k4}
+        if entry.startswith("k3_pass"):
+            prep = {tn: (tree, None, None, None, None,
+                         k3_pass_case(tree, denoise["atrous"], int(entry[-1])))
+                    for tn, tree in trees.items()}
         for tn, tree in ({} if entry in denoise_entries else trees).items():
             s, sc = tree.scene(CS, build, meshes)
             cfg = tree.P.make_config(s, CS.FULL_W, CS.FULL_H, **over)
@@ -466,13 +502,13 @@ def main():
             prep[tn] = (tree, sc, cfg, flags, tables, extra)
 
         def call(n):
-            if entry in denoise_entries:
+            if entry in ("atrous", "shadow_denoise"):
                 tree = trees[n]
                 fn = getattr(tree.K, entry)
                 return timed(tree.MK._build, tree.lib, lambda: fn(*denoise[entry]))
             tree, sc, cfg, flags, tables, extra = prep[n]
             R = tree.R
-            if entry.startswith("photon"):
+            if entry.startswith(("photon", "k3_pass")):
                 before, fn, finish = extra
                 before()
                 v, t = timed(tree.MK._build, tree.lib, fn)
@@ -513,15 +549,23 @@ def main():
         print(f"{label}: this / other {med['this'] / med['other']:.4f}; planes bit-equal "
               f"{not differ}", flush=True)
         results[label] = dict(times, median=med)
-        if entry.startswith("photon"):  # the device's time alone, by chip_smoke.device_ms
-            dev = {}
+        if entry.startswith(("photon", "k3_pass")):
+            # the device's time alone, by chip_smoke.device_ms, in turns
+            dev = {n: [] for n in names}
+            for _ in range(args.rounds):
+                for n in order:
+                    tree, extra = prep[n][0], prep[n][5]
+                    extra[0]()
+                    dev[n].append(timed(tree.MK._build, tree.lib,
+                                        lambda: CS.device_ms(extra[1], 20))[0][0])
             for n in names:
-                tree, extra = prep[n][0], prep[n][5]
-                extra[0]()
-                dev[n] = timed(tree.MK._build, tree.lib,
-                               lambda: CS.device_ms(extra[1], 20))[0]
-                print(f"{label}: {n} device {dev[n][0]:.4f} ms ({dev[n][1]})", flush=True)
-            results[label]["device_ms"] = {n: d[0] for n, d in dev.items()}
+                print(f"{label}: {n} device median {statistics.median(dev[n]):.4f} ms, range "
+                      f"{min(dev[n]):.4f}-{max(dev[n]):.4f} ms over {len(dev[n])} profiles of 20 "
+                      "calls", flush=True)
+            med_dev = {n: statistics.median(d) for n, d in dev.items()}
+            results[label]["device_ms"] = med_dev
+            print(f"{label}: device this / other {med_dev['this'] / med_dev['other']:.4f}",
+                  flush=True)
         del prep, ref
 
     if mismatched:

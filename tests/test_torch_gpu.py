@@ -14,8 +14,9 @@ added into the colour and diffuse planes in place) |d| <= 1e-5 * max(1,
 K7 and K8 as K1, and K7+K8 against K1 at spp 1: rays, bounce and record
 planes bit-equal, colour within 2e-5 * max(1, |K1|); the mesh walks alone
 and the counting build's triangle tests and walks bit-equal to the plain
-walks'. The per-pass a-trous kernel bit for bit (and its
-chain of three launches against K3); K2's slab form within 1e-5; the
+walks'. The per-pass a-trous kernel bit for bit, whole frames and
+row slabs whose neighbours' rows are views or copies (and its chain of
+three launches against K3); K2's slab form within 1e-5; the
 sharded Engine over [cuda:0] * 4 bit-equal to the single-device one.
 K1 and K7 also bit for bit, with K7's continuation and hit planes,
 at odd sizes and sample counts; the counting build's counts equal the plain
@@ -419,6 +420,55 @@ def test_atrous_pass_cuda_matches_plain(size, stride, clamp):
         assert _same_bits(chain, K.atrous(x["img6"], x["view_z"], normal, x["guide"]))
 
 
+def _slab_pieces(img, view_z, normal, guide, row0, rows, stride, clamp, copies):
+    """The slab form's arguments for frame rows [row0, row0 + rows): the
+    slab, its neighbours' rows as views of the frame (planes a frame apart)
+    or as contiguous copies, and z, normal and guide extended by
+    ATROUS_REACH rows."""
+    h = view_z.shape[0]
+    na, nb = PD_.pass_halo(row0, rows, h, stride + int(clamp))
+    a0, a1 = max(row0 - PD_.ATROUS_REACH, 0), min(row0 + rows + PD_.ATROUS_REACH, h)
+    above, below = img[:, row0 - na:row0], img[:, row0 + rows:row0 + rows + nb]
+    aux = torch.cat([view_z[None], normal, guide])[:, a0:a1]
+    if copies:
+        above, below, aux = above.contiguous(), below.contiguous(), aux.contiguous()
+    return (img[:, row0:row0 + rows].contiguous(), above, below, aux[0], aux[1:4], aux[4:6], row0,
+            h)
+
+
+@pytest.mark.parametrize("copies", [False, True], ids=["views", "copies"])
+@pytest.mark.parametrize("size", DENOISE_SIZES + [(1079, 1917)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_atrous_pass_slab_cuda_matches_plain(size, copies):
+    """The per-pass kernel's slab form on the top, second and last of four
+    row slabs (the last takes the remainder), its neighbours' rows given as
+    views or as contiguous copies, at strides 1, 2 and 4 with and without
+    the clamp: bit-equal to its plain version, which is bit-equal to the
+    whole frame's rows."""
+    _need_cuda()
+    h, w = size
+    x = _inputs(h, w, 6 + h * w)
+    x["view_z"][:h // 2, :w // 2] = 7.0
+    x["img6"][:, h // 3:, w // 3:] = 0.0
+    normal = PD_.decode_oct_cf(x["nr"])
+    rows = max(h // 4, 1)
+    slabs = sorted({(0, rows), (rows, rows), (3 * rows, h - 3 * rows)} if h >= 4 else {(0, h)})
+    for stride in (1, 2, 4):
+        for clamp in (False, True):
+            whole = PD_.atrous_single_pass(x["img6"], x["view_z"], normal, x["guide"], stride,
+                                           clamp)
+            for row0, n in slabs:
+                args = _slab_pieces(x["img6"], x["view_z"], normal, x["guide"], row0, n, stride,
+                                    clamp, copies)
+                before = K.atrous_pass.launches
+                got = K.atrous_pass_slab(*args, stride, clamp)
+                assert K.atrous_pass.launches == before + 1
+                want = PD_.atrous_pass_slab(*args, stride, clamp)
+                torch.cuda.synchronize()
+                assert _same_bits(want, whole[:, row0:row0 + n])
+                assert _same_bits(got, want), (stride, clamp, row0,
+                                               float((got - want).abs().max()))
+
+
 def test_k2_slab_form_cuda_matches_plain():
     """K2 on 18-row slabs of a 72-row frame, the history extended by
     TEMPORAL_HALO rows: within 1e-5 of the plain slab form, which is
@@ -712,6 +762,13 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="dtype"):
         K.shadow_denoise(x["shadow"], x["obj_id"].to(torch.int64), x["view_z"],
                          PD_.decode_oct_cf(x["nr"]))
+    args = list(_slab_pieces(x["img6"], x["view_z"], PD_.decode_oct_cf(x["nr"]), x["guide"], 4, 4,
+                             2, False, False))
+    with pytest.raises(ValueError, match="above"):  # the reach is 3 rows with the clamp
+        K.atrous_pass_slab(*args, 2, True)
+    args[1] = args[1].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="rows are not contiguous"):
+        K.atrous_pass_slab(*args, 2, False)
     _, sc = _photon_scene("demo")
     with pytest.raises(ValueError, match="photons"):
         PK.emit_and_trace(sc, 256, -1, 256)

@@ -11,10 +11,13 @@ sharded_photon_map against the whole map; Engine(device_mesh=...) over
 three orbiting frames against the single-device Engine (analytic, mesh,
 caustics, two-phase), the denoiser history carried per slab. Held against
 JAX at its bands: the slab form of temporal_accumulate against the jnp one
-(atol 1e-4, test_torch_denoise.py's), the per-pass step against
-_atrous_pass and anti_firefly, and the sharded pipeline against JAX's
+(atol 1e-4, test_torch_denoise.py's), the per-pass step and its slab form
+(top, interior and bottom slabs, bit-equal to the whole frame's rows)
+against _atrous_pass and anti_firefly, and the sharded pipeline against JAX's
 render_pipeline_sharded(backend="jnp") on 4 CPU devices (one frame at
 32x16, test_torch_engine.py's RGBA band)."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,6 +119,27 @@ def test_temporal_accumulate_slab_form():
     assert (whole[14] == 0).any() and (whole[14] > 0).any()
 
 
+def _atrous_inputs(stride, h=24, w=40):
+    rng = np.random.default_rng(20 + stride)
+    img = (rng.uniform(0, 1, (6, h, w)) ** 3 * 4).astype(np.float32)
+    vz = rng.uniform(1, 51, (h, w)).astype(np.float32)
+    normal = PD_.decode_oct_cf(_t(rng.uniform(0, 1, (4, h, w)).astype(np.float32)))
+    guide = rng.uniform(0, 6, (2, h, w)).astype(np.float32)
+    return _t(img), _t(vz), normal, _t(guide)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_single_pass(stride, clamp):
+    """JAX's anti_firefly (when asked) and _atrous_pass on _atrous_inputs."""
+    img, vz, normal, guide = (a.numpy() for a in _atrous_inputs(stride))
+    j_img = jnp.asarray(np.moveaxis(img, 0, -1))
+    if clamp:
+        j_img = JD_.anti_firefly(j_img)
+    want = JD_._atrous_pass(j_img, jnp.asarray(vz), jnp.asarray(np.moveaxis(normal, 0, -1)),
+                            stride, guide=jnp.asarray(np.moveaxis(guide, 0, -1)))
+    return np.moveaxis(np.asarray(want), -1, 0)
+
+
 @pytest.mark.parametrize("stride", [1, 2, 4])
 @pytest.mark.parametrize("clamp", [False, True])
 def test_atrous_single_pass_matches_jax(stride, clamp):
@@ -123,23 +147,38 @@ def test_atrous_single_pass_matches_jax(stride, clamp):
     guided pass) against JAX's anti_firefly and _atrous_pass; the chain of
     three steps, the clamp on the first, is the fused K3's plain version
     bit for bit."""
-    h, w = 24, 40
-    rng = np.random.default_rng(20 + stride)
-    img = (rng.uniform(0, 1, (6, h, w)) ** 3 * 4).astype(np.float32)
-    vz = rng.uniform(1, 51, (h, w)).astype(np.float32)
-    normal = PD_.decode_oct_cf(_t(rng.uniform(0, 1, (4, h, w)).astype(np.float32)))
-    guide = rng.uniform(0, 6, (2, h, w)).astype(np.float32)
-    got = PD_.atrous_single_pass(_t(img), _t(vz), normal, _t(guide), stride, clamp)
-    j_img = jnp.asarray(np.moveaxis(img, 0, -1))
-    if clamp:
-        j_img = JD_.anti_firefly(j_img)
-    want = JD_._atrous_pass(j_img, jnp.asarray(vz), jnp.asarray(np.moveaxis(normal.numpy(), 0, -1)),
-                            stride, guide=jnp.asarray(np.moveaxis(guide, 0, -1)))
-    np.testing.assert_allclose(got.numpy(), np.moveaxis(np.asarray(want), -1, 0), atol=ATOL)
-    chain = _t(img)
+    img, vz, normal, guide = _atrous_inputs(stride)
+    got = PD_.atrous_single_pass(img, vz, normal, guide, stride, clamp)
+    np.testing.assert_allclose(got.numpy(), _jax_single_pass(stride, clamp), atol=ATOL)
+    chain = img
     for p in range(PD_.ATROUS_PASSES):
-        chain = PD_.atrous_single_pass(chain, _t(vz), normal, _t(guide), 1 << p, p == 0)
-    assert torch.equal(chain, PD_.atrous(_t(img), _t(vz), normal, _t(guide)))
+        chain = PD_.atrous_single_pass(chain, vz, normal, guide, 1 << p, p == 0)
+    assert torch.equal(chain, PD_.atrous(img, vz, normal, guide))
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("slab", [0, 1, 3], ids=["top", "interior", "bottom"])
+def test_atrous_pass_slab_matches_whole_frame(slab, stride, clamp):
+    """The slab form's plain version on 6-row slabs of the 24-row frame (the
+    slab where it lies, its neighbours' rows as views, z, normal and guide
+    extended by ATROUS_REACH rows and cut at the frame's edges) equals the
+    whole frame's atrous_single_pass rows bit for bit, and JAX's
+    anti_firefly and _atrous_pass on the whole frame within ATOL."""
+    img, vz, normal, guide = _atrous_inputs(stride)
+    h, rows = vz.shape[0], 6
+    row0 = slab * rows
+    n_above, n_below = PD_.pass_halo(row0, rows, h, stride + int(clamp))
+    assert (n_above, n_below) == (min(stride + int(clamp), row0),
+                                  min(stride + int(clamp), h - row0 - rows))
+    a0 = max(row0 - PD_.ATROUS_REACH, 0)
+    a1 = min(row0 + rows + PD_.ATROUS_REACH, h)
+    got = PD_.atrous_pass_slab(img[:, row0:row0 + rows], img[:, row0 - n_above:row0],
+                               img[:, row0 + rows:row0 + rows + n_below], vz[a0:a1],
+                               normal[:, a0:a1], guide[:, a0:a1], row0, h, stride, clamp)
+    sl = slice(row0, row0 + rows)
+    assert torch.equal(got, PD_.atrous_single_pass(img, vz, normal, guide, stride, clamp)[:, sl])
+    np.testing.assert_allclose(got.numpy(), _jax_single_pass(stride, clamp)[:, sl], atol=ATOL)
 
 
 SCENES = {
