@@ -67,7 +67,11 @@ the path launched, and the sharded demo render()'s ms and device-busy ms)
 and the live viewer (phase 13: api/viewer.py on the card at 1280x720 on
 an ephemeral 127.0.0.1 port: five frames, a setprop and its undo, the
 photon debug mode 1 with K5 and K6 launched, debug mode 3, a resolution
-switch). Phase 3 prints the mode-0 instantiations' registers and
+switch) and the golden images (phase 14: configs 1, 2, 3, 5 and 6 of
+tests/golden/ through Engine(res, res) on the card at 96x96 and 256x256,
+SSIM >= 0.98 by the port's utils/ssim.py, beside the plain CPU Engine's
+score, the kernels of each frame launched; utils/refcompare.py on the
+256x256 config 1 frame, its score the direct one). Phase 3 prints the mode-0 instantiations' registers and
 spills beside PR 8's and fails if K1 or K7 pass 128 registers or spill,
 or K1-mesh leaves 184 registers without spills. It prints a JSON line of
 the kernels (debug_modes_max_abs_err: the photon debug modes' check), the
@@ -1650,6 +1654,7 @@ def check_viewer(path, counters):
     import urllib.request
 
     from raytracevs_tpu_torch.api import viewer as V
+    from raytracevs_tpu_torch.io.png import read_png
 
     w, h = 1280, 720
     state = V.ViewerState(path, w, h, overrides=dict(OVERRIDES), device="cuda")
@@ -1680,7 +1685,7 @@ def check_viewer(path, counters):
         with tempfile.NamedTemporaryFile(suffix=".png") as f:
             f.write(png)
             f.flush()
-            img = read_png_any(f.name)
+            img = read_png(f.name)
         if code != 200 or img.shape[:2] != shape:
             raise AssertionError(f"/frame.png: {code}, {img.shape}, expected {shape}")
         return img
@@ -1808,22 +1813,12 @@ def check_surface(P, eng):
         raise AssertionError("render(fail_safe=True)")
 
 
-def read_png_any(path):
-    """A PNG as uint8 [H, W, C]: PIL where it is installed, else the port's reader."""
-    try:
-        from PIL import Image
-
-        return np.asarray(Image.open(path))
-    except ImportError:
-        from raytracevs_tpu_torch.io.png import read_png
-
-        return read_png(path)
-
-
 def check_cli(P, path, out):
     """Phase 11: the port's CLI as a subprocess on the card: `path` to `out`
     at 1920x1080, 3 frames, --json; the PNG must equal the third frame of
     an Engine that loaded the file."""
+    from raytracevs_tpu_torch.io.png import read_png
+
     cmd = [sys.executable, "-m", "raytracevs_tpu_torch.api.cli", path, "-o", out, "-W",
            str(FULL_W), "-H", str(FULL_H), "--frames", "3", "--json"]
     t0 = time.perf_counter()
@@ -1836,12 +1831,66 @@ def check_cli(P, path, out):
     eng.load_rtvs(path)
     for _ in range(3):
         want = eng.render()
-    got = read_png_any(out)
+    got = read_png(out)
     same = got.shape == want.shape and bool(np.array_equal(got, want))
     print(f"phase 11 cli: {stats}; {wall:.1f} s with the process's start; the PNG equals the "
           f"Engine's frame {same}", flush=True)
     if not same:
         raise AssertionError("the CLI's PNG differs from the Engine's frame")
+
+
+def check_golden(P, counters, smi):
+    """Phase 14: the golden configs 1, 2, 3, 5 and 6 (tests/_torch_scenes.py::
+    golden_scene, as tests/test_golden.py renders them: config 5 three
+    frames) through Engine(res, res) on the card at 96x96 and 256x256,
+    scored by the port's ssim against tests/golden/ (read by the port's
+    read_png), beside the plain CPU Engine's score at the same size; every
+    launch count set to 0 just before a config's frames and read just after.
+    Then refcompare on the card's 256x256 config 1 frame with its golden as
+    the reference: its ssim must be the direct score. Raises on a missing
+    golden, an SSIM below 0.98, or a kernel of the frame not launched."""
+    from raytracevs_tpu_torch.io.png import read_png
+    from raytracevs_tpu_torch.scene import data as D
+    from raytracevs_tpu_torch.utils.refcompare import compare_to_reference
+    from raytracevs_tpu_torch.utils.ssim import ssim
+
+    TS = scenes_module()
+    kept = None
+    for res in (96, 256):
+        for name in TS.GOLDEN_RENDERED:
+            path = TS.golden_path(name, res)
+            if not os.path.exists(path):
+                raise AssertionError(f"golden missing: {path}")
+            golden = read_png(path)
+            for c in counters.values():
+                c.launches = 0
+            img, ms = TS.render_golden(P.Engine, D, name, res)
+            launches = {k: c.launches for k, c in counters.items() if c.launches}
+            score = ssim(img, golden)
+            cpu_score = ssim(TS.render_golden(P.Engine, D, name, res, device="cpu")[0], golden)
+            print(f"phase 14 golden {name} {res}x{res}: SSIM {score!r} on the card, {cpu_score!r} "
+                  f"the plain CPU Engine's (|d| {abs(score - cpu_score):.3g}); frame ms "
+                  f"{', '.join(f'{m:.3f}' for m in ms)}; launches {launches}; {smi}", flush=True)
+            frames = len(ms)
+            need = ["render_accum", "reproject_accumulate", "atrous", "shadow_denoise"]
+            if name == "config5_caustics_denoise":
+                need += ["photon_trace", "photon_gather"]
+            if any(launches.get(k, 0) < frames for k in need):
+                raise AssertionError(f"{name} {res}: a kernel of the frame launched fewer than "
+                                     f"{frames} times: {launches}")
+            if img.shape != golden.shape:
+                raise AssertionError(f"{name} {res}: frame {img.shape}, golden {golden.shape}")
+            if score < TS.SSIM_THRESHOLD:
+                raise AssertionError(f"{name} {res}: SSIM {score:.4f} < {TS.SSIM_THRESHOLD}")
+            if name == "config1_hard_shadows" and res == 256:
+                kept = (img, golden, score)
+    img, golden, score = kept
+    out = compare_to_reference(img, ref=golden)
+    print(f"phase 14 refcompare config1_hard_shadows 256x256, the card's frame against its "
+          f"golden: {out}; the direct score rounded as refcompare rounds it {round(score, 4)}",
+          flush=True)
+    if out["ssim"] != round(score, 4):
+        raise AssertionError("refcompare's ssim differs from the direct score")
 
 
 def main():
@@ -2265,6 +2314,11 @@ def main():
         t_new = time.perf_counter()
         check_viewer(demo_path, counters)
         print(f"phase 13: {time.perf_counter() - t_new:.1f} s", flush=True)
+
+    # phase 14: the golden configs on the card against tests/golden/
+    t_new = time.perf_counter()
+    check_golden(P, counters, smi)
+    print(f"phase 14: {time.perf_counter() - t_new:.1f} s", flush=True)
 
     line = {"kernels": [
         dict({"name": name, "route": "cuda", "source": src, "replaces": rep,

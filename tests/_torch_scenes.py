@@ -4,13 +4,18 @@ Every builder takes a package's ``scene.data`` module (and, for meshes, its
 ``io.mesh_cache`` module), so the same literals build a raytracevs_tpu
 SceneData and a raytracevs_tpu_torch SceneData. The demo scene and the mesh
 demo scene are the port's workloads (chip_smoke.py keeps its own copy of
-these literals, because it cannot import JAX). Nothing here imports JAX.
+these literals, because it cannot import JAX). Nothing here imports JAX,
+and importing it sets nothing: the port's test files call one_torch_thread
+themselves.
 """
 import math
 
 import numpy as np
 
 from raytracevs_tpu_torch.scene.transform import euler_deg_to_quat, obb_axes_from_quat
+# the goldens' directory and file names and the bar a frame must pass (no JAX
+# import: test_golden.py imports the JAX package only inside its functions)
+from test_golden import GOLDEN_DIR, SSIM_THRESHOLD, _golden_path as golden_path  # noqa: F401
 
 DEMO_OVERRIDES = {"max_soft_samples": 4}
 DEMO_LOOK_AT = np.array([0.0, 0.8, 0.6])
@@ -151,6 +156,40 @@ def scene_and_overrides(D, name: str):
     if name == "demo":
         return demo_scene(D), dict(DEMO_OVERRIDES)
     return golden_scene(D, name)
+
+
+# the golden configs the port renders (configs 0 and 4 read reference files
+# that the repository does not hold)
+GOLDEN_RENDERED = ("config1_hard_shadows", "config2_obb_mirror", "config3_glass_soft",
+                   "config5_caustics_denoise", "config6_soft_shadows")
+
+
+def render_golden(Engine, D, name: str, res: int, **engine_kw):
+    """A golden config's frame as tests/test_golden.py::_render makes it:
+    Engine(res, res, **engine_kw), update_scene with the config's overrides,
+    render(); config 5 renders three frames (temporal accumulation) and
+    returns the third. Returns (the frame, each frame's last_render_ms)."""
+    eng = Engine(res, res, **engine_kw)
+    scene, overrides = golden_scene(D, name)
+    eng.update_scene(scene, **overrides)
+    ms = []
+    for _ in range(3 if name == "config5_caustics_denoise" else 1):
+        img = eng.render()
+        ms.append(eng.last_render_ms)
+    return img, ms
+
+
+def one_torch_thread():
+    """Run torch's CPU ops on one intra-op thread in this process. The tests
+    run as several worker processes on one machine's cores (pytest -n 6),
+    and torch's default pool of a thread a core in each worker makes them
+    fight: on eight cores a case that takes 15 s alone took 150 s with six
+    copies at once. The tests pass alike on one thread: their bit-equality
+    checks compare runs of one process, and their comparisons with JAX hold
+    stated bands."""
+    import torch
+
+    torch.set_num_threads(1)
 
 
 def jax_leaves(flat) -> dict:

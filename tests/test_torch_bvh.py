@@ -23,6 +23,8 @@ from raytracevs_tpu_torch.io import native
 from raytracevs_tpu_torch.ops import bvh as P
 from raytracevs_tpu_torch.scene.transform import Transform, euler_deg_to_quat
 
+S.one_torch_thread()
+
 N_RAYS = 4096
 ABSORB_SCALE = 4.0  # the default shadow_absorption_scale
 BUILT = ("bbox_min", "bbox_max", "hit_next", "miss_next", "tri_start", "tri_count", "v0",

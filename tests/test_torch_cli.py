@@ -27,6 +27,8 @@ from raytracevs_tpu_torch.runtime import engine as PENG
 from raytracevs_tpu_torch.scene import data as PD
 from test_torch_engine import _assert_frame_matches
 
+S.one_torch_thread()
+
 W, H = 64, 32
 SIZE = ["-W", str(W), "-H", str(H), "--cpu"]
 

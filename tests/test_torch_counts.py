@@ -24,6 +24,8 @@ from raytracevs_tpu_torch.scene import data as D
 from raytracevs_tpu_torch.scene.flatten import flatten_scene, make_config, to_device
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
+S.one_torch_thread()
+
 W, H = 24, 16
 
 

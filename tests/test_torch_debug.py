@@ -34,6 +34,8 @@ from raytracevs_tpu_torch.post import tonemap as PTM
 from raytracevs_tpu_torch.scene import data as PD
 from test_torch_engine import _assert_frame_matches, _hdr_outliers, _near
 
+S.one_torch_thread()
+
 CHANNELS = dict(diffuse_hitdist=4, specular_hitdist=4, normal_roughness=4, view_z=0,
                 motion=2, albedo=4, shadow_data=2, shadow_translucency=4, obj_id=0,
                 motion_spec=2)

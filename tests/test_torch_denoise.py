@@ -22,6 +22,8 @@ from raytracevs_tpu_torch.ops.render_cf import render_rows_cf
 from raytracevs_tpu_torch.post import denoise as PD_
 from raytracevs_tpu_torch.scene import data as PDATA
 
+S.one_torch_thread()
+
 ATOL = 1e-4
 
 

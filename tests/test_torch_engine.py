@@ -1,9 +1,10 @@
 """The port's Engine end to end on the CPU vs raytracevs_tpu's Engine
 (backend "jnp", no device mesh), over three frames of the orbiting demo
-scene, of the mesh demo scene (small meshes), and with caustics of the demo
-scene and golden config 5, with the denoiser on; plus the Engine's
-contract: no JAX import, device handling (the card by default), meshes from
-the mesh service and the checksum-keyed history reset.
+scene and of the mesh demo scene (small meshes), with the denoiser on;
+plus the Engine's contract: no JAX import, device handling (the card by
+default), meshes from the mesh service and the checksum-keyed history
+reset. The caustics frames, in the same band, are in
+test_torch_engine_caustics.py.
 
 Band: RGBA8 |diff| <= 1 on >= 99.5% of pixels (the renderers agree to
 float rounding; uint8 rounding near .5 moves by one), and <= 4 everywhere
@@ -33,6 +34,8 @@ from raytracevs_tpu_torch.io import mesh_cache as PMC
 from raytracevs_tpu_torch.ops import photon as PP
 from raytracevs_tpu_torch.ops.render_cf import render_rows_cf
 from raytracevs_tpu_torch.scene import data as PD
+
+S.one_torch_thread()
 
 W, H = 64, 32
 
@@ -76,20 +79,6 @@ def mesh_frames():
     """The mesh demo scene, with small meshes (MESH_DEMO_SMALL)."""
     return _render_pair(S.mesh_demo_scene, S.mesh_service(JMC, S.MESH_DEMO_SMALL),
                         S.mesh_service(PMC, S.MESH_DEMO_SMALL))
-
-
-CAUSTICS = {
-    "demo": (S.demo_scene, dict(S.DEMO_OVERRIDES, enable_caustics=True)),
-    "config5": (S.caustics_golden_scene, {}),
-}
-
-
-@pytest.fixture(scope="module", params=list(CAUSTICS))
-def caustics_frames(request):
-    """The demo scene with caustics on and golden config 5, three orbiting
-    frames each."""
-    build, over = CAUSTICS[request.param]
-    return _render_pair(build, overrides=over)
 
 
 def _hdr_outliers(fr):
@@ -188,48 +177,6 @@ def test_engine_outliers_are_xla_whole_frame_rounding(frames):
             np.testing.assert_allclose(fr["phdr"][y, x], _pixel_op_by_op(fr, y, x), atol=HDR_ATOL)
 
 
-@pytest.mark.parametrize("frame", [0, 1, 2])
-def test_caustics_engine_frames_match_jax(caustics_frames, frame):
-    """Caustics frames (the photon pass through the K5 and K6 wrappers, on
-    the CPU their plain versions) in the module's band, the |d| <= 1 share
-    taken beyond the reach of the HDR outliers (ROADMAP C8); the caustic is
-    in the frame."""
-    fr = caustics_frames[frame]
-    _assert_frame_matches(fr, far_only=True)
-    assert int(fr["pmap"].count) > 0
-    assert fr["engine"]._cfg.num_photons == fr["jcfg"].num_photons > 0
-
-
-def test_caustics_outliers_are_xla_whole_frame_rounding(caustics_frames):
-    """Every HDR outlier of the caustics frames, rendered alone by the JAX
-    package one operation at a time with the gather on the same photon
-    map, matches the port: XLA's fused frame rounds a first-hit position
-    differently, and at a caustic that moves photons across the gather
-    radius or the 32-photon cap (ROADMAP C8)."""
-    for fr in caustics_frames:
-        for y, x in _hdr_outliers(fr):
-            np.testing.assert_allclose(fr["phdr"][y, x], _pixel_op_by_op(fr, y, x), atol=HDR_ATOL)
-
-
-def test_caustics_photon_maps_match_jax(caustics_frames):
-    """The JAX Engine's own photon pass (emission and the bounce loop
-    compiled by XLA) against the port's, photon by photon: fates equal,
-    store fields within the bands of tests/test_megakernel.py:190-197."""
-    import jax
-
-    fr = caustics_frames[0]
-    n = fr["jcfg"].num_photons
-    want = [np.asarray(a) for a in jax.jit(
-        lambda s: JP.trace_photon_slice(s, n, 0, n))(fr["jflat"])]
-    scene = fr["engine"]._scene_t
-    got = [a.numpy() for a in PP.trace_photon_slice(scene, n, 0, n)]
-    np.testing.assert_array_equal(got[4], want[4])
-    both = got[4]
-    assert both.sum() > 10
-    for c, atol in enumerate((5e-3, 1e-4, 1e-5, 1e-4)):
-        np.testing.assert_allclose(got[c][both], want[c][both], atol=atol, rtol=1e-3)
-
-
 def test_engine_metrics_and_pixels(frames):
     pimg, prays, pe = frames[-1]["pimg"], frames[-1]["prays"], frames[-1]["engine"]
     assert pe.get_pixel_data() == pimg.tobytes()
@@ -249,7 +196,8 @@ def test_import_needs_no_jax():
             "raytracevs_tpu_torch.models, raytracevs_tpu_torch.runtime.profiler, "
             "raytracevs_tpu_torch.runtime.render_loop, raytracevs_tpu_torch.runtime.cache, "
             "raytracevs_tpu_torch.parallel.tiles, raytracevs_tpu_torch.scene.commands, "
-            "raytracevs_tpu_torch.io.settings, raytracevs_tpu_torch.api.viewer, sys; "
+            "raytracevs_tpu_torch.io.settings, raytracevs_tpu_torch.api.viewer, "
+            "raytracevs_tpu_torch.utils.ssim, raytracevs_tpu_torch.utils.refcompare, sys; "
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules), "
             "[m for m in sys.modules if m.startswith('jax')]")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

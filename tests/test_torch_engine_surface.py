@@ -27,6 +27,8 @@ from raytracevs_tpu_torch.runtime.render_loop import RenderLoop
 from raytracevs_tpu_torch.scene import data as PD
 from raytracevs_tpu_torch.utils import logging as plog
 
+S.one_torch_thread()
+
 W, H = 16, 8
 
 

@@ -18,6 +18,8 @@ from raytracevs_tpu_torch.scene import data as PD
 from raytracevs_tpu_torch.scene.flatten import flatten_scene, to_device
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
+S.one_torch_thread()
+
 N = 4096
 ATOL = 1e-5
 

@@ -38,6 +38,8 @@ from raytracevs_tpu_torch.scene import data as PD
 from raytracevs_tpu_torch.scene.flatten import flatten_scene, make_config, to_device
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
+S.one_torch_thread()
+
 W = H = 32
 NAMES = ("demo", "config2_obb_mirror", "config3_glass_soft", "config6_soft_shadows")
 MESH_NAMES = ("glass_ball", "opaque_ball", "nine_balls")

@@ -12,6 +12,8 @@ from raytracevs_tpu_torch.io import fbx as PF
 from raytracevs_tpu_torch.io import mesh_cache as PMC
 from test_fbx_binary import _cube, _cube_ascii, _tree, write_binary_fbx
 
+S.one_torch_thread()
+
 
 def _assert_mesh_equal(a, b):
     for f in ("vertices", "indices", "bounds_min", "bounds_max"):

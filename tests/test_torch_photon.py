@@ -33,6 +33,8 @@ from raytracevs_tpu_torch.scene import data as PD
 from raytracevs_tpu_torch.scene.flatten import make_config, to_device
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
+S.one_torch_thread()
+
 # the trace's bands (tests/test_megakernel.py:190-197): pos, dir, colour,
 # power atol, all rtol 1e-3
 TRACE_ATOL = (5e-3, 1e-4, 1e-5, 1e-4)

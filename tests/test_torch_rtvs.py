@@ -35,6 +35,8 @@ from raytracevs_tpu_torch.scene import data as PD
 from raytracevs_tpu_torch.scene.flatten import FlatScene, flatten_scene
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
+S.one_torch_thread()
+
 JAX = types.SimpleNamespace(M=JM, G=JG, R=JR, E=JE, T=JT.Transform, flatten=j_flatten,
                             sanitize=j_sanitize)
 PORT = types.SimpleNamespace(M=PM, G=PG, R=PR, E=PE, T=PT.Transform, flatten=flatten_scene,

@@ -7,8 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_scenes as S
 from raytracevs_tpu.ops import sampling as J
 from raytracevs_tpu_torch.ops import sampling as P
+
+S.one_torch_thread()
 
 RNG = np.random.default_rng(1234)
 U32 = RNG.integers(0, 2**32, size=4096, dtype=np.uint64).astype(np.uint32)

@@ -23,6 +23,8 @@ from raytracevs_tpu_torch.scene.flatten import FlatScene, flatten_scene, make_co
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 from raytracevs_tpu_torch.utils import checksum as p_checksum
 
+S.one_torch_thread()
+
 SCENES = ("demo",) + S.GOLDEN
 # scenes with meshes: (builder, mesh service contents)
 MESH_SCENES = {

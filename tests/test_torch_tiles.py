@@ -39,6 +39,8 @@ from raytracevs_tpu_torch.parallel import tiles as PT
 from raytracevs_tpu_torch.post import denoise as PD_
 from raytracevs_tpu_torch.scene import data as PD
 
+S.one_torch_thread()
+
 W, H = 64, 32
 N = 4
 ROWS = H // N

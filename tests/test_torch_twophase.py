@@ -49,6 +49,8 @@ from raytracevs_tpu_torch.scene import data as PD
 from raytracevs_tpu_torch.scene.flatten import flatten_scene, make_config, to_device
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
+S.one_torch_thread()
+
 W = H = 32
 NAMES = ("demo", "config3_glass_soft", "glass_ball", "nine_balls")
 GBUF_FIELDS = ("diffuse_hitdist", "specular_hitdist", "normal_roughness", "motion", "albedo",

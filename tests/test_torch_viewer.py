@@ -39,6 +39,8 @@ from raytracevs_tpu_torch.api import viewer as PV
 from raytracevs_tpu_torch.io.png import read_png
 from raytracevs_tpu_torch.scene import data as PD
 
+S.one_torch_thread()
+
 JAX = types.SimpleNamespace(M=JM, G=JG, C=JC, R=JR, D=JD)
 PORT = types.SimpleNamespace(M=PM, G=PG, C=PC, R=PR, D=PD)
 TIMED = ("fps", "render_ms", "frames", "rays", "backend")

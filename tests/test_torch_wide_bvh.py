@@ -27,6 +27,8 @@ from raytracevs_tpu_torch.scene import data as D
 from raytracevs_tpu_torch.scene.flatten import flatten_scene
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 
+S.one_torch_thread()
+
 N_RAYS = 1500
 F32 = np.float32
 BIG = F32(1e30)
