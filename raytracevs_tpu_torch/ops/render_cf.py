@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .. import constants as C
+from ..runtime.profiler import annotate
 from . import render as R
 from . import vec
 
@@ -227,11 +228,12 @@ def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None, pmap=None) -> 
     from . import photon
     from .cuda import photon_kernels
 
-    if pmap is None:
-        pmap = photon.emit_and_trace(scene, cfg.num_photons, tables)
-    return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel,
-                                       replace=cfg.photon_debug_mode != 0,
-                                       scale=cfg.photon_debug_scale)
+    with annotate("rtvs.render.caustics"):
+        if pmap is None:
+            pmap = photon.emit_and_trace(scene, cfg.num_photons, tables)
+        return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel,
+                                           replace=cfg.photon_debug_mode != 0,
+                                           scale=cfg.photon_debug_scale)
 
 
 def render_rows_cf(scene, cfg, row_start=0, num_rows=None, two_phase=False, aperture_size=None,
@@ -247,18 +249,22 @@ def render_rows_cf(scene, cfg, row_start=0, num_rows=None, two_phase=False, aper
     tables are packed once (`tables`, megakernel.pack_tables(scene), when
     the caller packed them already), for the render kernels and K5. The
     accumulator planes are the frame's own: the caustic goes into them in
-    place."""
+    place. Spans (runtime/profiler.py::annotate): rtvs.render.pack_tables,
+    .trace, .caustics (when on) and .assemble, once a call."""
     from .cuda import megakernel
 
-    if tables is None and scene.cam_pos.device.type == "cuda":
-        tables = megakernel.pack_tables(scene)
-    if two_phase:
-        from .twophase import render_accum_two_phase
+    with annotate("rtvs.render.pack_tables"):
+        if tables is None and scene.cam_pos.device.type == "cuda":
+            tables = megakernel.pack_tables(scene)
+    with annotate("rtvs.render.trace"):
+        if two_phase:
+            from .twophase import render_accum_two_phase
 
-        acc = render_accum_two_phase(scene, cfg, aperture_size, tables, row_start=row_start,
-                                     num_rows=num_rows)
-    else:
-        acc = megakernel.render_accum(scene, cfg, tables=tables, row_start=row_start,
-                                      num_rows=num_rows)
+            acc = render_accum_two_phase(scene, cfg, aperture_size, tables,
+                                         row_start=row_start, num_rows=num_rows)
+        else:
+            acc = megakernel.render_accum(scene, cfg, tables=tables, row_start=row_start,
+                                          num_rows=num_rows)
     acc = apply_caustics_cf(scene, cfg, acc, tables, pmap)
-    return assemble_frame_cf(scene, cfg, accum_dict(acc))
+    with annotate("rtvs.render.assemble"):
+        return assemble_frame_cf(scene, cfg, accum_dict(acc))

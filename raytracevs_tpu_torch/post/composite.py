@@ -12,6 +12,7 @@ from typing import Optional
 import torch
 
 from ..ops import vec
+from ..runtime.profiler import annotate
 from . import tonemap
 
 
@@ -55,14 +56,15 @@ def composite_cf(
 def composite_rgba8(scene, out, denoised):
     """RGBA8 [H,W,4] of a rendered frame (or row slab) `out`, with its
     denoised (diffuse, specular, shadow) planes or None."""
-    if denoised is not None:
-        color01 = composite_cf(
-            out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
-            denoised_diffuse=denoised[0], denoised_specular=denoised[1], use_denoised=True,
-            nrd_bypass_distance=scene.nrd_bypass_distance,
-            nrd_bypass_blend=scene.nrd_bypass_blend)
-    else:
-        color01 = composite_cf(
-            out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
-            use_denoised=False)
-    return tonemap.to_rgba8_cf(color01)
+    with annotate("rtvs.render.composite"):
+        if denoised is not None:
+            color01 = composite_cf(
+                out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
+                denoised_diffuse=denoised[0], denoised_specular=denoised[1], use_denoised=True,
+                nrd_bypass_distance=scene.nrd_bypass_distance,
+                nrd_bypass_blend=scene.nrd_bypass_blend)
+        else:
+            color01 = composite_cf(
+                out.gbuffer, out.raw_specular, scene.exposure, scene.tone_map_operator, scene.gamma,
+                use_denoised=False)
+        return tonemap.to_rgba8_cf(color01)

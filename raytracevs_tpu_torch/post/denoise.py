@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as Fn
 
 from .. import constants as C
+from ..runtime.profiler import annotate
 
 F32 = torch.float32
 
@@ -398,19 +399,28 @@ def guide_cf(new_packed, view_z, sqrt_rough):
 def denoise_frame_cf(gbuf_cf, state: DenoiserStateCF):
     """The frame's denoise: prepass, K2, K3 (with guide and anti-firefly),
     K4. Returns (diffuse [3,H,W], specular [3,H,W], shadow [2,H,W],
-    new state)."""
+    new state). Spans: rtvs.denoise, with .prepass, .reproject (K2),
+    .guide (decode and guide), .atrous (K3) and .shadow (K4)."""
     from ..ops.cuda import denoise_kernels as dk
 
-    curr = torch.cat([gbuf_cf.diffuse_hitdist, gbuf_cf.specular_hitdist], dim=0)
-    sqrt_rough = gbuf_cf.normal_roughness[3]
-    curr = reblur_prepass(curr, gbuf_cf.view_z, sqrt_rough)
-    new_packed = dk.reproject_accumulate(state.packed, curr, gbuf_cf.motion, gbuf_cf.view_z,
-                                         torch.square(sqrt_rough), gbuf_cf.motion_spec)
-    normal = decode_oct_cf(gbuf_cf.normal_roughness)
-    guide = guide_cf(new_packed, gbuf_cf.view_z, sqrt_rough)
-    out_ds = dk.atrous(torch.cat([new_packed[0:3], new_packed[4:7]], dim=0), gbuf_cf.view_z,
-                       normal, guide)
-    out_shadow = dk.shadow_denoise(gbuf_cf.shadow_data, gbuf_cf.obj_id, gbuf_cf.view_z, normal)
+    with annotate("rtvs.denoise"):
+        with annotate("rtvs.denoise.prepass"):
+            curr = torch.cat([gbuf_cf.diffuse_hitdist, gbuf_cf.specular_hitdist], dim=0)
+            sqrt_rough = gbuf_cf.normal_roughness[3]
+            curr = reblur_prepass(curr, gbuf_cf.view_z, sqrt_rough)
+        with annotate("rtvs.denoise.reproject"):
+            new_packed = dk.reproject_accumulate(state.packed, curr, gbuf_cf.motion,
+                                                 gbuf_cf.view_z, torch.square(sqrt_rough),
+                                                 gbuf_cf.motion_spec)
+        with annotate("rtvs.denoise.guide"):
+            normal = decode_oct_cf(gbuf_cf.normal_roughness)
+            guide = guide_cf(new_packed, gbuf_cf.view_z, sqrt_rough)
+        with annotate("rtvs.denoise.atrous"):
+            out_ds = dk.atrous(torch.cat([new_packed[0:3], new_packed[4:7]], dim=0),
+                               gbuf_cf.view_z, normal, guide)
+        with annotate("rtvs.denoise.shadow"):
+            out_shadow = dk.shadow_denoise(gbuf_cf.shadow_data, gbuf_cf.obj_id, gbuf_cf.view_z,
+                                           normal)
     return out_ds[0:3], out_ds[3:6], out_shadow, DenoiserStateCF(packed=new_packed)
 
 

@@ -32,6 +32,11 @@ resolve against a mesh service, found next to the file when the Engine has
 none. `render(fail_safe=True)`, `copy_pixels_into`, `validate_frame` and
 `render_debug_view` are the rest of the JAX Engine's surface.
 
+Under a running torch.profiler, update_scene and render record their
+stages as spans ("rtvs.update_scene", "rtvs.render" and their children,
+runtime/profiler.py::annotate) on the profiler's clock; the two top spans
+carry the frame index.
+
 Example:
     engine = Engine(1920, 1080, mesh_service=meshes)   # on the card
     # or Engine(1920, 1080, mesh_service=meshes, two_phase=True), spp 1
@@ -62,6 +67,7 @@ from ..scene.rtvs import load_graph
 from ..scene.sanitize import sanitize_scene
 from ..utils.checksum import scene_content_checksum
 from ..utils.logging import log_debug, log_error
+from .profiler import annotate
 
 
 def render_frame(scene, cfg: RenderConfig, denoise_state, two_phase=False, aperture_size=None):
@@ -141,32 +147,38 @@ class Engine:
         renderer cannot render (spp != 1, aperture > 1e-3) raises
         ValueError and leaves the Engine's scene, configuration and history
         as they were."""
-        clean = sanitize_scene(scene)
-        # per-object scene dump at the interop boundary (EngineWrapper.cpp:
-        # 222-230), gated by the log level as in the reference
-        log_debug(
-            "UpdateScene: %d objects (%s), %d lights, spp=%d bounces=%d",
-            len(clean.objects),
-            ", ".join(type(o).__name__ for o in clean.objects) or "empty",
-            len(clean.lights), clean.settings.samples_per_pixel,
-            clean.settings.max_bounces,
-        )
-        cfg = make_config(clean, self.width, self.height, **config_overrides)
-        flat = flatten_scene(clean, frame_index=self._frame_index,
-                             aspect=self.width / self.height,
-                             prev_view_proj=self._prev_view_proj,
-                             mesh_service=self.mesh_service, blas_cache=self._blas_cache)
-        if self.two_phase:
-            check_two_phase(cfg, float(flat.aperture_size))
-        self._scene = clean
-        new_checksum = scene_content_checksum(clean)
-        if new_checksum != self._checksum:
-            self._denoise_state = None
-        self._checksum = new_checksum
-        self._flat = flat
-        self._cfg = cfg
-        self._prev_view_proj = np.asarray(self._flat.view_proj)
-        self._scene_t = to_device(self._flat, self.device)
+        with annotate("rtvs.update_scene", self._frame_index):
+            with annotate("rtvs.scene.sanitize"):
+                clean = sanitize_scene(scene)
+            # per-object scene dump at the interop boundary (EngineWrapper.cpp:
+            # 222-230), gated by the log level as in the reference
+            log_debug(
+                "UpdateScene: %d objects (%s), %d lights, spp=%d bounces=%d",
+                len(clean.objects),
+                ", ".join(type(o).__name__ for o in clean.objects) or "empty",
+                len(clean.lights), clean.settings.samples_per_pixel,
+                clean.settings.max_bounces,
+            )
+            with annotate("rtvs.scene.flatten"):
+                cfg = make_config(clean, self.width, self.height, **config_overrides)
+                flat = flatten_scene(clean, frame_index=self._frame_index,
+                                     aspect=self.width / self.height,
+                                     prev_view_proj=self._prev_view_proj,
+                                     mesh_service=self.mesh_service,
+                                     blas_cache=self._blas_cache)
+            if self.two_phase:
+                check_two_phase(cfg, float(flat.aperture_size))
+            self._scene = clean
+            with annotate("rtvs.scene.checksum"):
+                new_checksum = scene_content_checksum(clean)
+            if new_checksum != self._checksum:
+                self._denoise_state = None
+            self._checksum = new_checksum
+            self._flat = flat
+            self._cfg = cfg
+            self._prev_view_proj = np.asarray(self._flat.view_proj)
+            with annotate("rtvs.scene.to_device"):
+                self._scene_t = to_device(self._flat, self.device)
 
     def load_rtvs(self, path: str, cache_dir: Optional[str] = None, **config_overrides):
         """Load a .rtvs file and update the scene; returns the loaded
@@ -233,6 +245,11 @@ class Engine:
             if not img[..., :3].any():
                 return self._sentinel((255, 165, 0))
             return img
+        with annotate("rtvs.render", self._frame_index):
+            return self._render()
+
+    def _render(self) -> np.ndarray:
+        """render()'s frame: render, denoise, composite, read back."""
         if self._flat is None:
             raise RuntimeError("update_scene() must be called before render()")
         mesh = self.device_mesh
@@ -257,10 +274,11 @@ class Engine:
                 two_phase=self.two_phase, aperture_size=float(self._flat.aperture_size))
             self._last_hdr_t = hdr.permute(2, 0, 1)
             rays_t = rays_t.sum()
-        rgba = rgba_t.cpu().numpy()  # waits for the device
+        with annotate("rtvs.render.readback"):
+            rgba = rgba_t.cpu().numpy()  # waits for the device
+            self._last_rays = int(rays_t.item())
         self._last_render_ms = (time.perf_counter() - start) * 1000.0
         self._last_rgba = rgba
-        self._last_rays = int(rays_t.item())
         self._frame_index += 1
         self._flat = self._flat._replace(frame_index=np.asarray(self._frame_index, np.uint32))
         self._scene_t = self._scene_t._replace(frame_index=torch.tensor(

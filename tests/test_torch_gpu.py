@@ -848,3 +848,30 @@ def test_k6_replacement_mode_matches_plain(scale):
     assert bool(((got[ch] - want[ch]).abs() <= 1e-5 * want[ch].abs().clamp(min=1.0)).all()), \
         float((got[ch] - want[ch]).abs().max())
     assert _bits_equal(got[others], acc[others])
+
+
+def test_engine_spans_on_the_card_are_host_events_alone():
+    """A 480x270 demo frame on the card under torch.profiler (host and
+    device): its update_scene and render give the span trees of the CPU
+    (tests/test_torch_spans.py), the device ran the frame's kernels, and no
+    device-side event carries a span's name, so a reader of the trace finds
+    the device's operations without the spans."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+
+    import test_torch_spans as TS
+
+    eng = Engine(480, 270, device="cuda")
+    eng.update_scene(S.demo_scene(D), **S.DEMO_OVERRIDES)
+    eng.render()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA],
+                                record_shapes=True) as prof:
+        eng.update_scene(S.demo_scene(D, 1), **S.DEMO_OVERRIDES)
+        eng.render()
+    spans = [e for e in prof.profiler.kineto_results.events() if e.name().startswith("rtvs.")]
+    assert TS.span_trees(spans) == [[(s, p, 1 if p is None else None) for s, p in tree]
+                                    for tree in (TS.UPDATE_TREE, TS.render_tree(False))]
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert any("render_accum" in n for n in device)
+    assert not [n for n in device if n.startswith("rtvs.")]
