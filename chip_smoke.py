@@ -12,7 +12,9 @@ degrees a frame. Before that it builds the CUDA kernels from csrc/ and the
 host BVH builder from csrc/host/, holds each kernel against its plain
 PyTorch version on the card at the main paths' shapes (K1, K1-mesh, K7 and
 K8 bit for bit; K2 within 1e-5, K3 and K4 bit for bit, on the G-buffer of a
-rendered 1080p frame, K3 and K4 also on it cut to 1917x1079; K1-mesh also on
+rendered 1080p frame, K3 and K4 also on it cut to 1917x1079; K9, the
+G-buffer assembly, on K1's 1080p planes of a moved camera and K10, the
+REBLUR prepass, on its G-buffer, each bit for bit; K1-mesh also on
 nine mesh instances at 480x270; the photon emission and trace K5 at 16,384
 and 131,072 photons, on an offset slice and on the mesh demo scene's
 tables, against the plain emission and bounce loop; the photon gather K6,
@@ -76,7 +78,7 @@ spills beside PR 8's and fails if K1 or K7 pass 128 registers or spill,
 or K1-mesh leaves 184 registers without spills. It prints a JSON line of
 the kernels (debug_modes_max_abs_err: the photon debug modes' check), the
 card's name and power limit, and as its last line {"ok": true, "device":
-{...}}. Each path launches K2, K3 and K4 once a frame.
+{...}}. Each path launches K9, K10, K2, K3 and K4 once a frame.
 
     python3 chip_smoke.py
 
@@ -118,6 +120,9 @@ KERNELS = [
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:99"),
     ("K3-pass", "raytracevs_tpu_torch/csrc/denoise.cu",
      "raytracevs_tpu/ops/pallas/denoise_kernels.py:589"),
+    # no TPU kernel: the JAX package leaves these two chains to XLA's fusion
+    ("assemble", "raytracevs_tpu_torch/csrc/gbuffer.cu", "none"),
+    ("reblur_prepass", "raytracevs_tpu_torch/csrc/denoise.cu", "none"),
 ]
 # The card's peaks for the bounds (NVIDIA's H100 SXM data sheet): device
 # memory bytes/s and float32 operations/s outside the tensor cores.
@@ -169,6 +174,14 @@ PHOTON_BOUNCE_OPS, EMIT_OPS, GATHER_PHOTON_OPS = 60, 75, 30
 # per pixel of K2 (two bilinear fetches of 16 and 7 channels, the blends),
 # K3 (anti-firefly, then 3 passes of 8 taps) and K4 (25 taps), by hand
 REPROJECT_OPS, ATROUS_OPS, SHADOW_OPS = 370, 930, 606
+# per pixel of K9 (the classification, the view normal and its octahedral
+# encoding, two motions of two projections each, the shadow inputs: ~230)
+# and K10 (the reconstruction's two 3x3 means, 40; 16 taps of two expf, a
+# division and 9 other operations, 192; the radius and the 3 divisions, 15)
+ASSEMBLE_OPS, PREPASS_OPS = 230, 250
+# planes K9 reads (the accumulator's in photon debug mode 0) and writes (30
+# float, the int32 ids), and K10 reads (curr, view_z, sqrt_rough) and writes
+ASSEMBLE_PLANES, PREPASS_PLANES = 28 + 31, 10 + 8
 # per pixel of one a-trous pass (8 taps of a depth weight with its
 # division and expf, the normal term, 6 weighted sums; the guide's two
 # expf and the 6 final divisions) and of the anti-firefly clamp before it
@@ -759,6 +772,48 @@ def gather_work(PP, R, pmap, acc):
     return nbytes, visits
 
 
+def check_gbuffer_kernels(P, D, MK, K, PD, R, dev):
+    """K9 (gbuffer_kernels.assemble) on K1's 1080p accumulator planes of the
+    demo scene's second orbiting frame, and K10 (reblur_prepass) on the
+    G-buffer it assembles, each bit-equal to its plain version; their
+    rows: wrapper ms, device ms, plain ms and bound."""
+    from raytracevs_tpu_torch.ops.cuda import gbuffer_kernels as G
+    from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf
+
+    prev = P.flatten_scene(P.sanitize_scene(demo_scene(D, 0)), aspect=FULL_W / FULL_H).view_proj
+    scene = demo_scene(D, 1)
+    sc = P.to_device(P.flatten_scene(P.sanitize_scene(scene), frame_index=1,
+                                     aspect=FULL_W / FULL_H, prev_view_proj=prev), dev)
+    cfg = P.make_config(scene, FULL_W, FULL_H, **OVERRIDES)
+    acc = MK.render_accum(sc, cfg)
+    got, want = G.assemble(sc, cfg, acc), assemble_frame_cf(sc, cfg, accum_dict(acc))
+    names = ["color", "raw_specular", *got.gbuffer._fields]
+    fields = zip(names, [got.color, got.raw_specular, *got.gbuffer],
+                 [want.color, want.raw_specular, *want.gbuffer])
+    differ = [n for n, a, b in fields if a is not None and not same_bits(a, b)]
+    print(f"phase 4 K9 assemble {FULL_W}x{FULL_H}: every field bit-equal to the plain version "
+          f"but {differ}", flush=True)
+    if differ or not torch.equal(got.rays, want.rays):
+        raise AssertionError(f"K9: {differ} differ from the plain version's bits")
+    gb = got.gbuffer
+    pre_args = (PD._hitdist_planes(gb), gb.view_z, gb.normal_roughness[3])
+    k10_err = check_denoise_bits("K10 reblur_prepass", K.reblur_prepass, PD.reblur_prepass,
+                                 pre_args)
+    px = FULL_W * FULL_H
+    rows = {}
+    for name, err, kern, plain, planes, ops in (
+            ("assemble", 0.0, lambda: G.assemble(sc, cfg, acc),
+             lambda: assemble_frame_cf(sc, cfg, accum_dict(acc)), ASSEMBLE_PLANES, ASSEMBLE_OPS),
+            ("reblur_prepass", k10_err, lambda: K.reblur_prepass(*pre_args),
+             lambda: PD.reblur_prepass(*pre_args), PREPASS_PLANES, PREPASS_OPS)):
+        ms = gpu_ms(kern, 20)
+        dev_t = device_ms(kern, 20)
+        plain_ms = gpu_ms(plain, 5)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+        rows[name] = kernel_row(err, ms, plain_ms, planes * px * 4, px * ops, dev_t)
+    return rows
+
+
 def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES,
                 two_phase=False):
     """Host ms of each stage of Engine.render's 1080p frame (runtime/engine.py::
@@ -772,8 +827,8 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
     from raytracevs_tpu_torch.ops import photon as PP
     from raytracevs_tpu_torch.ops import render as R
     from raytracevs_tpu_torch.ops import twophase as TP
+    from raytracevs_tpu_torch.ops.cuda import gbuffer_kernels as G
     from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
-    from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf
     from raytracevs_tpu_torch.post import composite, tonemap
 
     eng = P.Engine(FULL_W, FULL_H, device="cuda",
@@ -810,12 +865,11 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
                          lambda: PP.build_photon_hash(*stores))
             stage("K6 add_caustics (into the planes)",
                   lambda: PK.add_caustics(pmap, acc, cfg.samples_per_pixel))
-        out = stage("assemble_frame_cf (plain torch)",
-                    lambda: assemble_frame_cf(sc, cfg, accum_dict(acc)))
+        out = stage("K9 assemble", lambda: G.assemble(sc, cfg, acc))
         gb = out.gbuffer
         sqrt_rough = gb.normal_roughness[3]
-        curr = stage("reblur_prepass (plain torch)", lambda: PD.reblur_prepass(
-            torch.cat([gb.diffuse_hitdist, gb.specular_hitdist]), gb.view_z, sqrt_rough))
+        curr = stage("K10 reblur_prepass", lambda: K.reblur_prepass(
+            PD._hitdist_planes(gb), gb.view_z, sqrt_rough))
         packed = stage("K2 reproject_accumulate", lambda: K.reproject_accumulate(
             state.packed, curr, gb.motion, gb.view_z, torch.square(sqrt_rough), gb.motion_spec))
         state = PD.DenoiserStateCF(packed=packed)
@@ -862,7 +916,8 @@ def run_engine(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, t
               f"{eng.last_mrays_per_s:.1f} Mrays/s (update_scene {upd:.1f} ms)", flush=True)
     launches = {name: c.launches for name, c in counters.items()}
     print(f"phase 5 {label} launches: {launches}", flush=True)
-    for name in ("reproject_accumulate", "atrous", "shadow_denoise"):
+    for name in ("assemble", "reblur_prepass", "reproject_accumulate", "atrous",
+                 "shadow_denoise"):
         if launches[name] != FRAMES:
             raise AssertionError(f"{label}: {name} launched {launches[name]} times in {FRAMES} "
                                  "frames, not once a frame")
@@ -1322,7 +1377,8 @@ def check_scene_file(P, D, label, build, counters, path, meshes=None):
     if differ or not all(same):
         raise AssertionError(f"the {label} scene file differs from its in-code scene")
     k1 = "render_accum_mesh" if meshes else "render_accum"
-    for name in (k1, "reproject_accumulate", "atrous", "shadow_denoise"):
+    for name in (k1, "assemble", "reblur_prepass", "reproject_accumulate", "atrous",
+                 "shadow_denoise"):
         if launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {launches[name]} times in {FRAMES} frames of "
                                  f"the {label} file")
@@ -1628,7 +1684,8 @@ def run_sharded(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, 
                   f"device busy {dev[0]:.3f} ms of it ({dev[1]}){before}", flush=True)
     del one
     n = FRAMES * SHARDS
-    want = {"K2-slab": n, "atrous_pass": 3 * n, "shadow_denoise": n, "atrous": 0}
+    want = {"K2-slab": n, "atrous_pass": 3 * n, "shadow_denoise": n, "atrous": 0,
+            "assemble": n, "reblur_prepass": n}
     if two_phase:
         want.update(render_phase_a=n, render_phase_b=n)
     else:
@@ -1872,7 +1929,8 @@ def check_golden(P, counters, smi):
                   f"the plain CPU Engine's (|d| {abs(score - cpu_score):.3g}); frame ms "
                   f"{', '.join(f'{m:.3f}' for m in ms)}; launches {launches}; {smi}", flush=True)
             frames = len(ms)
-            need = ["render_accum", "reproject_accumulate", "atrous", "shadow_denoise"]
+            need = ["render_accum", "assemble", "reblur_prepass", "reproject_accumulate",
+                    "atrous", "shadow_denoise"]
             if name == "config5_caustics_denoise":
                 need += ["photon_trace", "photon_gather"]
             if any(launches.get(k, 0) < frames for k in need):
@@ -1912,6 +1970,7 @@ def main():
     from raytracevs_tpu_torch.ops import render as R
     from raytracevs_tpu_torch.ops.cuda import _build
     from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
+    from raytracevs_tpu_torch.ops.cuda import gbuffer_kernels as G
     from raytracevs_tpu_torch.ops.cuda import megakernel as MK
     from raytracevs_tpu_torch.post import denoise as PD
     from raytracevs_tpu_torch.scene import data as D
@@ -2004,6 +2063,8 @@ def main():
     # per-pass a-trous kernel
     results.update(check_slab_kernels(K, PD, k2_args, k3_args))
     del k2_args, new_state, k3_args, k4_args
+    # K9 on K1's 1080p planes of an orbiting frame, and K10 on its G-buffer
+    results.update(check_gbuffer_kernels(P, D, MK, K, PD, R, dev))
 
     # K5 on the demo scene's tables at its budget and at the reference's
     # safe cap, and on an offset slice; K6 at 1080p on the primary planes
@@ -2169,7 +2230,8 @@ def main():
                 "render_accum_mesh": MK.render_accum_mesh,
                 "photon_trace": PK.emit_and_trace, "photon_gather": PK.add_caustics,
                 "render_phase_a": MK.render_phase_a, "render_phase_b": MK.render_phase_b,
-                "atrous_pass": K.atrous_pass}
+                "atrous_pass": K.atrous_pass, "assemble": G.assemble,
+                "reblur_prepass": K.reblur_prepass}
     launches, aeng = run_engine(P, D, "analytic", demo_scene, counters)
     if launches["render_accum"] < FRAMES:
         raise AssertionError(f"render_accum launched {launches['render_accum']} times in "

@@ -50,6 +50,18 @@ __device__ __forceinline__ float clampn(float x, float lo, float hi) {
 __device__ __forceinline__ V3 clamp3(V3 a, float lo, float hi) {
   return v3(clampn(a.x, lo, hi), clampn(a.y, lo, hi), clampn(a.z, lo, hi));
 }
+// PyTorch's own CUDA forms, NaN and signed zero alike: torch.clamp with
+// scalar bounds (a NaN passes through, else fminf/fmaxf) and
+// torch.maximum (the first NaN, else fmaxf).
+__device__ __forceinline__ float tclamp(float v, float lo, float hi) {
+  return isnan(v) ? v : fminf(fmaxf(v, lo), hi);
+}
+__device__ __forceinline__ float tclamp_lo(float v, float lo) {
+  return isnan(v) ? v : fmaxf(v, lo);
+}
+__device__ __forceinline__ float tmaximum(float a, float b) {
+  return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
 __device__ __forceinline__ float length(V3 a) { return sqrtf(dot(a, a)); }
 // a / max(|a|, eps): a division per component, as in the plain version
 __device__ __forceinline__ V3 normalize(V3 a, float eps = F(1e-12)) {

@@ -1,4 +1,4 @@
-// K2-K4: the denoiser's stencil kernels for Hopper (sm_90a), edge-clamped
+// K2-K4 and K10: the denoiser's stencil kernels for Hopper (sm_90a), edge-clamped
 // reads. Each follows its plain PyTorch version in
 // raytracevs_tpu_torch/post/denoise.py operation for operation (see
 // common.cuh), so each is bit-equal to it on the card.
@@ -77,6 +77,24 @@
 //   stream of the 25 taps, each an exact expf and division (div0; device
 //   memory: 74.6 MB at 1080p, 0.022 ms); the tile shape and occupancy
 //   moved nothing.
+//
+// K10 rtvs_reblur_prepass: post/denoise.py::reblur_prepass, the REBLUR
+//   input conditioning before K2 (the 3x3 hit-distance reconstruction of
+//   channels 3 and 7, then the 16-tap specular prepass blur). It replaces
+//   no TPU kernel: the JAX package leaves it to XLA's fusion. It was added
+//   because the port ran it as ~290 PyTorch launches a frame, the device
+//   idle while the host issued them. A block stages its 32x16 tile's
+//   specular colour and view_z with a 7-pixel halo, and the two hit
+//   distances times their validity with the 1-pixel halo, in shared memory
+//   (edge replication as clamped coordinates) and runs the taps from there,
+//   in the plain version's order: the eight neighbours by dy, dx, the taps
+//   in _SPEC_PREPASS_TAPS order, each tap's Gaussian as r2.reciprocal()
+//   times -d2 (torch's Python number over a tensor) and an exact expf.
+//   Bound: device memory, 10 planes read and 8 written, 149 MB at 1080p
+//   (0.0446 ms at 3.35 TB/s); then the exact expf: the taps lie at four
+//   distances, so four Gaussians a pixel, and a depth weight's expf only
+//   where the tap's depth differs (expf(-0) is 1). Any height: a row slab
+//   extended by PREPASS_HALO rows is a frame of its own.
 
 #include <algorithm>
 #include <atomic>
@@ -803,6 +821,112 @@ __global__ void __launch_bounds__(SH_W * SH_H)
   out[plane + i] = oid < 0 ? c1 : vis;
 }
 
+// K10's tile: one thread per output pixel, PP_W x PP_H a block. Windows of
+// the tile, edge-clamped: the specular colour and view_z +- PP_REACH (the
+// prepass's outer ring), the two hit distances times their validity +- 1
+// (the reconstruction's 3x3).
+constexpr int PP_W = 32, PP_H = 16, PP_REACH = 7;
+constexpr int PP_P = PP_W + 2 * PP_REACH, PP_N = PP_P * (PP_H + 2 * PP_REACH);
+constexpr int PP_HP = PP_W + 2, PP_HN = PP_HP * (PP_H + 2);
+// _SPEC_PREPASS_TAPS (post/denoise.py), (dy, dx), in its order
+__constant__ int PP_TAPS[16][2] = {{0, 3}, {0, -3}, {3, 0}, {-3, 0}, {2, 2}, {2, -2},
+                                   {-2, 2}, {-2, -2}, {0, 7}, {0, -7}, {7, 0}, {-7, 0},
+                                   {5, 5}, {5, -5}, {-5, 5}, {-5, -5}};
+
+__global__ void __launch_bounds__(PP_W * PP_H)
+    prepass_kernel(const float* __restrict__ curr, const float* __restrict__ view_z,
+                   const float* __restrict__ sqrt_rough, float* __restrict__ out, int H, int W) {
+  __shared__ float4 s_sz[PP_N];   // specular rgb, view_z
+  __shared__ float2 s_hv[PP_HN];  // hit distance x validity, channels 3 and 7
+  const int tid = threadIdx.y * PP_W + threadIdx.x;
+  const int x0 = blockIdx.x * PP_W, y0 = blockIdx.y * PP_H;
+  const size_t plane = (size_t)H * W;
+  for (int k = tid; k < PP_N; k += PP_W * PP_H) {
+    int ly = k / PP_P;
+    int gx = clampi(x0 - PP_REACH + (k - ly * PP_P), 0, W - 1);
+    int gy = clampi(y0 - PP_REACH + ly, 0, H - 1);
+    size_t q = (size_t)gy * W + gx;
+    s_sz[k] = make_float4(__ldg(curr + 4 * plane + q), __ldg(curr + 5 * plane + q),
+                          __ldg(curr + 6 * plane + q), __ldg(view_z + q));
+  }
+  // hd * vf, vf = (hd > 0) & not_sky as 0 or 1: vf is then (hd * vf > 0)
+  for (int k = tid; k < PP_HN; k += PP_W * PP_H) {
+    int ly = k / PP_HP;
+    int gx = clampi(x0 - 1 + (k - ly * PP_HP), 0, W - 1);
+    int gy = clampi(y0 - 1 + ly, 0, H - 1);
+    size_t q = (size_t)gy * W + gx;
+    bool not_sky = __ldg(view_z + q) < NOT_SKY_Z;
+    float h3 = __ldg(curr + 3 * plane + q), h7 = __ldg(curr + 7 * plane + q);
+    s_hv[k] = make_float2(h3 * (h3 > 0.0f && not_sky ? 1.0f : 0.0f),
+                          h7 * (h7 > 0.0f && not_sky ? 1.0f : 0.0f));
+  }
+  __syncthreads();
+  const int x = x0 + threadIdx.x, y = y0 + threadIdx.y;
+  if (x >= W || y >= H) return;
+  const size_t i = (size_t)y * W + x;
+  const int c = (threadIdx.y + PP_REACH) * PP_P + threadIdx.x + PP_REACH;
+  const int ch = (threadIdx.y + 1) * PP_HP + threadIdx.x + 1;
+  const float4 cz = s_sz[c];
+  const float vz = cz.w;
+  const bool not_sky = vz < NOT_SKY_Z;
+  // the hit-distance reconstruction: the mean of the valid 3x3 neighbours
+  float hd[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    float s = 0.0f, cnt = 0.0f;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+      for (int dx = -1; dx <= 1; ++dx) {
+        if (dy == 0 && dx == 0) continue;
+        const float2 q = s_hv[ch + dy * PP_HP + dx];
+        const float v = g ? q.y : q.x;
+        s = s + v;
+        cnt = cnt + (v > 0.0f ? 1.0f : 0.0f);
+      }
+    const float h = __ldg(curr + (3 + 4 * g) * plane + i);
+    const bool need = h <= 0.0f && not_sky && cnt > 0.0f;
+    hd[g] = need ? s / tclamp_lo(cnt, 1.0f) : h;
+  }
+  // the specular prepass blur: 16 taps, radius from the reconstructed hd
+  const float hs = tclamp_lo(hd[1], 0.0f);
+  const float zc = tclamp_lo(vz, VIEWZ_MIN);
+  const float hd_factor = hs / (hs + zc * F(0.2) + F(1e-6));
+  const float radius = tclamp(__ldg(sqrt_rough + i), 0.0f, 1.0f) * F(10.0) * hd_factor;
+  const float rc = tclamp_lo(radius, F(1e-3));
+  const float r2inv = 1.0f / (rc * rc);  // torch: -d2 / r2 is r2.reciprocal() * -d2
+  const float zs = zc * F(0.05);
+  // the taps' Gaussians: each run of four taps lies at one distance, so four
+  // expf a pixel give all sixteen
+  float gauss[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int dy = PP_TAPS[4 * k][0], dx = PP_TAPS[4 * k][1];
+    gauss[k] = expf(r2inv * (float)(-(dy * dy + dx * dx)));
+  }
+  float a0 = cz.x, a1 = cz.y, a2 = cz.z, wsum = 1.0f;
+#pragma unroll
+  for (int t = 0; t < 16; ++t) {
+    const int dy = PP_TAPS[t][0], dx = PP_TAPS[t][1];
+    const float4 q = s_sz[c + dy * PP_P + dx];
+    // a tap at the pixel's own depth: expf(-0) is 1
+    const float dz = -fabsf(q.w - vz);
+    const float wt = gauss[t / 4] * (dz == 0.0f ? 1.0f : expf(div0(dz, zs)));
+    a0 = a0 + q.x * wt;
+    a1 = a1 + q.y * wt;
+    a2 = a2 + q.z * wt;
+    wsum = wsum + wt;
+  }
+  out[i] = __ldg(curr + i);
+  out[plane + i] = __ldg(curr + plane + i);
+  out[2 * plane + i] = __ldg(curr + 2 * plane + i);
+  out[3 * plane + i] = hd[0];
+  out[4 * plane + i] = a0 / wsum;
+  out[5 * plane + i] = a1 / wsum;
+  out[6 * plane + i] = a2 / wsum;
+  out[7 * plane + i] = hd[1];
+}
+
 inline dim3 grid_for(int H, int W) { return dim3((W + 15) / 16, (H + 15) / 16); }
 
 }  // namespace
@@ -937,6 +1061,18 @@ extern "C" int rtvs_shadow_denoise(const float* shadow, const int* obj_id, const
                                    const float* normal, float* out, int H, int W, void* stream) {
   shadow_kernel<<<dim3((W + SH_W - 1) / SH_W, (H + SH_H - 1) / SH_H), dim3(SH_W, SH_H), 0,
                   (cudaStream_t)stream>>>(shadow, obj_id, view_z, normal, out, H, W);
+  return (int)cudaGetLastError();
+}
+
+// K10 on curr [8, H, W] (diffuse rgb + hit distance, specular rgb + hit
+// distance), view_z and sqrt_rough [H, W]: out [8, H, W]. A row slab
+// extended by its neighbours' rows is a frame of its own rows.
+extern "C" int rtvs_reblur_prepass(const float* curr, const float* view_z,
+                                   const float* sqrt_rough, float* out, int H, int W,
+                                   void* stream) {
+  if (H <= 0 || W <= 0) return (int)cudaSuccess;
+  prepass_kernel<<<dim3((W + PP_W - 1) / PP_W, (H + PP_H - 1) / PP_H), dim3(PP_W, PP_H), 0,
+                   (cudaStream_t)stream>>>(curr, view_z, sqrt_rough, out, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -77,6 +77,12 @@ SIGNATURES = {
     "rtvs_atrous_pass": (_P, _I) * 3 + (_P, _P, _I, _P, _I, _P) + (_I,) * 7 + (_P,),
     # shadow2, obj_id, view_z, normal3, out2, H, W, stream
     "rtvs_shadow_denoise": (_P,) * 5 + (_I,) * 2 + (_P,),
+    # curr8, view_z, sqrt_rough, out8, H, W, stream
+    "rtvs_reblur_prepass": (_P,) * 4 + (_I,) * 2 + (_P,),
+    # acc, cam_right, cam_up, cam_forward, cam_pos, view_proj, prev_view_proj,
+    # out30, obj_id, H, W, photon debug mode, 1 / spp, max(max_bounces, 1),
+    # width / 2, height / 2, stream
+    "rtvs_assemble": (_P,) * 9 + (_I,) * 3 + (_F,) * 4 + (_P,),
     # int out[15]: K3's shared bytes a block, K3's and K4's blocks an SM,
     # then K3-pass's shared bytes and blocks an SM, strides 1, 2, 4, each
     # without and with the clamp

@@ -1,6 +1,7 @@
-"""Wrappers of kernels K2-K4 (csrc/denoise.cu): reprojection (whole frames
-and row slabs), a-trous (the fused chain, and one pass a launch for the
-sharded denoise) and the shadow filter.
+"""Wrappers of kernels K2-K4 and K10 (csrc/denoise.cu): reprojection (whole
+frames and row slabs), a-trous (the fused chain, and one pass a launch for
+the sharded denoise), the shadow filter, and the REBLUR prepass before
+reprojection.
 
 On CPU tensors each wrapper runs its plain version from post/denoise.py; on
 CUDA tensors it launches its kernel or raises. Each wrapper's ``launches``
@@ -39,6 +40,29 @@ def _device(t):
 
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def reblur_prepass(curr, view_z, sqrt_rough):
+    """K10: the hit-distance reconstruction and the specular prepass blur
+    on curr [8,H,W] (diffuse rgb + hit distance, specular rgb + hit
+    distance), view_z and sqrt_rough [H,W] -> [8,H,W] (see
+    post/denoise.py::reblur_prepass). Any H: a row slab extended by
+    PREPASS_HALO rows is a frame of its own."""
+    dev = _device(curr)
+    if dev.type == "cpu":
+        return plain.reblur_prepass(curr, view_z, sqrt_rough)
+    h, w = view_z.shape
+    _check("curr", curr, (8, h, w), _F32, dev)
+    _check("view_z", view_z, (h, w), _F32, dev)
+    _check("sqrt_rough", sqrt_rough, (h, w), _F32, dev)
+    out = torch.empty_like(curr)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.rtvs_reblur_prepass(curr.data_ptr(), view_z.data_ptr(), sqrt_rough.data_ptr(),
+                                      out.data_ptr(), h, w, _stream(dev))
+    _build.check(err, "rtvs_reblur_prepass")
+    reblur_prepass.launches += 1
+    return out
 
 
 def reproject_accumulate(packed, curr, motion, view_z, roughness, motion_spec, halo=0, row0=0,
@@ -197,6 +221,7 @@ def shadow_denoise(shadow, obj_id, view_z, normal):
     return out
 
 
+reblur_prepass.launches = 0
 reproject_accumulate.launches = 0
 reproject_accumulate.slab_launches = 0
 atrous.launches = 0

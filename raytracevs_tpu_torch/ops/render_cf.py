@@ -109,7 +109,8 @@ def _motion(scene, cfg, p, prim_hit):
 
 def assemble_frame_cf(scene, cfg, acc: dict) -> FrameOutputCF:
     """G-buffer assembly on planes (RayGen.hlsl:850-1044); `acc` is
-    accum_dict() of the accumulator planes."""
+    accum_dict() of the accumulator planes. The plain version of K9
+    (ops/cuda/gbuffer_kernels.py::assemble)."""
     inv = 1.0 / cfg.samples_per_pixel
     final_color = acc["color"] * inv
     prim_hit = acc["prim_hit"]
@@ -249,9 +250,11 @@ def render_rows_cf(scene, cfg, row_start=0, num_rows=None, two_phase=False, aper
     tables are packed once (`tables`, megakernel.pack_tables(scene), when
     the caller packed them already), for the render kernels and K5. The
     accumulator planes are the frame's own: the caustic goes into them in
-    place. Spans (runtime/profiler.py::annotate): rtvs.render.pack_tables,
-    .trace, .caustics (when on) and .assemble, once a call."""
-    from .cuda import megakernel
+    place. The assembly is K9 (ops/cuda/gbuffer_kernels.py::assemble; on
+    the CPU, assemble_frame_cf). Spans (runtime/profiler.py::annotate):
+    rtvs.render.pack_tables, .trace, .caustics (when on) and .assemble
+    (K9), once a call."""
+    from .cuda import gbuffer_kernels, megakernel
 
     with annotate("rtvs.render.pack_tables"):
         if tables is None and scene.cam_pos.device.type == "cuda":
@@ -267,4 +270,4 @@ def render_rows_cf(scene, cfg, row_start=0, num_rows=None, two_phase=False, aper
                                           num_rows=num_rows)
     acc = apply_caustics_cf(scene, cfg, acc, tables, pmap)
     with annotate("rtvs.render.assemble"):
-        return assemble_frame_cf(scene, cfg, accum_dict(acc))
+        return gbuffer_kernels.assemble(scene, cfg, acc)

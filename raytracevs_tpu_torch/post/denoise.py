@@ -1,12 +1,13 @@
 """Denoiser: REBLUR-style temporal accumulation, edge-stopping a-trous, and
 the ShadowDenoise.hlsl shadow filter, on channel-first [C,H,W] planes.
 
-Restates raytracevs_tpu/post/denoise.py. The three stencil stages are the
-plain versions of kernels K2-K4 (ops/cuda/denoise_kernels.py):
-``temporal_accumulate`` (K2), ``atrous`` (K3) and ``shadow_denoise`` (K4);
-``denoise_frame_cf`` calls the kernels' wrappers, which run these on CPU
-tensors. Reprojection warps every pixel bilinearly, as the JAX package's jnp
-oracle does (not the TPU kernel's tile-mean quantization).
+Restates raytracevs_tpu/post/denoise.py. The four stencil stages are the
+plain versions of kernels K10 and K2-K4 (ops/cuda/denoise_kernels.py):
+``reblur_prepass`` (K10), ``temporal_accumulate`` (K2), ``atrous`` (K3) and
+``shadow_denoise`` (K4); ``denoise_frame_cf`` calls the kernels' wrappers,
+which run these on CPU tensors. Reprojection warps every pixel bilinearly,
+as the JAX package's jnp oracle does (not the TPU kernel's tile-mean
+quantization).
 
 The JAX package's REBLUR features are all on, with its defaults hard-coded
 (no environment flags): hit-distance reconstruction, the specular prepass,
@@ -106,7 +107,8 @@ def reblur_prepass(curr, view_z, sqrt_rough):
        neighbours (edge-clamped).
     2) Specular prepass blur (NRDDenoiser.cpp:867-868): a two-ring 16-tap
        kernel with per-pixel radius R = 10 sqrt(roughness) hd/(hd + 0.2 z),
-       tap weights exp(-(d/R)^2) times the depth weight."""
+       tap weights exp(-(d/R)^2) times the depth weight.
+    The plain version of K10."""
     h, w = view_z.shape
     not_sky = view_z < C.VIEWZ_SKY * 0.99
     out = curr.clone()
@@ -396,18 +398,29 @@ def guide_cf(new_packed, view_z, sqrt_rough):
     return torch.stack([r_d, r_s], dim=0)
 
 
+def _hitdist_planes(gbuf_cf):
+    """[8,H,W]: the diffuse and specular (rgb, hit distance) planes, a view
+    where they lie adjacent in one buffer (K9's output), else joined."""
+    d, s = gbuf_cf.diffuse_hitdist, gbuf_cf.specular_hitdist
+    if (d.is_contiguous() and s.is_contiguous() and s.shape == d.shape
+            and d.untyped_storage().data_ptr() == s.untyped_storage().data_ptr()
+            and s.data_ptr() == d.data_ptr() + d.nbytes):
+        return d.as_strided((8,) + tuple(d.shape[1:]), d.stride())
+    return torch.cat([d, s], dim=0)
+
+
 def denoise_frame_cf(gbuf_cf, state: DenoiserStateCF):
-    """The frame's denoise: prepass, K2, K3 (with guide and anti-firefly),
-    K4. Returns (diffuse [3,H,W], specular [3,H,W], shadow [2,H,W],
-    new state). Spans: rtvs.denoise, with .prepass, .reproject (K2),
-    .guide (decode and guide), .atrous (K3) and .shadow (K4)."""
+    """The frame's denoise: the prepass (K10), K2, K3 (with guide and
+    anti-firefly), K4. Returns (diffuse [3,H,W], specular [3,H,W], shadow
+    [2,H,W], new state). Spans: rtvs.denoise, with .prepass (K10),
+    .reproject (K2), .guide (decode and guide), .atrous (K3) and .shadow
+    (K4)."""
     from ..ops.cuda import denoise_kernels as dk
 
     with annotate("rtvs.denoise"):
         with annotate("rtvs.denoise.prepass"):
-            curr = torch.cat([gbuf_cf.diffuse_hitdist, gbuf_cf.specular_hitdist], dim=0)
             sqrt_rough = gbuf_cf.normal_roughness[3]
-            curr = reblur_prepass(curr, gbuf_cf.view_z, sqrt_rough)
+            curr = dk.reblur_prepass(_hitdist_planes(gbuf_cf), gbuf_cf.view_z, sqrt_rough)
         with annotate("rtvs.denoise.reproject"):
             new_packed = dk.reproject_accumulate(state.packed, curr, gbuf_cf.motion,
                                                  gbuf_cf.view_z, torch.square(sqrt_rough),
@@ -507,12 +520,12 @@ def denoise_frame_sharded_cf(gbufs, states, global_h: int):
     channel-first G-buffer and DenoiserStateCF, in frame order, each on its
     slab's device; global_h the frame's height. Runs stage by stage over all
     slabs with a halo exchange before each stage that reads across a cut:
-    the prepass (PREPASS_HALO rows), K2 on the history extended by
-    TEMPORAL_HALO rows (its slab form), the a-trous passes one launch each
-    (the per-pass kernel's slab form: each slab read where it lies, its
-    neighbours' `stride` rows, one more on pass 0 for the anti-firefly
-    clamp, as views; z, the normals and the guide extended by ATROUS_REACH
-    rows once a frame) and K4 (SHADOW_HALO rows). Returns per-slab lists
+    the prepass (K10 on the slab extended by PREPASS_HALO rows), K2 on the
+    history extended by TEMPORAL_HALO rows (its slab form), the a-trous
+    passes one launch each (the per-pass kernel's slab form: each slab read
+    where it lies, its neighbours' `stride` rows, one more on pass 0 for
+    the anti-firefly clamp, as views; z, the normals and the guide extended
+    by ATROUS_REACH rows once a frame) and K4 (SHADOW_HALO rows). Returns per-slab lists
     (diffuse [3,rows,W], specular [3,rows,W], shadow [2,rows,W], new
     state), each slab equal to those rows of denoise_frame_cf on the whole
     frame."""
@@ -526,7 +539,7 @@ def denoise_frame_sharded_cf(gbufs, states, global_h: int):
                            PREPASS_HALO)
     packed, normals, guides = [], [], []
     for g, ext, ppe, row0 in zip(gbufs, packed_ext, pp, row0s):
-        curr = reblur_prepass(ppe[0:8], ppe[8], ppe[9])[:, PREPASS_HALO:PREPASS_HALO + rows]
+        curr = dk.reblur_prepass(ppe[0:8], ppe[8], ppe[9])[:, PREPASS_HALO:PREPASS_HALO + rows]
         sqrt_rough = g.normal_roughness[3]
         new_packed = dk.reproject_accumulate(ext, curr.contiguous(), g.motion, g.view_z,
                                              torch.square(sqrt_rough), g.motion_spec,

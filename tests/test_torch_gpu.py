@@ -1,5 +1,6 @@
 """The port's CUDA kernels K1 (analytic and mesh), K2-K4, the photon
-kernels K5-K6, the two-phase kernels K7-K8 and the mesh walks alone vs
+kernels K5-K6, the two-phase kernels K7-K8, the G-buffer assembly K9, the
+REBLUR prepass K10 and the mesh walks alone vs
 their plain PyTorch versions, on the card. Every test needs a CUDA device and skips without one. This file imports no JAX, so it runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
@@ -26,7 +27,10 @@ row bands (K1, K1-mesh, the two-phase path) is bit-equal to one launch. In
 the photon debug modes: K1 and K1-mesh in modes 3 and 4, and K7 in mode 3,
 bit for bit at 64x32, and K7+K8 against K1 in mode 3; K6's replacement
 fold-in within 1e-5 * max(1, |plain|) on the planes it writes, every other
-plane's bits kept."""
+plane's bits kept. K9 bit for bit in photon debug modes 0, 1 and 2 on K1's,
+a row slab's and the two-phase renderer's planes and at 53x37; K10 bit for
+bit from one pixel to 1080p and on PREPASS_HALO-extended slabs; neither
+wrapper waits on the device (torch.cuda.set_sync_debug_mode("error"))."""
 import os
 import sys
 
@@ -44,9 +48,11 @@ from raytracevs_tpu_torch.ops import photon as PP
 from raytracevs_tpu_torch.ops import render as R
 from raytracevs_tpu_torch.ops import twophase as TP
 from raytracevs_tpu_torch.ops.cuda import denoise_kernels as K
+from raytracevs_tpu_torch.ops.cuda import gbuffer_kernels as G
 from raytracevs_tpu_torch.ops.cuda import megakernel as MK
 from raytracevs_tpu_torch.ops.cuda import mesh_walks as MW
 from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
+from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf
 from raytracevs_tpu_torch.post import denoise as PD_
 from raytracevs_tpu_torch.scene import data as D
 from raytracevs_tpu_torch.scene.flatten import flatten_scene, make_config, to_device
@@ -469,6 +475,122 @@ def test_atrous_pass_slab_cuda_matches_plain(size, copies):
                                                float((got - want).abs().max()))
 
 
+# ---- K9 (the G-buffer assembly) and K10 (the REBLUR prepass) --------------
+
+def _k9_case(source):
+    """(scene tensors, cfg, accumulator planes) on the card: the demo
+    scene's second orbiting frame (a moved camera, so motion is not zero)
+    through K1 at 64x36 spp 2 ("k1"), a 12-row slab of it from row 8
+    ("slab"), the two-phase renderer at 72x40 spp 1 ("two_phase") and K1
+    at a ragged 53x37 ("ragged")."""
+    if source == "two_phase":
+        sc, cfg = _two_phase_scene("demo")
+        return sc, cfg, TP.render_accum_two_phase(sc, cfg, 0.0)
+    w, h = (53, 37) if source == "ragged" else (64, 36)
+    prev = flatten_scene(sanitize_scene(S.demo_scene(D, 0)), aspect=w / h).view_proj
+    scene = S.demo_scene(D, 1)
+    sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=1,
+                                 prev_view_proj=prev), "cuda")
+    cfg = make_config(scene, w, h, **S.DEMO_OVERRIDES)
+    if source == "slab":
+        return sc, cfg, MK.render_accum(sc, cfg, row_start=8, num_rows=12)
+    return sc, cfg, MK.render_accum(sc, cfg)
+
+
+def _frame_fields(out):
+    return dict(color=out.color, raw_specular=out.raw_specular, rays=out.rays,
+                **{k: v for k, v in out.gbuffer._asdict().items() if v is not None})
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("source", ["k1", "two_phase", "slab", "ragged"])
+def test_k9_bit_equal_to_plain(source, mode):
+    """K9 against assemble_frame_cf on the same accumulator planes in photon
+    debug modes 0, 1 and 2: every field's shape, dtype and bits; one
+    launch; the diffuse and specular pairs adjacent in one buffer."""
+    _need_cuda()
+    sc, cfg, acc = _k9_case(source)
+    cfg = cfg._replace(photon_debug_mode=mode)
+    before = G.assemble.launches
+    got = _frame_fields(G.assemble(sc, cfg, acc))
+    assert G.assemble.launches == before + 1
+    want = _frame_fields(assemble_frame_cf(sc, cfg, accum_dict(acc)))
+    torch.cuda.synchronize()
+    assert got.keys() == want.keys()
+    for name, b in want.items():
+        a = got[name]
+        assert (a.shape, a.dtype) == (b.shape, b.dtype), name
+        same = torch.equal(a, b) if a.dtype != torch.float32 else _same_bits(a, b)
+        assert same, (name, float((a.double() - b.double()).abs().max()))
+    d, s = got["diffuse_hitdist"], got["specular_hitdist"]
+    assert s.data_ptr() == d.data_ptr() + d.nbytes
+    assert PD_._hitdist_planes(G.assemble(sc, cfg, acc).gbuffer).is_contiguous()
+    if source != "two_phase":  # the two-phase case's camera does not move
+        assert float(got["motion"].abs().max()) > 0.0
+
+
+def _prepass_case(h, w, seed):
+    """K10's inputs: curr [8,h,w] with a third of the hit distances cleared
+    (the reconstruction's work), view_z with a sky corner, sqrt_rough."""
+    x = _inputs(h, w, seed)
+    curr, view_z = x["curr"], x["view_z"]
+    curr[3, ::3, ::2] = 0.0
+    curr[7, 1::3, ::2] = 0.0
+    curr[7, ::5, 1::4] = -1.0
+    view_z[:h // 3, :w // 3] = C.VIEWZ_SKY
+    return curr, view_z, x["nr"][3].contiguous()
+
+
+@pytest.mark.parametrize("size", DENOISE_SIZES + [(1080, 1920)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k10_bit_equal_to_plain(size):
+    """K10 against reblur_prepass bit for bit, one launch, whole frames from
+    one pixel to 1080p (ragged against its 32x16 tile)."""
+    _need_cuda()
+    h, w = size
+    curr, view_z, sqrt_rough = _prepass_case(h, w, 8 + h * w)
+    before = K.reblur_prepass.launches
+    got = K.reblur_prepass(curr, view_z, sqrt_rough)
+    assert K.reblur_prepass.launches == before + 1
+    want = PD_.reblur_prepass(curr, view_z, sqrt_rough)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want), float((got - want).abs().max())
+
+
+def test_k10_on_prepass_halo_slabs_bit_equal_to_plain():
+    """K10 on the four PREPASS_HALO-extended row slabs of a 72x136 frame,
+    as the sharded denoise runs it: each bit-equal to the plain version on
+    the same slab, whose kept rows equal the whole frame's."""
+    _need_cuda()
+    h, w, n = 72, 136, 4
+    curr, view_z, sqrt_rough = _prepass_case(h, w, 11)
+    whole = PD_.reblur_prepass(curr, view_z, sqrt_rough)
+    rows, halo = h // n, PD_.PREPASS_HALO
+    ext = PD_.exchange_row_halo([torch.cat([curr, view_z[None], sqrt_rough[None]])
+                                 [:, i * rows:(i + 1) * rows] for i in range(n)], halo)
+    for i, e in enumerate(ext):
+        got = K.reblur_prepass(e[0:8], e[8], e[9])
+        want = PD_.reblur_prepass(e[0:8], e[8], e[9])
+        torch.cuda.synchronize()
+        assert _same_bits(got, want), (i, float((got - want).abs().max()))
+        assert _same_bits(want[:, halo:halo + rows], whole[:, i * rows:(i + 1) * rows])
+
+
+def test_k9_k10_read_nothing_back_to_the_host():
+    """Both wrappers under torch.cuda.set_sync_debug_mode("error"): no
+    operation that waits on the device (a host read, a pageable upload)."""
+    _need_cuda()
+    sc, cfg, acc = _k9_case("k1")
+    g = G.assemble(sc, cfg, acc).gbuffer  # builds the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g = G.assemble(sc, cfg, acc).gbuffer
+        K.reblur_prepass(PD_._hitdist_planes(g), g.view_z, g.normal_roughness[3])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 def test_k2_slab_form_cuda_matches_plain():
     """K2 on 18-row slabs of a 72-row frame, the history extended by
     TEMPORAL_HALO rows: within 1e-5 of the plain slab form, which is
@@ -516,8 +638,9 @@ def test_engine_cuda_matches_cpu_and_launches_every_kernel():
     _need_cuda()
     w, h = 64, 36
     gpu, cpu = Engine(w, h, device="cuda"), Engine(w, h, device="cpu")
-    counts = [MK.render_accum.launches, K.reproject_accumulate.launches, K.atrous.launches,
-              K.shadow_denoise.launches]
+    kernels = [MK.render_accum, G.assemble, K.reblur_prepass, K.reproject_accumulate, K.atrous,
+               K.shadow_denoise]
+    counts = [k.launches for k in kernels]
     for f in range(2):
         for e in (gpu, cpu):
             e.update_scene(S.demo_scene(D, f), **S.DEMO_OVERRIDES)
@@ -525,9 +648,7 @@ def test_engine_cuda_matches_cpu_and_launches_every_kernel():
         assert gpu.last_rays == cpu.last_rays
         d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
         assert (d <= 1).mean() >= 0.995
-    after = [MK.render_accum.launches, K.reproject_accumulate.launches, K.atrous.launches,
-             K.shadow_denoise.launches]
-    assert [y - x for x, y in zip(counts, after)] == [2, 2, 2, 2]
+    assert [k.launches - c for k, c in zip(kernels, counts)] == [2, 2, 2, 2, 2, 2]
 
 
 def test_mesh_engine_cuda_matches_cpu_and_launches_every_kernel():
@@ -777,6 +898,20 @@ def test_wrappers_reject_bad_inputs():
     pmap = PP.emit_and_trace(sc, 256)
     with pytest.raises(ValueError, match="shape"):
         PK.add_caustics(pmap, torch.zeros((8, 16, 16), device="cuda"), 2)
+    curr, view_z, sqrt_rough = _prepass_case(16, 16, 4)
+    with pytest.raises(ValueError, match="shape"):
+        K.reblur_prepass(curr[:6].contiguous(), view_z, sqrt_rough)
+    with pytest.raises(ValueError, match="dtype"):
+        K.reblur_prepass(curr, view_z.double(), sqrt_rough)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.reblur_prepass(curr, view_z, sqrt_rough.t())
+    sc, cfg, acc = _k9_case("k1")
+    with pytest.raises(ValueError, match="acc"):
+        G.assemble(sc, cfg, acc[:R.NUM_CH - 1].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        G.assemble(sc, cfg, acc.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="view_proj"):
+        G.assemble(sc._replace(view_proj=sc.view_proj.double()), cfg, acc)
 
 
 # ---- the photon debug modes ------------------------------------------------
