@@ -815,13 +815,15 @@ def check_gbuffer_kernels(P, D, MK, K, PD, R, dev):
 
 
 def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES,
-                two_phase=False):
+                two_phase=False, label=""):
     """Host ms of each stage of Engine.render's 1080p frame (runtime/engine.py::
     render_frame, ops/render_cf.py::render_rows_cf and apply_caustics_cf,
     and post/denoise.py::denoise_frame_cf, stage by stage), the device
     synchronised before and after each, over `frames` orbiting frames of
     build(D, frame). With meshes, update_scene includes the BVH work: the
-    SAH build on frame 0, a retransform after it. The tables are packed
+    SAH builds, retransforms and the mesh tables' upload on frame 0, after
+    it the Engine's mesh caches reused (their counters are printed, under
+    `label`). The tables are packed
     once a frame, for the render kernels and K5. With two_phase, the
     render is ops/twophase.py::render_accum_two_phase's steps."""
     from raytracevs_tpu_torch.ops import photon as PP
@@ -885,6 +887,11 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
             nrd_bypass_distance=sc.nrd_bypass_distance, nrd_bypass_blend=sc.nrd_bypass_blend))
         rgba = stage("to_rgba8_cf (plain torch)", lambda: tonemap.to_rgba8_cf(color01))
         stage("readback .cpu().numpy() (RGBA8)", lambda: rgba.cpu().numpy())
+    if meshes is not None:
+        c = eng._blas_cache
+        print(f"phase 7 {label} mesh caches after {frames} frames: SAH builds {c.build_count}, "
+              f"retransforms {c.retransform_count}, combines {c.combine_count}, device-table "
+              f"builds {c.upload_count}", flush=True)
     return times
 
 
@@ -2098,8 +2105,8 @@ def main():
           f"nodes ({mflat.mesh.wide_topology.child.shape[0]} wide, a walk stack of "
           f"{mflat.mesh.wide_stack} at most), {mflat.mesh.num_inst} instances; flatten with the "
           f"SAH builds and collapses {(t1 - t0) * 1e3:.1f} ms, flatten with cached BLASes "
-          f"(retransform only) {(t2 - t1) * 1e3:.1f} ms, to_device with the plane table and the "
-          f"wide nodes {(time.perf_counter() - t2) * 1e3:.1f} ms", flush=True)
+          f"and instances (the camera moved only) {(t2 - t1) * 1e3:.1f} ms, to_device with "
+          f"the plane table and the wide nodes {(time.perf_counter() - t2) * 1e3:.1f} ms", flush=True)
     mcfg = P.make_config(mscene, FULL_W, FULL_H, **OVERRIDES)
     mk_plain_counts = new_counts(R)[0]
     mk_err, _, mk_plain_ms, _ = check_k1("phase 4 K1-mesh", MK, R, msc, mcfg, mk_plain_counts)
@@ -2307,11 +2314,14 @@ def main():
 
     # phase 7: where the time of a 1080p frame goes
     print_stages("analytic", stage_times(P, D, MK, K, PD, 5, demo_scene))
-    print_stages("mesh", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO))
+    print_stages("mesh", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO,
+                                     label="mesh"))
     print_stages("caustics", stage_times(P, D, MK, K, PD, 5, demo_scene, overrides=CAUSTICS))
-    print_stages("mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO, SPP1))
+    print_stages("mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene, MESH_DEMO, SPP1,
+                                           label="mesh spp 1"))
     print_stages("two-phase mesh spp 1", stage_times(P, D, MK, K, PD, 5, mesh_demo_scene,
-                                                     MESH_DEMO, SPP1, two_phase=True))
+                                                     MESH_DEMO, SPP1, two_phase=True,
+                                                     label="two-phase mesh spp 1"))
 
     # phase 12: the four paths row-sharded over four slabs on the card,
     # against the single-device Engine

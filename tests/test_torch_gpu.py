@@ -30,7 +30,9 @@ fold-in within 1e-5 * max(1, |plain|) on the planes it writes, every other
 plane's bits kept. K9 bit for bit in photon debug modes 0, 1 and 2 on K1's,
 a row slab's and the two-phase renderer's planes and at 53x37; K10 bit for
 bit from one pixel to 1080p and on PREPASS_HALO-extended slabs; neither
-wrapper waits on the device (torch.cuda.set_sync_debug_mode("error"))."""
+wrapper waits on the device (torch.cuda.set_sync_debug_mode("error")). The
+mesh demo scene orbiting at 1080p keeps its device mesh tables, bit-equal
+to an Engine that rebuilds them every update (main, two-phase, sharded)."""
 import os
 import sys
 
@@ -1010,3 +1012,68 @@ def test_engine_spans_on_the_card_are_host_events_alone():
     device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert any("render_accum" in n for n in device)
     assert not [n for n in device if n.startswith("rtvs.")]
+
+
+MESH_ORBIT_PATHS = {"main": ({}, {}),
+                    "two_phase": ({"two_phase": True}, {"samples_per_pixel": 1}),
+                    "sharded": ({"device_mesh": ["cuda:0"] * 4}, {})}
+
+
+@pytest.mark.parametrize("path", list(MESH_ORBIT_PATHS))
+def test_mesh_orbit_keeps_its_tables_and_equals_a_rebuilding_engine(path):
+    """The full-size mesh demo scene orbiting at 1920x1080 for four frames:
+    RGBA8, rays and denoiser history bit-equal to an Engine given a new
+    BLASCache before each update; one SAH build a mesh, one retransform an
+    instance, one combine, one device-table build. A reused update copies
+    the analytic leaves to the card and none of the mesh tables (the
+    profiler's "Memcpy HtoD" operations, which rtbench/metrics/upload_ms.py
+    reads), and the mesh stage runs under torch.cuda.set_sync_debug_mode(
+    "error"), so it neither uploads nor waits on the device."""
+    _need_cuda()
+    from torch.autograd import DeviceType
+
+    from raytracevs_tpu_torch import BLASCache
+    from raytracevs_tpu_torch.scene.flatten import FlatScene
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as CS
+
+    kw, over = MESH_ORBIT_PATHS[path]
+    over = dict(S.DEMO_OVERRIDES, **over)
+    kept, fresh = (Engine(1920, 1080, mesh_service=S.mesh_service(PMC, CS.MESH_DEMO), **kw)
+                   for _ in range(2))
+
+    def host_to_device(update):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            update()
+            torch.cuda.synchronize()
+        return sum(e.device_type == DeviceType.CUDA and "Memcpy HtoD" in e.name
+                   for e in prof.events())
+
+    copies = []
+    for f in range(4):
+        copies.append(host_to_device(
+            lambda: kept.update_scene(S.mesh_demo_scene(D, f), **over)))
+        fresh._blas_cache = BLASCache()
+        fresh.update_scene(S.mesh_demo_scene(D, f), **over)
+        a, b = kept.render(), fresh.render()
+        np.testing.assert_array_equal(a, b)
+        assert kept.last_rays == fresh.last_rays > 0
+        ha, hb = kept._denoise_state, fresh._denoise_state
+        ha, hb = (ha, hb) if isinstance(ha, list) else ([ha], [hb])
+        assert all(_same_bits(x.packed, y.packed) for x, y in zip(ha, hb))
+    cache = kept._blas_cache
+    assert (cache.build_count, cache.retransform_count, cache.combine_count,
+            cache.upload_count) == (2, 2, 1, 1)
+    leaves = len(FlatScene._fields) - 1
+    assert all(n <= leaves for n in copies[1:]), copies
+    assert copies[0] >= copies[1] + len(B.FINE_FIELDS), copies
+    flat = kept._flat
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mesh = cache.device_tables(flat.mesh, kept.device, flat.shadow_absorption_scale)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert mesh is kept._scene_t.mesh and cache.upload_count == 1
