@@ -89,6 +89,7 @@ import ctypes
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -825,27 +826,42 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
     it the Engine's mesh caches reused (their counters are printed, under
     `label`). The tables are packed
     once a frame, for the render kernels and K5. With two_phase, the
-    render is ops/twophase.py::render_accum_two_phase's steps."""
+    render is ops/twophase.py::render_accum_two_phase's steps. The
+    readback is the Engine's (runtime/readback.py), its last two frames
+    held as an orbit's caller holds them; two "compare:" stages, left out
+    of the sum, read the frame back pageable (.cpu().numpy()), held alike
+    and dropped at once, and the three's minor page faults are printed."""
     from raytracevs_tpu_torch.ops import photon as PP
     from raytracevs_tpu_torch.ops import render as R
     from raytracevs_tpu_torch.ops import twophase as TP
     from raytracevs_tpu_torch.ops.cuda import gbuffer_kernels as G
     from raytracevs_tpu_torch.ops.cuda import photon_kernels as PK
     from raytracevs_tpu_torch.post import composite, tonemap
+    from raytracevs_tpu_torch.runtime.readback import read_back
 
     eng = P.Engine(FULL_W, FULL_H, device="cuda",
                    mesh_service=None if meshes is None else mesh_service(meshes),
                    two_phase=two_phase)
     state = PD.init_state_cf(FULL_H, FULL_W, eng.device)
     times = {}
+    faults = {}
+    held = {}
 
     def stage(name, fn):
         torch.cuda.synchronize()
+        f0 = resource.getrusage(resource.RUSAGE_SELF).ru_minflt
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        faults.setdefault(name, []).append(resource.getrusage(resource.RUSAGE_SELF).ru_minflt
+                                           - f0)
         return out
+
+    def readback(name, fn, hold):
+        img = stage(name, fn)
+        if hold:  # the orbit's caller holds its frame, and Engine._last_rgba the last
+            held[name] = (held.get(name, ()) + (img,))[-2:]
 
     for f in range(frames):
         stage("update_scene: sanitize, flatten, to_device (host)",
@@ -886,12 +902,18 @@ def stage_times(P, D, MK, K, PD, frames, build, meshes=None, overrides=OVERRIDES
             denoised_diffuse=ds[0:3], denoised_specular=ds[3:6], use_denoised=True,
             nrd_bypass_distance=sc.nrd_bypass_distance, nrd_bypass_blend=sc.nrd_bypass_blend))
         rgba = stage("to_rgba8_cf (plain torch)", lambda: tonemap.to_rgba8_cf(color01))
-        stage("readback .cpu().numpy() (RGBA8)", lambda: rgba.cpu().numpy())
+        readback("readback through pinned blocks (runtime/readback.py)",
+                 lambda: read_back(rgba, out.rays)[0], True)
+        readback("compare: readback .cpu().numpy(), held", lambda: rgba.cpu().numpy(), True)
+        readback("compare: readback .cpu().numpy(), dropped", lambda: rgba.cpu().numpy(), False)
     if meshes is not None:
         c = eng._blas_cache
         print(f"phase 7 {label} mesh caches after {frames} frames: SAH builds {c.build_count}, "
               f"retransforms {c.retransform_count}, combines {c.combine_count}, device-table "
               f"builds {c.upload_count}", flush=True)
+    print(f"phase 7 {label} minor page faults of the readbacks, frames 1-{frames - 1}: "
+          + "; ".join(f"{name} {n[1:]}" for name, n in faults.items() if "readback" in name),
+          flush=True)
     return times
 
 
@@ -899,8 +921,9 @@ def print_stages(label, stages):
     for name, ms in stages.items():
         print(f"phase 7 {label} stage {name}: median {float(np.median(ms[1:])):.3f} ms "
               f"(frame 0: {ms[0]:.3f}; frames 1-4: {[round(m, 3) for m in ms[1:]]})", flush=True)
-    print(f"phase 7 {label} sum of stage medians "
-          f"{sum(float(np.median(ms[1:])) for ms in stages.values()):.3f} ms", flush=True)
+    total = sum(float(np.median(ms[1:])) for name, ms in stages.items()
+                if not name.startswith("compare:"))
+    print(f"phase 7 {label} sum of stage medians {total:.3f} ms", flush=True)
 
 
 def run_engine(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, two_phase=False):

@@ -167,8 +167,13 @@ def _blue_noise_numpy() -> np.ndarray:
 
 
 def blue_noise_tile(device) -> torch.Tensor:
-    """The reference's 16x16x4 blue-noise tile, float32 on `device`."""
-    return torch.from_numpy(_blue_noise_numpy().copy()).to(device)
+    """The reference's 16x16x4 blue-noise tile, float32 on `device`. A CUDA
+    device gets it from pinned memory without blocking: the tables are
+    packed every frame, and a pageable upload would wait on the device."""
+    tile = _blue_noise_numpy()
+    if torch.device(device).type == "cuda":
+        return torch.from_numpy(tile).pin_memory().to(device, non_blocking=True)
+    return torch.from_numpy(tile.copy()).to(device)
 
 
 def sample_blue_noise(tile, pixel_x, pixel_y, frame, sample_index):

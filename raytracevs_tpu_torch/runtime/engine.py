@@ -38,6 +38,11 @@ stages as spans ("rtvs.update_scene", "rtvs.render" and their children,
 runtime/profiler.py::annotate) on the profiler's clock; the two top spans
 carry the frame index.
 
+On the card render() reads the frame and its ray count back through pinned
+blocks of PyTorch's caching host allocator (runtime/readback.py), its one
+wait on the device; each array it returns is the caller's own
+(`readback_stats` counts them).
+
 Example:
     engine = Engine(1920, 1080, mesh_service=meshes)   # on the card
     # or Engine(1920, 1080, mesh_service=meshes, two_phase=True), spp 1
@@ -69,6 +74,7 @@ from ..scene.sanitize import sanitize_scene
 from ..utils.checksum import scene_content_checksum
 from ..utils.logging import log_debug, log_error
 from .profiler import annotate
+from .readback import ReadbackStats, read_back
 
 
 def render_frame(scene, cfg: RenderConfig, denoise_state, two_phase=False, aperture_size=None):
@@ -130,6 +136,7 @@ class Engine:
         self._last_denoised = None  # (diffuse [3,H,W], specular [3,H,W], shadow [2,H,W])
         self._last_rays = 0
         self._last_render_ms = 0.0
+        self._readback_stats = ReadbackStats()
         self._prev_view_proj = None
         self._denoise_state = None
         # the mesh caches: object-space BLASes by mesh name (only new geometry
@@ -278,14 +285,14 @@ class Engine:
             self._last_hdr_t = hdr.permute(2, 0, 1)
             rays_t = rays_t.sum()
         with annotate("rtvs.render.readback"):
-            rgba = rgba_t.cpu().numpy()  # waits for the device
-            self._last_rays = int(rays_t.item())
+            rgba, self._last_rays = read_back(rgba_t, rays_t, self._readback_stats)
         self._last_render_ms = (time.perf_counter() - start) * 1000.0
         self._last_rgba = rgba
         self._frame_index += 1
         self._flat = self._flat._replace(frame_index=np.asarray(self._frame_index, np.uint32))
-        self._scene_t = self._scene_t._replace(frame_index=torch.tensor(
-            self._frame_index, dtype=torch.int64, device=self.device))
+        # a fill on the device: no pageable upload, so no second wait
+        self._scene_t = self._scene_t._replace(frame_index=torch.full(
+            (), self._frame_index, dtype=torch.int64, device=self.device))
         return rgba
 
     def render_debug_view(self, mode: int) -> np.ndarray:
@@ -417,6 +424,13 @@ class Engine:
     def last_rays(self) -> int:
         """Rays traced in the last frame (TraceRay-equivalents)."""
         return self._last_rays
+
+    @property
+    def readback_stats(self) -> ReadbackStats:
+        """The frames render() read back through pinned host blocks, and
+        those that needed a new block (runtime/readback.py); both 0 on the
+        CPU."""
+        return self._readback_stats
 
     @property
     def last_mrays_per_s(self) -> float:

@@ -148,7 +148,8 @@ def stages_ab(trees, frames):
                 print(f"stages {col}, {tn}: {stage}: median {statistics.median(m):.3f} ms "
                       f"(runs {[round(x, 3) for x in m]})", flush=True)
             sums[tn] = [sum(statistics.median(m) for st, m in meds.items()
-                            if keep or not st.startswith("update_scene")) for keep in (1, 0)]
+                            if not st.startswith("compare:")
+                            and (keep or not st.startswith("update_scene"))) for keep in (1, 0)]
         for i, what in enumerate(("", " without update_scene")):
             a, b = sums["other"][i], sums["this"][i]
             print(f"stages {col}: sum of stage medians{what} other {a:.3f} ms, this {b:.3f} ms, "

@@ -32,7 +32,12 @@ a row slab's and the two-phase renderer's planes and at 53x37; K10 bit for
 bit from one pixel to 1080p and on PREPASS_HALO-extended slabs; neither
 wrapper waits on the device (torch.cuda.set_sync_debug_mode("error")). The
 mesh demo scene orbiting at 1080p keeps its device mesh tables, bit-equal
-to an Engine that rebuilds them every update (main, two-phase, sharded)."""
+to an Engine that rebuilds them every update (main, two-phase, sharded).
+The frame's readback through pinned host blocks (runtime/readback.py) on a
+1080p demo orbit: bit-equal to the pageable readback, every array the
+caller's own, the blocks reused once the pool holds the frames still held,
+and render() under set_sync_debug_mode("error") waiting on nothing but the
+readback's event."""
 import os
 import sys
 
@@ -1077,3 +1082,95 @@ def test_mesh_orbit_keeps_its_tables_and_equals_a_rebuilding_engine(path):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert mesh is kept._scene_t.mesh and cache.upload_count == 1
+
+
+def _demo_orbit(engine, frames):
+    """Each frame of the demo scene orbiting, as engine.render() returns it."""
+    for f in range(frames):
+        engine.update_scene(S.demo_scene(D, f), **S.DEMO_OVERRIDES)
+        yield engine.render()
+
+
+def test_pinned_readback_bit_equal_to_pageable(monkeypatch):
+    """Six 1080p orbiting frames through runtime/readback.py's pinned
+    blocks: each array and ray count equal to the pageable readback of the
+    same frame tensors (rgba_t.cpu().numpy(), int(rays_t.item()))."""
+    _need_cuda()
+    from raytracevs_tpu_torch.runtime import engine as E
+    from raytracevs_tpu_torch.runtime import readback as RB
+
+    pageable = []
+
+    def spy(rgba_t, rays_t, stats=None):
+        got = RB.read_back(rgba_t, rays_t, stats)
+        pageable.append((rgba_t.cpu().numpy(), int(rays_t.item())))
+        return got
+
+    monkeypatch.setattr(E, "read_back", spy)
+    eng = Engine(1920, 1080)
+    for f, img in enumerate(_demo_orbit(eng, 6)):
+        want, rays = pageable[f]
+        np.testing.assert_array_equal(img, want)
+        assert eng.last_rays == rays > 1920 * 1080
+    assert eng.readback_stats.pinned == 6
+
+
+def test_pinned_readback_frames_are_the_callers():
+    """Every array of a six-frame 1080p orbit, all kept: each still equals
+    the copy taken when it was returned, none shares memory with another,
+    and each is a writable, C-contiguous np.uint8 [1080, 1920, 4]."""
+    _need_cuda()
+    eng = Engine(1920, 1080)
+    kept = [(img, img.copy()) for img in _demo_orbit(eng, 6)]
+    for img, copy in kept:
+        np.testing.assert_array_equal(img, copy)
+        assert img.dtype == np.uint8 and img.shape == (1080, 1920, 4)
+        assert img.flags.c_contiguous and img.flags.writeable
+    frames = [img for img, _ in kept]
+    assert not any(np.may_share_memory(a, b)
+                   for i, a in enumerate(frames) for b in frames[i + 1:])
+    assert eng.readback_stats.pinned == 6
+
+
+def test_pinned_readback_reuses_its_blocks():
+    """A six-frame 1080p orbit whose caller drops each frame at once (the
+    Engine keeps the last): six pinned readbacks, and the frames that
+    needed a new pinned block stop after the third, as the dropped frames'
+    blocks return to the caching host allocator's pool."""
+    _need_cuda()
+    eng = Engine(1920, 1080)
+    counts = []
+    for _ in _demo_orbit(eng, 6):
+        counts.append(eng.readback_stats.new_blocks)
+    assert eng.readback_stats.pinned == 6
+    assert counts[2] is not None, "torch.cuda.host_memory_stats has no num_host_alloc"
+    assert counts[2] == counts[5] <= 3, counts
+
+
+def test_render_waits_on_the_device_once(monkeypatch):
+    """A 1080p demo frame's render() under torch.cuda.set_sync_debug_mode(
+    "error"): nothing in the frame waits on the device but the readback's
+    event (which the mode does not flag), while the pageable readback it
+    replaced raises under the same mode."""
+    _need_cuda()
+    from raytracevs_tpu_torch.runtime import engine as E
+
+    eng = Engine(1920, 1080)
+    eng.update_scene(S.demo_scene(D, 0), **S.DEMO_OVERRIDES)
+    eng.render()
+    eng.update_scene(S.demo_scene(D, 1), **S.DEMO_OVERRIDES)  # pageable uploads
+
+    def pageable(rgba_t, rays_t, stats=None):
+        return rgba_t.cpu().numpy(), int(rays_t.item())
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.render()
+        monkeypatch.setattr(E, "read_back", pageable)
+        with pytest.raises(RuntimeError, match="synchroniz"):
+            eng.render()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert eng.readback_stats.pinned == 2
