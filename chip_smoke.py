@@ -87,7 +87,6 @@ catches an error: any failed phase ends the run with a traceback.
 """
 import ctypes
 import json
-import math
 import os
 import resource
 import subprocess
@@ -96,6 +95,11 @@ import time
 
 import numpy as np
 import torch
+
+# the scenes of the port's tests (tests/_torch_scenes.py, which imports no JAX)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+import _torch_scenes as TS  # noqa: E402
+from _torch_scenes import demo_scene, mesh_demo_scene, nine_ball_scene  # noqa: E402
 
 # The kernels' table; the launch counts come from the main-path run.
 KERNELS = [
@@ -199,133 +203,20 @@ SHARDED_BUSY_BEFORE_MS = 14.064
 STORE_ATOL = (5e-3, 1e-4, 1e-5, 1e-4)
 FULL_W, FULL_H = 1920, 1080
 FRAMES = 3
-LOOK_AT = np.array([0.0, 0.8, 0.6])
-EYE = np.array([0.0, 1.9, -4.4])
-
-
-def demo_scene(D, frame):
-    """The analytic demo scene (the same literals as tests/_torch_scenes.py)."""
-    from raytracevs_tpu_torch.scene.transform import euler_deg_to_quat, obb_axes_from_quat
-
-    a = math.radians(2.0 * frame)
-    rel = EYE - LOOK_AT
-    eye = LOOK_AT + np.array([rel[0] * math.cos(a) + rel[2] * math.sin(a), rel[1],
-                              -rel[0] * math.sin(a) + rel[2] * math.cos(a)])
-    s = D.SceneData()
-    s.camera.position = eye
-    s.camera.look_at = LOOK_AT.copy()
-    ax, ay, az = obb_axes_from_quat(euler_deg_to_quat([0.0, 35.0, 10.0]))
-    s.objects += [
-        D.PlaneData(),
-        D.SphereData(position=np.array([-1.7, 1.0, 0.8]), radius=1.0,
-                     material=D.MaterialData(base_color=np.array([0.95, 0.95, 0.95, 1.0]),
-                                             metallic=1.0, roughness=0.0)),
-        D.SphereData(position=np.array([1.7, 0.7, 1.3]), radius=0.7,
-                     material=D.MaterialData(base_color=np.array([1.0, 0.78, 0.35, 1.0]),
-                                             metallic=1.0, roughness=0.2)),
-        D.SphereData(position=np.array([0.3, 0.75, -0.9]), radius=0.75,
-                     material=D.MaterialData(base_color=np.array([1.0, 0.35, 0.35, 1.0]),
-                                             transmission=0.9, ior=1.5, roughness=0.0,
-                                             absorption=np.array([0.1, 1.2, 1.2]))),
-        D.BoxData(center=np.array([-0.2, 0.55, 2.4]), size=np.array([0.55, 0.55, 0.35]),
-                  axis_x=ax, axis_y=ay, axis_z=az,
-                  material=D.MaterialData(base_color=np.array([0.7, 0.85, 1.0, 1.0]),
-                                          transmission=0.85, ior=1.45, roughness=0.0,
-                                          absorption=np.array([0.9, 0.35, 0.05]))),
-    ]
-    s.lights += [
-        D.LightData(type=D.LightType.POINT, position=np.array([3.0, 5.5, -3.0]),
-                    intensity=12.0, radius=0.5, soft_shadow_samples=4),
-        D.LightData(type=D.LightType.DIRECTIONAL, direction=np.array([0.4, -1.0, 0.3]),
-                    intensity=0.8),
-        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.2, 0.2, 0.2, 1.0])),
-    ]
-    return s
-
-
-OVERRIDES = {"max_soft_samples": 4}
-CAUSTICS = dict(OVERRIDES, enable_caustics=True)
-SPP1 = dict(OVERRIDES, samples_per_pixel=1)  # the two-phase renderer's
-
-
-def uv_sphere(rings, segs, radius):
-    """Smooth UV sphere, 2*rings*segs triangles (tests/_torch_scenes.py::uv_sphere)."""
-    vs = []
-    for r in range(rings + 1):
-        th = np.pi * r / rings
-        for s in range(segs + 1):
-            ph = 2.0 * np.pi * s / segs
-            n = np.array([np.sin(th) * np.cos(ph), np.cos(th), np.sin(th) * np.sin(ph)])
-            vs.append((radius * n, n))
-    verts = np.zeros((len(vs), 8), np.float32)
-    for i, (p, n) in enumerate(vs):
-        verts[i, 0:3] = p
-        verts[i, 4:7] = n
-    idx = []
-    for r in range(rings):
-        for s in range(segs):
-            a = r * (segs + 1) + s
-            b = a + segs + 1
-            idx += [a, b, a + 1, a + 1, b, b + 1]
-    return verts.reshape(-1), np.asarray(idx, np.uint32)
 
 
 def mesh_service(meshes):
     """A MeshCacheService serving {name: (rings, segs, radius)} UV spheres."""
-    from raytracevs_tpu_torch.io.mesh_cache import CachedMesh, MeshCacheService
+    from raytracevs_tpu_torch.io import mesh_cache
 
-    ms = MeshCacheService(".")  # register() only: no directory is read
-    for name, (rings, segs, radius) in meshes.items():
-        verts, indices = uv_sphere(rings, segs, radius)
-        ms.register(name, CachedMesh(name=name, vertices=verts, indices=indices,
-                                     bounds_min=np.full(3, -radius),
-                                     bounds_max=np.full(3, radius)))
-    return ms
+    return TS.mesh_service(mesh_cache, meshes)
 
 
-# the mesh demo scene (tests/_torch_scenes.py::mesh_demo_scene), full size;
-# the -1 z scale turns uv_sphere's inward-wound triangles right side out
-OUTWARD = np.array([1.0, 1.0, -1.0])
+OVERRIDES = TS.DEMO_OVERRIDES
+CAUSTICS = dict(OVERRIDES, enable_caustics=True)
+SPP1 = dict(OVERRIDES, samples_per_pixel=1)  # the two-phase renderer's
+# the mesh demo scene's meshes at full size
 MESH_DEMO = {"BigSphere": (316, 316, 0.9), "GlassBall": (96, 192, 0.6)}
-GLASS_BALL = dict(base_color=np.array([0.95, 0.95, 0.95, 1.0]), transmission=1.0, ior=1.5,
-                  roughness=0.0, absorption=np.array([0.5, 0.2, 0.05]))
-
-
-def mesh_demo_scene(D, frame):
-    s = demo_scene(D, frame)
-    s.objects += [
-        D.MeshObjectData(mesh_name="BigSphere", material=D.MaterialData(
-            base_color=np.array([0.8, 0.5, 0.3, 1.0]), roughness=0.5),
-            transform=D.Transform(position=np.array([2.4, 0.95, 3.2]), scale=OUTWARD)),
-        D.MeshObjectData(mesh_name="GlassBall", material=D.MaterialData(**GLASS_BALL),
-                         transform=D.Transform(position=np.array([-1.25, 0.65, -1.2]),
-                                               scale=OUTWARD)),
-    ]
-    return s
-
-
-def nine_ball_scene(D):
-    """Nine instances of one ball (tests/_torch_scenes.py::nine_ball_scene):
-    more than 8 instances, so the shadow walk multiplies per crossing."""
-    s = D.SceneData()
-    s.camera.position = np.array([0.0, 2.2, -3.4])
-    s.camera.look_at = np.array([0.0, 0.4, 0.4])
-    s.settings.samples_per_pixel = 1
-    s.settings.max_bounces = 4
-    for i in range(9):
-        mat = (D.MaterialData(**dict(GLASS_BALL, absorption=np.array([0.2, 0.6, 1.0]) * (i / 8.0)))
-               if i % 2 == 0 else D.MaterialData(
-                   base_color=np.array([0.3 + 0.07 * i, 0.5, 0.6, 1.0]),
-                   metallic=float(i % 4 == 1), roughness=0.3))
-        pos = np.array([(i % 3 - 1) * 0.8, 0.32 + 0.05 * (i // 3), (i // 3) * 0.8])
-        s.objects.append(D.MeshObjectData(mesh_name="Ball", material=mat, transform=D.Transform(
-            position=pos, scale=OUTWARD if i % 2 else np.ones(3))))
-    s.objects.append(D.PlaneData())
-    s.lights += [
-        D.LightData(type=D.LightType.POINT, position=np.array([1.5, 4.0, -1.5]), intensity=10.0),
-        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
-    ]
-    return s
 
 
 def gpu_ms(fn, reps):
@@ -572,12 +463,11 @@ def check_bands(P, D, MK, R, TP, sc, cfg, msc, mcfg, maperture):
     caching allocator hands its block to them), none left, and the frame
     bit-equal to the same frame in three bands."""
     limit = R.NUM_CH_A * FULL_W * 300
-    for label, s_, c_, k in (("K1, demo scene", sc, cfg, MK.render_accum),
-                             ("K1-mesh, mesh demo scene", msc, mcfg, MK.render_accum_mesh)):
+    for label, s_, c_ in (("K1, demo scene", sc, cfg), ("K1-mesh, mesh demo scene", msc, mcfg)):
         one = MK.render_accum(s_, c_)
-        before = k.launches
+        before = MK.render_accum.launches
         banded = MK.render_accum(s_, c_, limit=limit)
-        n = k.launches - before
+        n = MK.render_accum.launches - before
         same = same_bits(banded, one)
         print(f"phase 4 bands {label} {FULL_W}x{FULL_H} spp {c_.samples_per_pixel}: {n} bands, "
               f"bit-equal to one launch {same}", flush=True)
@@ -1175,70 +1065,16 @@ def new_counts(R, n=1):
             for _ in range(n)]
 
 
-# a mesh whose binary BVH is a chain 78 deep (tests/_torch_scenes.py::
-# deep_forest): its wide table needs a walk stack of 69 entries, the
-# kernels hold 64, so the kernels walk its fine tree's threaded links
-def deep_forest(levels=78):
-    """One triangle a level, each far out along the next axis in turn,
-    beyond the ones inside it: interleaved vertices [V*8], indices [3T]."""
-    lo, hi = np.zeros(3), np.full(3, 1e-18)
-    centres, sizes = [(lo + hi) / 2], [3e-19]
-    for k in range(levels):
-        a = k % 3
-        ext = hi - lo
-        gap = max(16.5 * ext[a], 1.6 * ext.max())
-        c = (lo + hi) / 2
-        c[a] = lo[a] + gap
-        centres.append(c)
-        sizes.append(0.3 * ext.max())
-        hi[a] = c[a]
-    corners = np.array([[-0.5, -0.5, -0.5], [0.5, -0.5, 0.0], [0.0, 0.5, 0.5]])
-    p = np.asarray(centres)[:, None, :] + np.asarray(sizes)[:, None, None] * corners[None]
-    n = np.cross(p[:, 1] - p[:, 0], p[:, 2] - p[:, 0])
-    n /= np.linalg.norm(n, axis=1, keepdims=True)
-    verts = np.zeros((len(p), 3, 8), np.float32)
-    verts[..., 0:3] = p
-    verts[..., 4:7] = n[:, None, :]
-    return verts.reshape(-1), np.arange(3 * len(p), dtype=np.uint32)
-
-
-def deep_forest_scene(D):
-    """Two instances of "DeepForest", opaque and absorbing glass, over the
-    floor (tests/_torch_scenes.py::deep_forest_scene)."""
-    s = D.SceneData()
-    s.camera.position = np.array([1.0, 1.5, 2.0])
-    s.camera.look_at = np.array([0.9, 1.4, 4.7])
-    s.settings.samples_per_pixel = 2
-    s.settings.max_bounces = 4
-    s.objects += [
-        D.MeshObjectData(mesh_name="DeepForest", material=D.MaterialData(
-            base_color=np.array([0.8, 0.5, 0.3, 1.0]), roughness=0.5)),
-        D.MeshObjectData(mesh_name="DeepForest", material=D.MaterialData(**GLASS_BALL),
-                         transform=D.Transform(position=np.array([-0.8, -0.2, -1.5]))),
-        D.PlaneData(),
-    ]
-    s.lights += [
-        D.LightData(type=D.LightType.POINT, position=np.array([2.0, 5.0, -2.0]), intensity=12.0,
-                    radius=0.3, soft_shadow_samples=2.0),
-        D.LightData(type=D.LightType.AMBIENT, color=np.array([0.25, 0.25, 0.25, 1.0])),
-    ]
-    return s
-
-
 def check_deep_forest(P, D, MK, MW, R, TP, B, C, I, w, h):
     """The deep forest through the threaded instantiations at w x h: K1-mesh
     (spp 2), K7 and K8 (spp 1) and the walks alone, each against its plain
     version; their counting builds' counts equal the plain versions',
     node fetches included (both walk the threaded links). Returns the
     largest colour max |d|."""
-    from raytracevs_tpu_torch.io.mesh_cache import CachedMesh, MeshCacheService
+    from raytracevs_tpu_torch.io import mesh_cache
 
-    verts, indices = deep_forest()
-    pos = verts.reshape(-1, 8)[:, :3]
-    ms = MeshCacheService(".")
-    ms.register("DeepForest", CachedMesh(name="DeepForest", vertices=verts, indices=indices,
-                                         bounds_min=pos.min(0), bounds_max=pos.max(0)))
-    scene = deep_forest_scene(D)
+    ms = TS.deep_forest_service(mesh_cache)
+    scene = TS.deep_forest_scene(D)
     sc = P.to_device(P.flatten_scene(P.sanitize_scene(scene), aspect=w / h, mesh_service=ms),
                      "cuda")
     threaded = MK.check_mesh(sc.mesh, "chip_smoke")
@@ -1344,14 +1180,6 @@ def ptxas_mode0(log_path):
     return found
 
 
-def scenes_module():
-    """tests/_torch_scenes.py (no JAX): the graph builder of the scene files."""
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
-    import _torch_scenes
-
-    return _torch_scenes
-
-
 def write_scene_file(path, scene):
     """`scene` as a .rtvs file, through the port's save_graph: tests/
     _torch_scenes.py::scene_graph, the box turned as demo_scene's. It
@@ -1361,7 +1189,6 @@ def write_scene_file(path, scene):
     from raytracevs_tpu_torch.scene import nodes as N
     from raytracevs_tpu_torch.scene.rtvs import save_graph
 
-    TS = scenes_module()
     save_graph(TS.scene_graph(N, G, scene, [TS.DEMO_BOX_QUAT]), path)
 
 
@@ -1398,7 +1225,7 @@ def check_scene_file(P, D, label, build, counters, path, meshes=None):
     launches = {name: c.launches for name, c in counters.items()}
     print(f"phase 8 {label} launches: {launches}", flush=True)
     ref = P.Engine(FULL_W, FULL_H, mesh_service=ms)
-    ref.update_scene(scenes_module().as_evaluated(build(D, 0)), **OVERRIDES)
+    ref.update_scene(TS.as_evaluated(build(D, 0)), **OVERRIDES)
     a, b = flat_bytes(eng._flat._replace(frame_index=ref._flat.frame_index)), flat_bytes(ref._flat)
     differ = [n for n in a if a[n] != b[n]]
     same = [bool(np.array_equal(img, ref.render())) for img in imgs]
@@ -1406,8 +1233,7 @@ def check_scene_file(P, D, label, build, counters, path, meshes=None):
           f"bit-equal to the in-code scene's {same}", flush=True)
     if differ or not all(same):
         raise AssertionError(f"the {label} scene file differs from its in-code scene")
-    k1 = "render_accum_mesh" if meshes else "render_accum"
-    for name in (k1, "assemble", "reblur_prepass", "reproject_accumulate", "atrous",
+    for name in ("render_accum", "assemble", "reblur_prepass", "reproject_accumulate", "atrous",
                  "shadow_denoise"):
         if launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {launches[name]} times in {FRAMES} frames of "
@@ -1719,7 +1545,7 @@ def run_sharded(P, D, label, build, counters, meshes=None, overrides=OVERRIDES, 
     if two_phase:
         want.update(render_phase_a=n, render_phase_b=n)
     else:
-        want["render_accum_mesh" if meshes else "render_accum"] = n
+        want["render_accum"] = n
     if overrides.get("enable_caustics"):
         want.update(photon_trace=n, photon_gather=n)
     for name, k in want.items():
@@ -1941,7 +1767,6 @@ def check_golden(P, counters, smi):
     from raytracevs_tpu_torch.utils.refcompare import compare_to_reference
     from raytracevs_tpu_torch.utils.ssim import ssim
 
-    TS = scenes_module()
     kept = None
     for res in (96, 256):
         for name in TS.GOLDEN_RENDERED:
@@ -2257,7 +2082,6 @@ def main():
     # phase 5: the main paths, through the Engine
     counters = {"render_accum": MK.render_accum, "reproject_accumulate": K.reproject_accumulate,
                 "atrous": K.atrous, "shadow_denoise": K.shadow_denoise,
-                "render_accum_mesh": MK.render_accum_mesh,
                 "photon_trace": PK.emit_and_trace, "photon_gather": PK.add_caustics,
                 "render_phase_a": MK.render_phase_a, "render_phase_b": MK.render_phase_b,
                 "atrous_pass": K.atrous_pass, "assemble": G.assemble,
@@ -2267,10 +2091,10 @@ def main():
         raise AssertionError(f"render_accum launched {launches['render_accum']} times in "
                              f"{FRAMES} frames")
     mesh_launches, _ = run_engine(P, D, "mesh", mesh_demo_scene, counters, MESH_DEMO)
-    if mesh_launches["render_accum_mesh"] < FRAMES:
-        raise AssertionError(f"render_accum_mesh launched {mesh_launches['render_accum_mesh']} "
-                             f"times in {FRAMES} mesh frames")
-    launches["render_accum_mesh"] = mesh_launches["render_accum_mesh"]
+    if mesh_launches["render_accum"] < FRAMES:
+        raise AssertionError(f"render_accum launched {mesh_launches['render_accum']} times in "
+                             f"{FRAMES} mesh frames")
+    launches["render_accum_mesh"] = mesh_launches["render_accum"]  # K1-mesh's row
     PP._emit_photons.launches = 0
     caustics_launches, ceng = run_engine(P, D, "caustics", demo_scene, counters,
                                          overrides=CAUSTICS)
@@ -2316,7 +2140,7 @@ def main():
         if tp_launches[name] < FRAMES:
             raise AssertionError(f"{name} launched {tp_launches[name]} times in {FRAMES} "
                                  "two-phase frames")
-    if tp_launches["render_accum"] or tp_launches["render_accum_mesh"]:
+    if tp_launches["render_accum"]:
         raise AssertionError("the two-phase frames launched K1")
     for name in ("render_phase_a", "render_phase_b"):
         launches[name] = tp_launches[name]

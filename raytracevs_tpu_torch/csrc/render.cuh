@@ -1,7 +1,8 @@
-// The render kernels K1, K7 and K8 for Hopper (sm_90a), shared by the
-// entry points of megakernel.cu, megakernel_threaded.cu and, in their
-// counting build, megakernel_count.cu. nvcc compiles each .cu on its own
-// (no -rdc), so the device code lives in this header.
+// The render kernels K1, K7 and K8 for Hopper (sm_90a), launched by the
+// entry points of megakernel.cu and instantiated there, in
+// megakernel_threaded.cu and, in their counting build, megakernel_count.cu.
+// nvcc compiles each .cu on its own (no -rdc), so the device code lives in
+// this header.
 //
 // K1 replaces the Pallas TPU kernel raytracevs_tpu/ops/pallas/megakernel.py::
 // make_kernel (launched by _launch_megakernel): per pixel and per sample a
@@ -32,7 +33,7 @@
 // busy (a SIMT share of 0.965 on the demo scene at spp 2, counted by the
 // counting build), so lanes are not refilled across pixels.
 //
-// K1-mesh (MODE_MESH, entry rtvs_render_accum_mesh) adds the triangle
+// K1-mesh (MODE_MESH, rtvs_render_accum given meshes) adds the triangle
 // meshes: the wide-node preorder walks of closest.cuh replace make_kernel's
 // mesh walks and cover make_kernel(mesh_hbm=True), since every table is
 // read from device memory whatever its size; a wide table deeper than the
@@ -1222,11 +1223,12 @@ int launch_phase_b(const Cfg& c, const Scene& sc, const int* itab, const int* or
   return (int)cudaGetLastError();
 }
 
-// The scene of a mesh entry point: ftab's tables and the mesh tables of
+// The scene of an entry point: ftab's tables and the mesh tables of
 // ops/cuda/megakernel.py::pack_tables (nodes: wide [W,32], or for the
 // threaded instantiations fine [Nn,8]; plane [T,12]; n0/n1/n2/e1/e2 [T,3];
 // inst [T] int32; inst_tbl [I,8]), the material table holding S+P+B+I
-// rows; counts: the counting build's [COUNT_ROWS][4] counts, or null.
+// rows; without meshes every mesh pointer null and T = I = Nn = 0. counts:
+// the counting build's [COUNT_ROWS][4] counts, or null.
 Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float* nodes,
                       const float* plane, const float* n0, const float* n1, const float* n2,
                       const float* e1, const float* e2, const int* inst, const float* inst_tbl,
@@ -1252,8 +1254,7 @@ Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float
 }  // namespace
 
 // The entry points' arguments (megakernel.cu documents them): K1's and
-// K7's, K8's, and the mesh tables of a _mesh entry, as make_mesh_scene
-// takes them.
+// K7's, K8's, and the mesh tables as make_mesh_scene takes them.
 #define ACCUM_PARAMS                                                                        \
   const float *ftab, const int *itab, float *out, int width, int height, int row0, int rows, \
       int S, int P, int B, int L, int spp, int max_bounces, int max_iters, int max_soft,      \
@@ -1279,10 +1280,33 @@ Scene make_mesh_scene(const float* ftab, int S, int P, int B, int L, const float
       const float *inst_tbl, int num_tris, int num_inst, int num_nodes
 #define MESH_ARGS nodes, plane, n0, n1, n2, e1, e2, inst, inst_tbl, num_tris, num_inst, num_nodes
 
-// The mesh instantiations whose walks follow the fine tree's threaded links
-// (megakernel_threaded.cu), which a _mesh entry calls given threaded != 0:
-// K1-mesh, or K7-mesh with phase_a, and K8-mesh; their counting build given
-// counts (else null).
+namespace {
+// K1 (K7 given phase_a), and K8, in the instantiation MODE, on an entry's
+// arguments
+template <int MODE>
+int accum_as(bool phase_a, ACCUM_PARAMS, MESH_PARAMS, unsigned long long* counts, void* stream) {
+  Cfg c = ENTRY_CFG;
+  Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, counts);
+  return phase_a ? launch_accum<MODE, true>(c, sc, itab, out, stream)
+                 : launch_accum<MODE, false>(c, sc, itab, out, stream);
+}
+
+template <int MODE>
+int phase_b_as(PHASE_B_PARAMS, MESH_PARAMS, unsigned long long* counts, void* stream) {
+  Cfg c = ENTRY_CFG;
+  Scene sc = make_mesh_scene(ftab, S, P, B, L, MESH_ARGS, counts);
+  return launch_phase_b<MODE>(c, sc, itab, order, count, hits, lanes, acc, stream);
+}
+}  // namespace
+
+// The instantiations that the entries of megakernel.cu reach in the other
+// files, so that nvcc compiles them beside it: the counting build
+// (megakernel_count.cu; MODE_COUNT, with MODE_MESH given nodes) and the
+// threaded walks' (megakernel_threaded.cu; MODE_MESH | MODE_THREADED, with
+// MODE_COUNT given counts). K1, or K7 given phase_a, and K8.
+int render_accum_count(bool phase_a, ACCUM_PARAMS, MESH_PARAMS, unsigned long long* counts,
+                       void* stream);
+int render_phase_b_count(PHASE_B_PARAMS, MESH_PARAMS, unsigned long long* counts, void* stream);
 int render_accum_threaded(bool phase_a, ACCUM_PARAMS, MESH_PARAMS, unsigned long long* counts,
                           void* stream);
 int render_phase_b_threaded(PHASE_B_PARAMS, MESH_PARAMS, unsigned long long* counts,

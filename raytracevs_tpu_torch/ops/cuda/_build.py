@@ -34,31 +34,20 @@ LINK_FLAGS = ("-shared", "-Xcompiler", "-fPIC")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library's entry points: (argtypes), all return int
 # (a cudaError_t; 0 is success).
-# nodes, plane, n0, n1, n2, e1, e2, inst, inst_tbl, T, I, Nn, threaded
-_MESH = (_P,) * 9 + (_I,) * 4
 # ftab, itab, out, width, height, row0, rows, S, P, B, L, spp, max_bounces,
 # max_iters, max_soft, flags, aspect
 _ACCUM = (_P, _P, _P) + (_I,) * 13 + (_F,)
 # ftab, itab, order, count, acc, hits, lanes, then as _ACCUM from width
 _PHASE_B = (_P,) * 6 + (_I,) * 14 + (_F,)
+# the mesh tables (nodes, plane, n0, n1, n2, e1, e2, inst, inst_tbl, T, I,
+# Nn: nulls and 0 without meshes), threaded, counts [COUNT_ROWS, 4] (null:
+# the plain build), stream
+_MESH = (_P,) * 9 + (_I,) * 4 + (_P, _P)
 SIGNATURES = {
-    # K1 and K7 (out [46, H, W]), then the stream
-    "rtvs_render_accum": _ACCUM + (_P,),
-    "rtvs_render_phase_a": _ACCUM + (_P,),
-    # K8
-    "rtvs_render_phase_b": _PHASE_B + (_P,),
-    # the counting build: then counts [COUNT_ROWS, 4], stream
-    "rtvs_render_accum_count": _ACCUM + (_P, _P),
-    "rtvs_render_phase_a_count": _ACCUM + (_P, _P),
-    "rtvs_render_phase_b_count": _PHASE_B + (_P, _P),
-    # with meshes: the mesh tables after the configuration (the wide nodes,
-    # or given threaded the fine nodes)
-    "rtvs_render_accum_mesh": _ACCUM + _MESH + (_P,),
-    "rtvs_render_phase_a_mesh": _ACCUM + _MESH + (_P,),
-    "rtvs_render_phase_b_mesh": _PHASE_B + _MESH + (_P,),
-    "rtvs_render_accum_mesh_count": _ACCUM + _MESH + (_P, _P),
-    "rtvs_render_phase_a_mesh_count": _ACCUM + _MESH + (_P, _P),
-    "rtvs_render_phase_b_mesh_count": _PHASE_B + _MESH + (_P, _P),
+    # K1, K7 (out [46, H, W]) and K8 (megakernel.py::launch_args)
+    "rtvs_render_accum": _ACCUM + _MESH,
+    "rtvs_render_phase_a": _ACCUM + _MESH,
+    "rtvs_render_phase_b": _PHASE_B + _MESH,
     # nodes, plane, inst, inst_tbl, T, I, Nn, threaded, n, o, d, tmin, tmax,
     # skip_active, skip_inst, thick_inst, t, tri, u, v, inst, hit, thick_hit,
     # thick_t, stream

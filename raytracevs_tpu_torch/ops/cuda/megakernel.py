@@ -4,24 +4,25 @@ megakernel, and the two-phase renderer's K7 (phase A) and K8 (phase B).
 ``render_accum(scene, cfg)`` returns the [32, H, W] accumulator planes of
 the frame. On CPU tensors it runs the plain version
 (ops/render.py::render_accum); on CUDA tensors it launches the kernel or
-raises: the analytic instantiation for a scene without meshes, and K1-mesh
-(``render_accum_mesh``, entry rtvs_render_accum_mesh) for a scene with a
-mesh leaf. ``render_phase_a`` and ``render_phase_b`` do the same for K7
-and K8 (ops/render.py::render_accum_phase_a/_b; entries
-rtvs_render_phase_a/_b and their _mesh forms; K8 takes K7's hit planes).
-For a mesh whose wide table needs a deeper walk stack than the kernels
-hold (``check_mesh``), the _mesh entries take threaded = 1 and the fine
-tree's nodes (``fine_nodes``) and run the instantiations of
-csrc/megakernel_threaded.cu, whose walks follow its threaded links. A
-frame whose planes pass the kernels' 32-bit plane index renders in row
-bands (``row_bands``), a launch each into a band buffer copied into the
-frame's planes. Each wrapper's ``.launches`` counts its launches.
-Given ``counts`` (a [len(R.COUNT_ROWS), 4] int64 CUDA tensor), the wrappers
-launch the counting build instead (the ``_count`` entries, the same
+raises. ``render_phase_a`` and ``render_phase_b`` do the same for K7 and
+K8 (ops/render.py::render_accum_phase_a/_b; K8 takes K7's hit planes).
+Each kernel has one C entry (rtvs_render_accum, rtvs_render_phase_a,
+rtvs_render_phase_b), which takes ``pack_tables``' RenderTables and
+chooses its instantiation: K1-mesh (MODE_MESH) for a scene with a mesh
+leaf, and for a mesh whose wide table needs a deeper walk stack than the
+kernels hold (``check_mesh``) the instantiations of
+csrc/megakernel_threaded.cu, whose walks follow the fine tree's threaded
+links (``fine_nodes``). A frame whose planes pass the kernels' 32-bit
+plane index renders in row bands (``row_bands``), a launch each into a
+band buffer copied into the frame's planes. Each wrapper's ``.launches``
+counts its launches. Given ``counts`` (a [len(R.COUNT_ROWS), 4] int64
+CUDA tensor), the entries launch the counting build instead (the same
 pixels) and add their work to it: the mesh walks' by ray class, then the
 DFS's (ops/render.py::COUNT_ROWS).
 """
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -103,17 +104,6 @@ def fine_nodes(mesh):
     return torch.cat([mesh.bbox_min, mesh.bbox_max, links], dim=1).contiguous()
 
 
-def mesh_args(mesh, mesh_tables):
-    """The mesh tables and the threaded flag as the _mesh entry points take
-    them (render.cuh MESH_PARAMS, then threaded); mesh_tables: pack_tables'
-    (inst_tbl, nodes, threaded)."""
-    inst_tbl, nodes, threaded = mesh_tables
-    return [nodes.data_ptr(), mesh.plane.data_ptr(), mesh.n0.data_ptr(), mesh.n1.data_ptr(),
-            mesh.n2.data_ptr(), mesh.edge1.data_ptr(), mesh.edge2.data_ptr(),
-            mesh.inst.data_ptr(), inst_tbl.data_ptr(), mesh.num_tris, mesh.num_inst,
-            mesh.num_nodes, int(threaded)]
-
-
 def check_mesh(mesh, name) -> bool:
     """Raise unless the mesh tables are what the walks take (contiguous
     float32/int32 tables); return whether the walks follow the fine tree's
@@ -136,14 +126,60 @@ def walk_nodes(mesh, name):
     return (fine_nodes(mesh) if threaded else mesh.wide), threaded
 
 
-def pack_tables(scene):
-    """Everything the render kernels read of a scene, packed once:
-    (ftab, itab) of pack_scene, then (inst_tbl, nodes, threaded) of
-    pack_mesh and walk_nodes (None without a mesh)."""
+class RenderTables(NamedTuple):
+    """Everything the render kernels read of a scene, packed once
+    (pack_tables): the launch arguments that do not change with the
+    configuration, and the tensors behind their pointers, which it keeps
+    alive. ftab and itab come first, so ``tables[:2]`` is pack_scene's
+    pair. Without a mesh the mesh fields are None and 0."""
+    ftab: Optional[torch.Tensor] = None
+    itab: Optional[torch.Tensor] = None
+    S: int = 0  # sphere, plane, box and light slots
+    P: int = 0
+    B: int = 0
+    L: int = 0
+    nodes: Optional[torch.Tensor] = None  # the wide table, or fine_nodes given threaded
+    plane: Optional[torch.Tensor] = None
+    n0: Optional[torch.Tensor] = None
+    n1: Optional[torch.Tensor] = None
+    n2: Optional[torch.Tensor] = None
+    e1: Optional[torch.Tensor] = None
+    e2: Optional[torch.Tensor] = None
+    inst: Optional[torch.Tensor] = None
+    inst_tbl: Optional[torch.Tensor] = None  # pack_mesh
+    T: int = 0  # triangles, instances, fine nodes
+    I: int = 0  # noqa: E741
+    Nn: int = 0
+    threaded: bool = False
+
+
+def mesh_tables(mesh, name) -> RenderTables:
+    """The mesh fields of RenderTables (the rest left empty): the tables
+    the mesh walks read, checked by check_mesh."""
+    inst_tbl = pack_mesh(mesh)
+    nodes, threaded = walk_nodes(mesh, name)
+    return RenderTables(nodes=nodes, plane=mesh.plane, n0=mesh.n0, n1=mesh.n1, n2=mesh.n2,
+                        e1=mesh.edge1, e2=mesh.edge2, inst=mesh.inst, inst_tbl=inst_tbl,
+                        T=mesh.num_tris, I=mesh.num_inst, Nn=mesh.num_nodes, threaded=threaded)
+
+
+def pack_tables(scene) -> RenderTables:
+    """The scene's RenderTables: pack_scene's (ftab, itab), its slot
+    counts and, with a mesh leaf, mesh_tables. Raises unless every leaf is
+    on the scene's device."""
+    dev = scene.cam_pos.device
+    leaves = [(n, leaf) for n, leaf in zip(scene._fields, scene) if n != "mesh"]
+    if scene.mesh is not None:
+        leaves += [(f"mesh.{n}", leaf) for n, leaf in zip(scene.mesh._fields, scene.mesh)
+                   if torch.is_tensor(leaf)]
+    for n, leaf in leaves:
+        if leaf.device != dev:
+            raise ValueError(f"pack_tables: scene.{n} on {leaf.device}, expected {dev}")
     ftab, itab = pack_scene(scene)
-    if scene.mesh is None:
-        return ftab, itab, None
-    return ftab, itab, (pack_mesh(scene.mesh), *walk_nodes(scene.mesh, "pack_tables"))
+    tables = RenderTables() if scene.mesh is None else mesh_tables(scene.mesh, "pack_tables")
+    return tables._replace(ftab=ftab, itab=itab, S=scene.sphere_capacity,
+                           P=scene.plane_capacity, B=scene.box_capacity,
+                           L=scene.light_capacity)
 
 
 # The kernels index a launch's planes in 32 bits (csrc/render.cuh::Planes
@@ -168,18 +204,8 @@ def row_bands(width, height, channels, limit=PLANE_LIMIT):
 
 
 def _check(scene, cfg, name):
-    dev = scene.cam_pos.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    leaves = [(n, leaf) for n, leaf in zip(scene._fields, scene) if n != "mesh"]
-    if scene.mesh is not None:
-        leaves += [(f"mesh.{n}", leaf) for n, leaf in zip(scene.mesh._fields, scene.mesh)
-                   if torch.is_tensor(leaf)]
-    for n, leaf in leaves:
-        if leaf.device != dev:
-            raise ValueError(f"{name}: scene.{n} on {leaf.device}, expected {dev}")
-    if scene.mesh is not None:
-        check_mesh(scene.mesh, name)
+    if scene.cam_pos.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {scene.cam_pos.device}")
     if not (1 <= cfg.max_soft_samples <= 16):
         raise ValueError(f"max_soft_samples {cfg.max_soft_samples} outside 1..16")
     # num_photons is not read: the caustics pass follows K1; of the photon
@@ -189,31 +215,35 @@ def _check(scene, cfg, name):
             | int(cfg.any_absorption) << 3 | debug << 4)
 
 
-def _launch(entry, scene, cfg, flags, tables, lead, counts=None, band=None):
-    """Call the library's `entry` (its _mesh form for a scene with meshes,
-    then its _count form given `counts`) on the current stream: the packed
-    tables, the `lead` arguments, the configuration with the row band
-    (row0, rows) it renders (the whole frame without one), then the mesh
-    tables."""
-    ftab, itab, mesh_tables = tables
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def launch_args(tables, cfg, flags, lead, counts=None, band=None):
+    """The arguments of a render entry but the stream
+    (ops/cuda/_build.py::SIGNATURES): the packed tables, the `lead`
+    arguments, the configuration with the row band (row0, rows) it renders
+    (the whole frame without one), the mesh tables (nulls without a mesh),
+    threaded, then `counts` (null: the plain build)."""
+    t = tables
+    if counts is not None and (counts.device != t.ftab.device or counts.dtype != torch.int64
+                               or tuple(counts.shape) != (len(R.COUNT_ROWS), 4)):
+        raise ValueError(f"counts {counts.dtype} {tuple(counts.shape)} on {counts.device}, "
+                         f"expected int64 ({len(R.COUNT_ROWS)}, 4) on the scene's device")
     row0, rows = (0, cfg.height) if band is None else band
-    args = [ftab.data_ptr(), itab.data_ptr(), *lead, cfg.width, cfg.height, row0, rows,
-            scene.sphere_capacity, scene.plane_capacity, scene.box_capacity,
-            scene.light_capacity, cfg.samples_per_pixel, cfg.max_bounces, cfg.max_queue_iters,
-            cfg.max_soft_samples, flags, float(cfg.aspect_ratio)]
-    if scene.mesh is not None:
-        entry += "_mesh"
-        args += mesh_args(scene.mesh, mesh_tables)
-    if counts is not None:
-        if (counts.device != scene.cam_pos.device or counts.dtype != torch.int64
-                or tuple(counts.shape) != (len(R.COUNT_ROWS), 4)):
-            raise ValueError(f"{entry}: counts {counts.dtype} {tuple(counts.shape)} on "
-                             f"{counts.device}, expected int64 ({len(R.COUNT_ROWS)}, 4) on the "
-                             "scene's device")
-        entry += "_count"
-        args.append(counts.data_ptr())
+    return [t.ftab.data_ptr(), t.itab.data_ptr(), *lead, cfg.width, cfg.height, row0, rows,
+            t.S, t.P, t.B, t.L, cfg.samples_per_pixel, cfg.max_bounces, cfg.max_queue_iters,
+            cfg.max_soft_samples, flags, float(cfg.aspect_ratio),
+            *(_ptr(x) for x in (t.nodes, t.plane, t.n0, t.n1, t.n2, t.e1, t.e2, t.inst,
+                                t.inst_tbl)),
+            t.T, t.I, t.Nn, int(t.threaded), _ptr(counts)]
+
+
+def _launch(entry, tables, cfg, flags, lead, counts=None, band=None):
+    """Call the library's `entry` on launch_args, on the current stream."""
+    args = launch_args(tables, cfg, flags, lead, counts, band)
     lib = _build.load_library()
-    dev = scene.cam_pos.device
+    dev = tables.ftab.device
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(*args, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, entry)
@@ -232,7 +262,7 @@ def _render_bands(entry, wrapper, scene, cfg, flags, tables, channels, slab, lim
     for row0, n in bands:
         buf = out if len(bands) == 1 else torch.empty((channels, n, cfg.width), dtype=_F32,
                                                       device=dev)
-        _launch(entry, scene, cfg, flags, tables, [buf.data_ptr()], counts, (row0, n))
+        _launch(entry, tables, cfg, flags, [buf.data_ptr()], counts, (row0, n))
         wrapper.launches += 1
         if buf is not out:
             out[:, row0 - row_start:row0 - row_start + n].copy_(buf)
@@ -249,23 +279,9 @@ def render_accum(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT, row_st
     them already; `counts`: see the module."""
     if scene.cam_pos.device.type == "cpu":
         return R.render_accum(scene, cfg, counts, row_start, num_rows)
-    if scene.mesh is not None:
-        return render_accum_mesh(scene, cfg, counts, tables, limit, row_start, num_rows)
     flags = _check(scene, cfg, "render_accum")
     return _render_bands("rtvs_render_accum", render_accum, scene, cfg, flags, tables, R.NUM_CH,
                          R.row_slab(cfg, row_start, num_rows), limit, counts)
-
-
-def render_accum_mesh(scene, cfg, counts=None, tables=None, limit=PLANE_LIMIT, row_start=0,
-                      num_rows=None) -> torch.Tensor:
-    """K1-mesh: render_accum for a scene with triangle meshes."""
-    if scene.cam_pos.device.type == "cpu":
-        return R.render_accum(scene, cfg, counts, row_start, num_rows)
-    if scene.mesh is None:
-        raise ValueError("render_accum_mesh: the scene has no mesh leaf")
-    flags = _check(scene, cfg, "render_accum_mesh")
-    return _render_bands("rtvs_render_accum", render_accum_mesh, scene, cfg, flags, tables,
-                         R.NUM_CH, R.row_slab(cfg, row_start, num_rows), limit, counts)
 
 
 def render_phase_a(scene, cfg, tables=None, counts=None, band=None,
@@ -286,8 +302,8 @@ def render_phase_a(scene, cfg, tables=None, counts=None, band=None,
                              R.NUM_CH_A, (0, cfg.height), limit, counts)
     row0, rows = _check_band(band, cfg, R.NUM_CH_A, limit, "render_phase_a")
     out = torch.empty((R.NUM_CH_A, rows, cfg.width), dtype=_F32, device=scene.cam_pos.device)
-    _launch("rtvs_render_phase_a", scene, cfg, flags,
-            pack_tables(scene) if tables is None else tables, [out.data_ptr()], counts, band)
+    _launch("rtvs_render_phase_a", pack_tables(scene) if tables is None else tables, cfg, flags,
+            [out.data_ptr()], counts, band)
     render_phase_a.launches += 1
     return out
 
@@ -331,8 +347,7 @@ def render_phase_b(scene, cfg, order, count, acc, hits, tables=None, counts=None
             raise ValueError(f"render_phase_b: {name} is not contiguous")
     if order.numel() > cfg.width * rows:
         raise ValueError(f"render_phase_b: {order.numel()} lanes for {cfg.width * rows} pixels")
-    _launch("rtvs_render_phase_b", scene, cfg, flags,
-            pack_tables(scene) if tables is None else tables,
+    _launch("rtvs_render_phase_b", pack_tables(scene) if tables is None else tables, cfg, flags,
             [order.data_ptr(), count.data_ptr(), acc.data_ptr(), hits.data_ptr(), order.numel()],
             counts, band)
     render_phase_b.launches += 1
@@ -340,6 +355,5 @@ def render_phase_b(scene, cfg, order, count, acc, hits, tables=None, counts=None
 
 
 render_accum.launches = 0
-render_accum_mesh.launches = 0
 render_phase_a.launches = 0
 render_phase_b.launches = 0

@@ -8,7 +8,7 @@ returns what ops/bvh.py::traverse_closest returns (a TriHit), and
 run those plain walks; on CUDA tensors they launch the kernel or raise.
 Each wrapper's ``.launches`` counts its launches. A mesh whose wide table
 needs a deeper stack than the kernels hold walks the fine tree's threaded
-links, as the render kernels do (megakernel.py::walk_nodes). They are not
+links, as the render kernels do (megakernel.py::mesh_tables). They are not
 on a render path: they hold the walks against the plain ones on many rays.
 """
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 
 from .. import bvh
 from . import _build
-from .megakernel import pack_mesh, walk_nodes
+from .megakernel import mesh_tables
 
 
 def _check_lanes(name, dev, **tensors):
@@ -31,11 +31,9 @@ def _check_lanes(name, dev, **tensors):
 
 def _tables(mesh, name):
     """(the tensors to keep alive, the entry's table arguments)."""
-    nodes, threaded = walk_nodes(mesh, name)
-    inst_tbl = pack_mesh(mesh)
-    return (inst_tbl, nodes), [nodes.data_ptr(), mesh.plane.data_ptr(), mesh.inst.data_ptr(),
-                               inst_tbl.data_ptr(), mesh.num_tris, mesh.num_inst,
-                               mesh.num_nodes, int(threaded)]
+    t = mesh_tables(mesh, name)
+    return t, [t.nodes.data_ptr(), t.plane.data_ptr(), t.inst.data_ptr(), t.inst_tbl.data_ptr(),
+               t.T, t.I, t.Nn, int(t.threaded)]
 
 
 def _call(entry, dev, args):

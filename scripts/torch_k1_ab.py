@@ -24,9 +24,11 @@ tree's sharded denoise runs them (its slab form, the neighbours' rows as
 views; or, where the tree has none, the whole-frame form on the slab
 extended by the pass's reach, its rows cropped after the timed call),
 with the device's time alone of each, calling the libraries in turns (other,
-this, then back) for `--rounds` rounds: each render call is one launch on
-tables packed beforehand, timed by CUDA events. Every call's planes must
-equal the first call's bit for bit.
+this, then back) for `--rounds` rounds: each render call is one call of
+that tree's public wrapper (render_accum, render_phase_a, render_phase_b)
+on tables packed beforehand, one launch with the wrapper's host work (its
+checks and the output's allocation, tens of microseconds), timed by CUDA
+events. Every call's planes must equal the first call's bit for bit.
 
 Then the host, each tree in turns, the device synchronised around each
 call: frame 0 of the mesh demo scene in a new Engine (update_scene with
@@ -242,13 +244,8 @@ class Tree:
         self.PK = importlib.import_module(f"{name}.ops.cuda.photon_kernels")
         self.K = importlib.import_module(f"{name}.ops.cuda.denoise_kernels")
         self.PD = importlib.import_module(f"{name}.post.denoise")
-        mc = importlib.import_module(f"{name}.io.mesh_cache")
-        self.meshes = mc.MeshCacheService(".")
-        for mname, (rings, segs, radius) in CS.MESH_DEMO.items():
-            verts, indices = CS.uv_sphere(rings, segs, radius)
-            self.meshes.register(mname, mc.CachedMesh(
-                name=mname, vertices=verts, indices=indices, bounds_min=np.full(3, -radius),
-                bounds_max=np.full(3, radius)))
+        self.meshes = CS.TS.mesh_service(importlib.import_module(f"{name}.io.mesh_cache"),
+                                         CS.MESH_DEMO)
         self.cache = pkg.BLASCache()
         self.lib = None
 
@@ -483,13 +480,12 @@ def main():
                 t.P, t.D, t.PD, t.K, torch.device("cuda")))[0][2:]
             denoise = {"atrous": k3, "shadow_denoise": k4}
         if entry.startswith("k3_pass"):
-            prep = {tn: (tree, None, None, None, None,
+            prep = {tn: (tree, None, None, None,
                          k3_pass_case(tree, denoise["atrous"], int(entry[-1])))
                     for tn, tree in trees.items()}
         for tn, tree in ({} if entry in denoise_entries else trees).items():
             s, sc = tree.scene(CS, build, meshes)
             cfg = tree.P.make_config(s, CS.FULL_W, CS.FULL_H, **over)
-            flags = tree.MK._check(sc, cfg, "torch_k1_ab")
             tables = tree.MK.pack_tables(sc)
             extra = None
             if entry.startswith("photon"):
@@ -500,32 +496,28 @@ def main():
                 # K8 takes K7's hit planes where its tree's K7 writes them
                 hits = [a[tree.R.CH_HIT:]] if hasattr(tree.R, "CH_HIT") else []
                 extra = (a[:tree.R.NUM_CH].clone(), o, c, hits)
-            prep[tn] = (tree, sc, cfg, flags, tables, extra)
+            prep[tn] = (tree, sc, cfg, tables, extra)
 
         def call(n):
             if entry in ("atrous", "shadow_denoise"):
                 tree = trees[n]
                 fn = getattr(tree.K, entry)
                 return timed(tree.MK._build, tree.lib, lambda: fn(*denoise[entry]))
-            tree, sc, cfg, flags, tables, extra = prep[n]
-            R = tree.R
+            tree, sc, cfg, tables, extra = prep[n]
+            MK = tree.MK
             if entry.startswith(("photon", "k3_pass")):
                 before, fn, finish = extra
                 before()
-                v, t = timed(tree.MK._build, tree.lib, fn)
+                v, t = timed(MK._build, tree.lib, fn)
                 return finish(v), t
             if entry == "rtvs_render_phase_b":
                 acc0, o, c, hits = extra
                 out = acc0.clone()
-                lead = [o.data_ptr(), c.data_ptr(), out.data_ptr(), *(h.data_ptr() for h in hits),
-                        o.numel()]
-            else:
-                ch = R.NUM_CH_A if entry == "rtvs_render_phase_a" else R.NUM_CH
-                out = torch.empty((ch, cfg.height, cfg.width), dtype=torch.float32,
-                                  device=sc.cam_pos.device)
-                lead = [out.data_ptr()]
-            return timed(tree.MK._build, tree.lib,
-                         lambda: tree.MK._launch(entry, sc, cfg, flags, tables, lead) or out)
+                return timed(MK._build, tree.lib,
+                             lambda: MK.render_phase_b(sc, cfg, o, c, out, *hits, tables=tables))
+            if entry == "rtvs_render_phase_a":
+                return timed(MK._build, tree.lib, lambda: MK.render_phase_a(sc, cfg, tables))
+            return timed(MK._build, tree.lib, lambda: MK.render_accum(sc, cfg, tables=tables))
 
         ref, _ = call(names[0])  # warm-up
         for n in names[1:]:
@@ -555,7 +547,7 @@ def main():
             dev = {n: [] for n in names}
             for _ in range(args.rounds):
                 for n in order:
-                    tree, extra = prep[n][0], prep[n][5]
+                    tree, extra = prep[n][0], prep[n][4]
                     extra[0]()
                     dev[n].append(timed(tree.MK._build, tree.lib,
                                         lambda: CS.device_ms(extra[1], 20))[0][0])

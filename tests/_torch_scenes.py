@@ -3,10 +3,10 @@
 Every builder takes a package's ``scene.data`` module (and, for meshes, its
 ``io.mesh_cache`` module), so the same literals build a raytracevs_tpu
 SceneData and a raytracevs_tpu_torch SceneData. The demo scene and the mesh
-demo scene are the port's workloads (chip_smoke.py keeps its own copy of
-these literals, because it cannot import JAX). Nothing here imports JAX,
-and importing it sets nothing: the port's test files call one_torch_thread
-themselves.
+demo scene are the port's workloads. Nothing here imports JAX, so
+chip_smoke.py and tests/test_torch_gpu.py build their scenes from here on
+the card; importing it sets nothing: the port's test files call
+one_torch_thread themselves.
 """
 import math
 

@@ -64,7 +64,7 @@ def test_deep_forest_goes_to_the_threaded_walks():
     assert torch.equal(~words[leaf, 0] >> 3, mesh.tri_start[leaf])
     assert torch.equal(~words[leaf, 0] & 7, mesh.tri_count[leaf])
     tables = MK.pack_tables(sc)
-    assert tables[2][2] is True and tables[2][1].shape == nodes.shape
+    assert tables.threaded is True and tables.nodes.shape == nodes.shape
     # the mesh demo scene keeps the wide walks
     demo = to_device(flatten_scene(sanitize_scene(S.mesh_demo_scene(PD)), aspect=W / H,
                                    mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL)), "cpu")

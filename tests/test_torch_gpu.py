@@ -73,6 +73,39 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
 
 
+def _render_modes(fn):
+    """(fn(), the MODE template argument of each render_accum_kernel it
+    launched), the modes read from the kernels' names in a torch.profiler
+    trace: the instantiation the C entry chose (MODE_MESH 1, MODE_THREADED
+    2, MODE_COUNT 4; csrc/closest.cuh)."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [int(m.group(1)) for e in prof.events() if e.device_type == DeviceType.CUDA
+                 for m in [re.search(r"render_accum_kernel<(\d+),", e.name)] if m]
+
+
+def test_library_exports_one_entry_a_render_kernel():
+    """K1, K7 and K8 have one C entry each, which chooses the mesh,
+    threaded and counting instantiation itself: none of the old _mesh,
+    _count and _mesh_count forms is exported."""
+    _need_cuda()
+    from raytracevs_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    entries = ("rtvs_render_accum", "rtvs_render_phase_a", "rtvs_render_phase_b")
+    assert all(hasattr(lib, e) for e in entries)
+    assert sorted(k for k in _build.SIGNATURES if k.startswith("rtvs_render_")) == sorted(entries)
+    for e in entries:
+        for suffix in ("_mesh", "_count", "_mesh_count"):
+            assert not hasattr(lib, e + suffix), e + suffix
+
+
 @pytest.mark.parametrize("name", ["demo"] + list(S.GOLDEN))
 def test_k1_cuda_matches_plain(name):
     _need_cuda()
@@ -81,8 +114,8 @@ def test_k1_cuda_matches_plain(name):
     sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3), "cuda")
     cfg = make_config(scene, w, h, **over)
     before = MK.render_accum.launches
-    got = MK.render_accum(sc, cfg)
-    assert MK.render_accum.launches == before + 1
+    got, modes = _render_modes(lambda: MK.render_accum(sc, cfg))
+    assert modes == [0] and MK.render_accum.launches == before + 1
     want = R.render_accum(sc, cfg)
     torch.cuda.synchronize()
     assert torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
@@ -104,8 +137,9 @@ MESH_SCENES = {
 
 @pytest.mark.parametrize("name", list(MESH_SCENES))
 def test_k1_mesh_cuda_matches_plain(name):
-    """K1-mesh (rtvs_render_accum_mesh) launches for a scene with meshes,
-    counted on its own wrapper, and matches the plain walks."""
+    """K1-mesh launches for a scene with meshes: render_accum's one launch
+    runs the MODE_MESH instantiation (the kernel's name in a trace), and
+    matches the plain walks."""
     _need_cuda()
     build, over, meshes = MESH_SCENES[name]
     scene = build()
@@ -113,9 +147,9 @@ def test_k1_mesh_cuda_matches_plain(name):
     sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3,
                                  mesh_service=S.mesh_service(PMC, meshes)), "cuda")
     cfg = make_config(scene, w, h, **over)
-    before = (MK.render_accum.launches, MK.render_accum_mesh.launches)
-    got = MK.render_accum(sc, cfg)
-    assert (MK.render_accum.launches, MK.render_accum_mesh.launches) == (before[0], before[1] + 1)
+    before = MK.render_accum.launches
+    got, modes = _render_modes(lambda: MK.render_accum(sc, cfg))
+    assert modes == [1] and MK.render_accum.launches == before + 1  # MODE_MESH
     want = R.render_accum(sc, cfg)
     torch.cuda.synchronize()
     assert torch.equal(got[R.CH_RAYS], want[R.CH_RAYS])
@@ -152,8 +186,8 @@ def test_mesh_walks_cuda_match_plain():
 
 
 def test_counting_build_counts_the_walks():
-    """The counting build (rtvs_render_accum_mesh_count) renders K1-mesh's
-    planes. Per ray class it runs the plain render's walks and tests the
+    """The counting build (rtvs_render_accum given counts, on a mesh scene)
+    renders K1-mesh's planes. Per ray class it runs the plain render's walks and tests the
     same triangles as the threaded walks (the same leaves in the same
     order), in fewer node fetches; its DFS counts are the plain render's."""
     _need_cuda()
@@ -163,7 +197,8 @@ def test_counting_build_counts_the_walks():
                                  mesh_service=S.mesh_service(PMC, meshes)), "cuda")
     cfg = make_config(scene, 72, 40, **over)
     counts = torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
-    got = MK.render_accum(sc, cfg, counts=counts)
+    got, modes = _render_modes(lambda: MK.render_accum(sc, cfg, counts=counts))
+    assert modes == [5]  # MODE_MESH | MODE_COUNT
     assert torch.equal(got, MK.render_accum(sc, cfg))
     plain = torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64, device="cuda")
     R.render_accum(sc, cfg, counts=plain)
@@ -251,13 +286,12 @@ def test_wrappers_refuse_frames_past_the_plane_index(name):
     sc = to_device(flatten_scene(sanitize_scene(scene), aspect=w / h, frame_index=3,
                                  mesh_service=ms), "cuda")
     limit = R.NUM_CH_A * w * 5
-    k1 = MK.render_accum_mesh if meshes else MK.render_accum
     for spp in (2, 1):
         cfg = make_config(scene, w, h, **dict(over, samples_per_pixel=spp))
         one = MK.render_accum(sc, cfg)
-        before = k1.launches
+        before = MK.render_accum.launches
         banded = MK.render_accum(sc, cfg, limit=limit)
-        assert k1.launches - before == len(MK.row_bands(w, h, R.NUM_CH, limit)) == 5
+        assert MK.render_accum.launches - before == len(MK.row_bands(w, h, R.NUM_CH, limit)) == 5
         torch.cuda.synchronize()
         assert _bits_equal(banded, one)
     one = TP.render_accum_two_phase(sc, cfg, 0.0)
@@ -314,9 +348,9 @@ def test_deep_forest_through_the_threaded_walks():
                                  mesh_service=S.deep_forest_service(PMC)), "cuda")
     assert sc.mesh.wide_stack > B.WALK_STACK and MK.check_mesh(sc.mesh, "test")
     cfg = make_config(scene, w, h, max_soft_samples=2)
-    before = MK.render_accum_mesh.launches
-    got = MK.render_accum(sc, cfg)
-    assert MK.render_accum_mesh.launches == before + 1
+    before = MK.render_accum.launches
+    got, modes = _render_modes(lambda: MK.render_accum(sc, cfg))
+    assert modes == [3] and MK.render_accum.launches == before + 1  # MODE_MESH | MODE_THREADED
     assert _bits_equal(got, R.render_accum(sc, cfg))
     assert bool((got[R.CH_OBJ_ID] >= 3 * 65536).any())
     cfg1 = cfg._replace(samples_per_pixel=1)
@@ -663,8 +697,8 @@ def test_mesh_engine_cuda_matches_cpu_and_launches_every_kernel():
     w, h = 64, 36
     gpu = Engine(w, h, device="cuda", mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL))
     cpu = Engine(w, h, device="cpu", mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL))
-    counts = [MK.render_accum.launches, MK.render_accum_mesh.launches,
-              K.reproject_accumulate.launches, K.atrous.launches, K.shadow_denoise.launches]
+    counts = [MK.render_accum.launches, K.reproject_accumulate.launches, K.atrous.launches,
+              K.shadow_denoise.launches]
     for f in range(2):
         for e in (gpu, cpu):
             e.update_scene(S.mesh_demo_scene(D, f), **S.DEMO_OVERRIDES)
@@ -672,9 +706,9 @@ def test_mesh_engine_cuda_matches_cpu_and_launches_every_kernel():
         assert gpu.last_rays == cpu.last_rays
         d = np.abs(a.astype(np.int16) - b.astype(np.int16)).max(axis=-1)
         assert (d <= 1).mean() >= 0.995
-    after = [MK.render_accum.launches, MK.render_accum_mesh.launches,
-             K.reproject_accumulate.launches, K.atrous.launches, K.shadow_denoise.launches]
-    assert [y - x for x, y in zip(counts, after)] == [0, 2, 2, 2, 2]
+    after = [MK.render_accum.launches, K.reproject_accumulate.launches, K.atrous.launches,
+             K.shadow_denoise.launches]
+    assert [y - x for x, y in zip(counts, after)] == [2, 2, 2, 2]
 
 
 PHOTON_SCENES = {
@@ -859,7 +893,7 @@ def test_two_phase_engine_cuda_matches_cpu_and_launches_every_kernel():
                  two_phase=True)
     cpu = Engine(w, h, device="cpu", mesh_service=S.mesh_service(PMC, S.MESH_DEMO_SMALL),
                  two_phase=True)
-    kernels = [MK.render_accum_mesh, MK.render_phase_a, MK.render_phase_b,
+    kernels = [MK.render_accum, MK.render_phase_a, MK.render_phase_b,
                K.reproject_accumulate, K.atrous, K.shadow_denoise]
     counts = [k.launches for k in kernels]
     for f in range(2):

@@ -16,6 +16,8 @@ triangle t, u and v by ~1e-6 and the colour by < 1e-4 at 32x32, and no
 decision flips there.
 The CUDA kernel is held against this plain version on the card
 (tests/test_torch_gpu.py)."""
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +34,7 @@ from raytracevs_tpu.scene.flatten import make_config as j_make_config
 from raytracevs_tpu.scene.sanitize import sanitize_scene as j_sanitize
 from raytracevs_tpu_torch.io import mesh_cache as PMC
 from raytracevs_tpu_torch.ops import render as R
+from raytracevs_tpu_torch.ops.cuda import _build
 from raytracevs_tpu_torch.ops.cuda import megakernel as mk
 from raytracevs_tpu_torch.ops.render_cf import accum_dict, assemble_frame_cf, render_rows_cf
 from raytracevs_tpu_torch.scene import data as PD
@@ -201,10 +204,78 @@ def test_check_size_refuses_frames_past_the_plane_index():
 @pytest.mark.parametrize("name", ["config2_obb_mirror", "glass_ball"])
 def test_render_accum_cpu_runs_plain_version_without_launch(name):
     _, _, pf, pc = _setup(name)
-    before = (mk.render_accum.launches, mk.render_accum_mesh.launches)
+    before = mk.render_accum.launches
     out = mk.render_accum(pf, pc._replace(height=8, width=8))
     assert out.shape == (R.NUM_CH, 8, 8)
-    assert (mk.render_accum.launches, mk.render_accum_mesh.launches) == before
+    assert mk.render_accum.launches == before
+
+
+def _port_scene(name):
+    """(FlatScene on the CPU, config) of the port alone: the demo scene (no
+    mesh), the glass ball (the wide walks) or the deep forest (the
+    threaded walks)."""
+    if name == "deep_forest":
+        scene, over = S.deep_forest_scene(PD), {"max_soft_samples": 2}
+        ms = S.deep_forest_service(PMC)
+    elif name in MESH_NAMES:
+        scene, over, ms = _mesh_scene(PD, PMC, name)
+    else:
+        (scene, over), ms = S.scene_and_overrides(PD, name), None
+    flat = flatten_scene(sanitize_scene(scene), aspect=W / H, frame_index=3, mesh_service=ms)
+    return to_device(flat, "cpu"), make_config(scene, W, H, **over)
+
+
+_SIG_CACHE = {}  # the scenes' packed tables, shared by the cases
+
+
+@pytest.mark.parametrize("counted", [False, True])
+@pytest.mark.parametrize("name", ["demo", "glass_ball", "deep_forest"])
+@pytest.mark.parametrize("entry", ["rtvs_render_accum", "rtvs_render_phase_a",
+                                   "rtvs_render_phase_b"])
+def test_launch_args_match_the_entry_signatures(entry, name, counted):
+    """The arguments the wrappers pass a render entry (launch_args on
+    pack_tables' RenderTables, then the stream) against its C signature
+    (_build.SIGNATURES): the same length, an int in each int slot, a float
+    in each float slot, and in each pointer slot a packed table's, a lead
+    tensor's or the counts' data pointer, or null: the mesh tables without
+    a mesh, counts in the plain build. threaded follows check_mesh."""
+    if name not in _SIG_CACHE:
+        _SIG_CACHE[name] = _port_scene(name)
+    if (name, counted) not in _SIG_CACHE:
+        sc, cfg = _SIG_CACHE[name]
+        counts = torch.zeros((len(R.COUNT_ROWS), 4), dtype=torch.int64) if counted else None
+        _SIG_CACHE[name, counted] = mk.pack_tables(sc), cfg._replace(samples_per_pixel=1), counts
+    tables, cfg, counts = _SIG_CACHE[name, counted]
+    out = torch.empty((R.NUM_CH_A, H, W))
+    if entry == "rtvs_render_phase_b":
+        order, count = torch.arange(H * W, dtype=torch.int32), torch.ones(1, dtype=torch.int32)
+        acc, hits = out[:R.NUM_CH].clone(), out[R.CH_HIT:].clone()
+        lead_tensors = [order, count, acc, hits]
+        lead = [t.data_ptr() for t in lead_tensors] + [order.numel()]
+    else:
+        lead_tensors = [out]
+        lead = [out.data_ptr()]
+    args = mk.launch_args(tables, cfg, 0, lead, counts) + [0]  # the stream
+    sig = _build.SIGNATURES[entry]
+    assert len(args) == len(sig)
+    ptrs = {t.data_ptr() for t in [*tables, *lead_tensors, counts] if torch.is_tensor(t)}
+    for i, (a, kind) in enumerate(zip(args, sig)):
+        if kind is ctypes.c_float:
+            assert type(a) is float, (i, a)
+        elif kind is ctypes.c_int:
+            assert type(a) is int, (i, a)
+        else:
+            assert kind is ctypes.c_void_p and type(a) is int and (a == 0 or a in ptrs), (i, a)
+    assert args[2:2 + len(lead)] == lead
+    # nodes .. inst_tbl, then T, I, Nn, threaded, counts, stream
+    mesh, sizes, threaded, counts_ptr = args[-15:-6], args[-6:-3], args[-3], args[-2]
+    if name == "demo":
+        assert mesh == [0] * 9 and sizes == [0, 0, 0]
+    else:
+        assert 0 not in mesh and sizes == [tables.T, tables.I, tables.Nn] and min(sizes) > 0
+        assert mesh[0] == tables.nodes.data_ptr()
+    assert threaded == int(name == "deep_forest")
+    assert counts_ptr == (0 if counts is None else counts.data_ptr())
 
 
 def test_k1_plain_mesh_scenes_hit_the_meshes():
