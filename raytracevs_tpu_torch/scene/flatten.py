@@ -15,6 +15,7 @@ forest (ops/bvh.py) in the ``mesh`` leaf.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -384,18 +385,80 @@ def flatten_scene(scene: SceneData, *, frame_index: int = 0,
     )
 
 
+# Every leaf of the packed scene block starts at a multiple of this many bytes
+_ALIGN = 16
+
+
+class LeafLayout(NamedTuple):
+    """Where a FlatScene's leaves (the mesh aside) lie in one byte block, each
+    at a 16-byte-aligned offset in its device dtype (the u32 frame index as
+    int64). `record` is a numpy structured dtype with a field a leaf, which
+    packs every leaf in one assignment; `views` holds (torch dtype, shape,
+    strides, offset in elements of that dtype) a leaf, from which
+    `leaf_views` makes each leaf one contiguous view of the block."""
+
+    record: np.dtype
+    views: tuple
+    dtypes: tuple  # the torch dtypes the views use
+    nbytes: int  # a multiple of _ALIGN
+
+
+@functools.lru_cache(maxsize=16)
+def _layout(specs: tuple) -> LeafLayout:
+    names, formats, offsets, views = [], [], [], []
+    off = 0
+    for i, (shape, dtype) in enumerate(specs):
+        dt = np.dtype(np.int64) if dtype == np.uint32 else dtype
+        tdt = torch.from_numpy(np.empty(0, dt)).dtype
+        size = math.prod(shape)
+        names.append(f"f{i}")
+        formats.append((dt, shape))
+        offsets.append(off)
+        strides = tuple(math.prod(shape[k + 1:]) for k in range(len(shape)))
+        views.append((tdt, shape, strides, off // dt.itemsize))
+        off += -(-size * dt.itemsize // _ALIGN) * _ALIGN
+    record = np.dtype({"names": names, "formats": formats, "offsets": offsets,
+                       "itemsize": off})
+    return LeafLayout(record, tuple(views), tuple(dict.fromkeys(v[0] for v in views)), off)
+
+
+def leaf_layout(leaves) -> LeafLayout:
+    """The LeafLayout of these numpy leaves (FlatScene's, the mesh aside);
+    fixed by their shapes and dtypes, so one is computed per set of scene
+    capacities."""
+    return _layout(tuple((a.shape, a.dtype) for a in leaves))
+
+
+def pack_leaves(leaves, layout: LeafLayout, block: np.ndarray):
+    """Write the numpy leaves into `block` (np.uint8 [layout.nbytes]) at
+    their offsets, in their device dtypes."""
+    block.view(layout.record)[0] = tuple(leaves)
+
+
+def leaf_views(buf: torch.Tensor, layout: LeafLayout) -> list:
+    """The leaves of a packed block `buf` (torch.uint8 [layout.nbytes], on
+    any device): a contiguous view of it a leaf, in its dtype and shape, 0-d
+    leaves 0-d."""
+    typed = {dt: buf.view(dt) for dt in layout.dtypes}
+    return [typed[dt].as_strided(shape, strides, off)
+            for dt, shape, strides, off in layout.views]
+
+
 def to_device(flat: FlatScene, device, blas_cache=None) -> FlatScene:
     """The same FlatScene with every leaf a tensor on `device` (the u32
     frame index widens to int64, which holds every u32 exactly); the mesh
     tables gain their plane table and shadow factors (ops/bvh.py::to_device).
     With `blas_cache` (flatten_scene's), mesh tables unchanged since its last
-    call keep their device copy: no upload."""
-    def conv(a):
-        a = np.asarray(a)
-        if a.dtype == np.uint32:
-            a = a.astype(np.int64)
-        return torch.from_numpy(a.copy()).to(device)  # copy: contiguous, keeps 0-d
+    call keep their device copy: no upload.
 
+    On a CUDA device the leaves but the mesh go up in one copy that waits
+    on nothing: they are packed (pack_leaves) into a pinned block of PyTorch's
+    caching host allocator, copied by one non-blocking DMA into one device
+    buffer, and returned as views of it (leaf_views). The allocator records
+    the copy on the block, so it hands the block out again only once the
+    copy is done. ``to_device.copies`` counts these copies. On the CPU each
+    leaf is copied into a tensor of its own."""
+    device = torch.device(device)
     mesh = None
     if flat.mesh is not None:
         with annotate("rtvs.scene.to_device.mesh"):
@@ -403,7 +466,25 @@ def to_device(flat: FlatScene, device, blas_cache=None) -> FlatScene:
                 mesh = bvh_mod.to_device(flat.mesh, device, flat.shadow_absorption_scale)
             else:
                 mesh = blas_cache.device_tables(flat.mesh, device, flat.shadow_absorption_scale)
-    return FlatScene(*(conv(leaf) for leaf in flat[:-1]), mesh=mesh)
+    if device.type != "cuda":
+        def conv(a):
+            a = np.asarray(a)
+            if a.dtype == np.uint32:
+                a = a.astype(np.int64)
+            return torch.from_numpy(a.copy()).to(device)  # copy: contiguous, keeps 0-d
+
+        return FlatScene(*(conv(leaf) for leaf in flat[:-1]), mesh=mesh)
+    leaves = [np.asarray(a) for a in flat[:-1]]
+    layout = leaf_layout(leaves)
+    block = torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=True)
+    pack_leaves(leaves, layout, block.numpy())
+    buf = torch.empty(layout.nbytes, dtype=torch.uint8, device=device)
+    buf.copy_(block, non_blocking=True)
+    to_device.copies += 1
+    return FlatScene(*leaf_views(buf, layout), mesh=mesh)
+
+
+to_device.copies = 0
 
 
 def make_config(scene: SceneData, width: int, height: int, **overrides) -> RenderConfig:

@@ -19,7 +19,8 @@ from raytracevs_tpu_torch.bridge import flat_from_numpy
 from raytracevs_tpu_torch.io import mesh_cache as PMC
 from raytracevs_tpu_torch.ops import bvh as PB
 from raytracevs_tpu_torch.scene import data as PD
-from raytracevs_tpu_torch.scene.flatten import FlatScene, flatten_scene, make_config, to_device
+from raytracevs_tpu_torch.scene.flatten import (FlatScene, flatten_scene, leaf_layout, leaf_views,
+                                                make_config, pack_leaves, to_device)
 from raytracevs_tpu_torch.scene.sanitize import sanitize_scene
 from raytracevs_tpu_torch.utils import checksum as p_checksum
 
@@ -198,6 +199,46 @@ def test_to_device_keeps_values():
     want = np.exp(-pf.mesh.inst_absorption.astype(np.float64) * float(pf.shadow_absorption_scale))
     np.testing.assert_allclose(t.mesh.inst_beer.numpy(), want, rtol=1e-6)
     assert to_device(flatten_scene(sanitize_scene(S.demo_scene(PD))), "cpu").mesh is None
+
+
+@pytest.mark.parametrize("name", ["demo", "mesh_demo"])
+def test_packed_leaves_match_the_per_leaf_copy(name):
+    """to_device's packed block (its CUDA path), built here on a CPU byte
+    tensor: each of the 47 leaves at a 16-byte-aligned offset of its own,
+    and its view of the block with the dtype, shape and values of the
+    per-leaf copy (the CPU path), contiguous; the 0-d leaves 0-d, the bool
+    leaves bool, a frame index past 2**31 widened to int64. The CPU path
+    counts no packed copy."""
+    frame = 2**31 + 7
+    svc = S.mesh_service(PMC, S.MESH_DEMO_SMALL) if name == "mesh_demo" else None
+    build = S.mesh_demo_scene if name == "mesh_demo" else S.demo_scene
+    pf = flatten_scene(sanitize_scene(build(PD, 3)), frame_index=frame, mesh_service=svc)
+    assert (pf.mesh is None) == (name == "demo")
+    copies = to_device.copies
+    want = to_device(pf, "cpu")
+    assert to_device.copies == copies
+    leaves = [np.asarray(a) for a in pf[:-1]]
+    layout = leaf_layout(leaves)
+    spans = sorted((layout.record.fields[f][1], layout.record.fields[f][0].itemsize)
+                   for f in layout.record.names)
+    assert len(spans) == len(FlatScene._fields) - 1 == 47
+    assert all(off % 16 == 0 for off, _ in spans) and layout.nbytes % 16 == 0
+    assert all(a + n <= b for (a, n), (b, _) in zip(spans, spans[1:] + [(layout.nbytes, 0)]))
+    block = torch.full((layout.nbytes,), 0xA5, dtype=torch.uint8)
+    pack_leaves(leaves, layout, block.numpy())
+    views = leaf_views(block, layout)
+    assert len(views) == 47
+    for field, v, w in zip(FlatScene._fields, views, want):
+        assert v.dtype == w.dtype and v.shape == w.shape, field
+        assert v.is_contiguous() and torch.equal(v, w), field
+        assert v.untyped_storage().data_ptr() == block.untyped_storage().data_ptr(), field
+    got = FlatScene(*views)
+    assert got.frame_index.dtype == torch.int64 and got.frame_index.dim() == 0
+    assert int(got.frame_index) == frame
+    assert got.tan_half_fov.dim() == 0 and got.num_lights.dtype == torch.int32
+    assert got.sph_valid.dtype == got.lt_valid.dtype == torch.bool
+    assert got.box_axes.shape == want.box_axes.shape and got.box_axes.dim() == 3
+    assert leaf_layout(leaves) is layout  # one layout per set of capacities
 
 
 def test_mesh_instance_raises_in_flatten_and_make_config_rejects_caustics():
