@@ -4,8 +4,9 @@ port, restated on the plain stages of this frozen copy.
 ``Replay`` keeps what the Engine keeps between calls (the frame index, the
 previous view-projection, the BLAS cache, the geometry checksum and the
 denoiser history) and renders a frame as the Engine's default single-device
-path does: render, assemble, denoise (prepass, temporal accumulation, the
-a-trous passes, the shadow filter), composite, RGBA8.
+path does: render, the photon pass when caustics are on, assemble, denoise
+(prepass, temporal accumulation, the a-trous passes, the shadow filter),
+composite, RGBA8.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .ops import bvh
+from .ops import bvh, photon
 from .ops import render as R
 from .ops.render_cf import accum_dict, assemble_frame_cf
 from .post import composite, denoise
@@ -120,7 +121,10 @@ class Replay:
 
     def render(self, control: bool = False):
         """Engine.render's frame on the plain stages; the history moves on
-        and the frame index advances. With `control`, returns (frame,
+        and the frame index advances. With caustics on (num_photons > 0),
+        the photon map is built anew and its caustic added into the
+        accumulator planes before the assembly, as the port's
+        render_rows_cf does. With `control`, returns (frame,
         control frame): the control stores the radiance planes and the
         history as bfloat16 between the stages, from the same render and
         history, and the history moves on from the float32 frame."""
@@ -129,6 +133,11 @@ class Replay:
         if self.history is None:
             self.history = denoise.init_state_cf(self.height, self.width, self.device).packed
         acc = R.render_accum(self.scene_t, self.cfg)
+        cfg = self.cfg
+        if cfg.num_photons > 0:  # the port's apply_caustics_cf
+            acc = photon.add_caustics(photon.emit_and_trace(self.scene_t, cfg.num_photons), acc,
+                                      cfg.samples_per_pixel, replace=cfg.photon_debug_mode != 0,
+                                      scale=cfg.photon_debug_scale)
         low = None
         if control:
             narrow = acc.clone()

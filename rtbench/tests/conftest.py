@@ -19,3 +19,16 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture
+def caustics_config():
+    """configs/demo.py loaded as a module of its own with caustics on (the
+    photon budget gives the demo scene 16,384 photons): a configuration
+    local to the tests, in no cell."""
+    from rtbench.core import spec
+
+    mod = spec.load_module(os.path.join(ROOT, "rtbench", "configs", "demo.py"),
+                           "test_config_demo_caustics")
+    mod.OVERRIDES = {"enable_caustics": True}
+    return mod

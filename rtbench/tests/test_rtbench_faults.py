@@ -63,6 +63,13 @@ def pixel_altered(monkeypatch):
     monkeypatch.setattr(tonemap, "to_rgba8_cf", to_rgba8_cf)
 
 
+def caustic_skipped(monkeypatch):
+    """The photon pass skipped: the frame is assembled without its caustic."""
+    from raytracevs_tpu_torch.ops import render_cf
+
+    monkeypatch.setattr(render_cf, "apply_caustics_cf", lambda scene, cfg, acc, *a, **k: acc)
+
+
 def test_a_sound_run_is_correct():
     res = run()
     assert res["correct"], res["check"]
@@ -96,6 +103,26 @@ def test_the_mesh_cell_catches_an_altered_pixel(monkeypatch, tmp_path):
     res = run_cell(cell, 2**31 + 77, 0.5, False, "cpu", time.perf_counter(), size=SIZE)
     assert not res["correct"], res["check"]
     assert res["check"]["rgb_max_step"]["value"] == 128
+
+
+@pytest.mark.parametrize("fault", [None, caustic_skipped])
+def test_the_caustics_check(fault, caustics_config, monkeypatch):
+    """The demo configuration with caustics on, a module local to the tests
+    with its cell built here (not from BENCHMARK.json), under orbit: sound,
+    the run is correct at 0 on every number; with the port's caustic
+    skipped, it is not."""
+    with open(os.path.join(spec.ROOT, "rtbench", "traffic", "orbit.json")) as f:
+        traffic = json.load(f)
+    cell = spec.Cell("demo_caustics.orbit", caustics_config, traffic, [], [], {}, 1)
+    if fault is not None:
+        fault(monkeypatch)
+    res = run_cell(cell, 2**31 + 79, 3.0, False, "cpu", time.perf_counter(), size=SIZE)
+    if fault is None:
+        assert res["correct"], res["check"]
+        assert all(v["value"] == 0 for v in res["check"].values()), res["check"]
+    else:
+        assert not res["correct"], res["check"]
+        assert res["check"]["rgb_off_share"]["value"] > res["check"]["rgb_off_share"]["limit"]
 
 
 def test_the_control_fails_a_limit():
