@@ -223,7 +223,9 @@ def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None, pmap=None) -> 
     photon_debug_scale instead (RayGen.hlsl:509-518). Given `pmap` (a
     photon map built already, ops/photon.py::sharded_photon_map), the
     gather reads it and nothing is emitted. Returns acc. The photon map is
-    rebuilt every frame. `acc` may be a row slab's planes."""
+    rebuilt every frame. `acc` may be a row slab's planes. Spans, inside
+    rtvs.render.caustics: .emit_trace (K5) and .hash (build_photon_hash),
+    where the map is built here (photon.emit_and_trace), then .gather (K6)."""
     if cfg.num_photons <= 0:
         return acc
     from . import photon
@@ -232,9 +234,10 @@ def apply_caustics_cf(scene, cfg, acc: torch.Tensor, tables=None, pmap=None) -> 
     with annotate("rtvs.render.caustics"):
         if pmap is None:
             pmap = photon.emit_and_trace(scene, cfg.num_photons, tables)
-        return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel,
-                                           replace=cfg.photon_debug_mode != 0,
-                                           scale=cfg.photon_debug_scale)
+        with annotate("rtvs.render.caustics.gather"):
+            return photon_kernels.add_caustics(pmap, acc, cfg.samples_per_pixel,
+                                               replace=cfg.photon_debug_mode != 0,
+                                               scale=cfg.photon_debug_scale)
 
 
 def render_rows_cf(scene, cfg, row_start=0, num_rows=None, two_phase=False, aperture_size=None,
@@ -252,8 +255,8 @@ def render_rows_cf(scene, cfg, row_start=0, num_rows=None, two_phase=False, aper
     accumulator planes are the frame's own: the caustic goes into them in
     place. The assembly is K9 (ops/cuda/gbuffer_kernels.py::assemble; on
     the CPU, assemble_frame_cf). Spans (runtime/profiler.py::annotate):
-    rtvs.render.pack_tables, .trace, .caustics (when on) and .assemble
-    (K9), once a call."""
+    rtvs.render.pack_tables, .trace, .caustics (when on, with its own
+    three: apply_caustics_cf) and .assemble (K9), once a call."""
     from .cuda import gbuffer_kernels, megakernel
 
     with annotate("rtvs.render.pack_tables"):

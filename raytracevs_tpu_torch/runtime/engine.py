@@ -135,6 +135,7 @@ class Engine:
         self._last_gbuffer = None
         self._last_denoised = None  # (diffuse [3,H,W], specular [3,H,W], shadow [2,H,W])
         self._last_rays = 0
+        self._last_photons = 0
         self._last_render_ms = 0.0
         self._readback_stats = ReadbackStats()
         self._prev_view_proj = None
@@ -287,6 +288,7 @@ class Engine:
         with annotate("rtvs.render.readback"):
             rgba, self._last_rays = read_back(rgba_t, rays_t, self._readback_stats)
         self._last_render_ms = (time.perf_counter() - start) * 1000.0
+        self._last_photons = self._cfg.num_photons
         self._last_rgba = rgba
         self._frame_index += 1
         self._flat = self._flat._replace(frame_index=np.asarray(self._frame_index, np.uint32))
@@ -424,6 +426,12 @@ class Engine:
     def last_rays(self) -> int:
         """Rays traced in the last frame (TraceRay-equivalents)."""
         return self._last_rays
+
+    @property
+    def last_photons(self) -> int:
+        """Photons the last frame emitted and traced for its caustics (the
+        photon budget, a host int), 0 with caustics off."""
+        return self._last_photons
 
     @property
     def readback_stats(self) -> ReadbackStats:

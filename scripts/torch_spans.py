@@ -20,7 +20,13 @@ on the profiler's clock, a mean over the traced frames:
 - the longest idle gaps, each with that span and the innermost host event
   of any kind open at its midpoint;
 - device_spans: names of device-side events that carry a span's name (none
-  is expected: the spans are host events alone).
+  is expected: the spans are host events alone);
+- photon_pass, in a caustics cell: the host ms of rtvs.render.caustics'
+  three spans (emit_trace, hash, gather) and the device's idle ms under
+  each, and on the device, a pass at a time (K5's start to the next K6's
+  end, as rtbench's photon_pass_ms reads it): K5's ms, the hash build's
+  (the device's busy and idle ms between K5's end and K6's start) and
+  K6's.
 
 It prints the card's name and power limit, and as its last line a JSON
 object of the readings.
@@ -39,6 +45,8 @@ import sys  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPAN = "rtvs."
 TOP = 10
+CAUSTICS = "rtvs.render.caustics"
+PHOTON_SPANS = ("emit_trace", "hash", "gather")
 
 
 def keep_events(trace_mod) -> dict:
@@ -73,6 +81,37 @@ def innermost(ranges, t):
     return best
 
 
+def photon_pass(trace, span_ms, idle_ms) -> dict:
+    """The photon_pass readings of the module's docstring (None without a
+    K5 in the traced stretch); span_ms and idle_ms are read_spans' own.
+    The passes are rtbench's photon_pass_ms reader's."""
+    from rtbench.core import spec
+    from rtbench.core.trace import busy_union, kernel_base
+
+    metric = spec.load_module(os.path.join(ROOT, "rtbench", "metrics", "photon_pass_ms.py"),
+                              "rtbench_metric_photon_pass_ms")
+    passes = metric.passes(trace)
+    if not passes:
+        return None
+    ops = [(kernel_base(n), s, e) for n, s, e in trace.device_ops]
+    k5 = k6 = busy = idle = 0.0
+    for start, end in passes:
+        k5_end = min(e for k, s, e in ops if k == metric.EMIT and s == start)
+        k6_start = max(s for k, s, e in ops if k == metric.GATHER and e == end)
+        between, _ = busy_union([(s, e) for k, s, e in ops
+                                 if k not in (metric.EMIT, metric.GATHER)], k5_end, k6_start)
+        k5 += k5_end - start
+        k6 += end - k6_start
+        busy += between
+        idle += max(0.0, k6_start - k5_end) - between
+    n = len(passes)
+    sub = {k: {"host_ms": span_ms.get(f"{CAUSTICS}.{k}", 0.0),
+               "idle_ms": idle_ms.get(f"{CAUSTICS}.{k}", 0.0)} for k in PHOTON_SPANS}
+    return {"passes": n, "spans": sub, "k5_ms": k5 * 1e-3 / n,
+            "hash_busy_ms": busy * 1e-3 / n, "hash_idle_ms": idle * 1e-3 / n,
+            "k6_ms": k6 * 1e-3 / n}
+
+
 def read_spans(events, trace, gap_name) -> dict:
     """The readings of the module's docstring, from the kept events and the
     harness's TraceData; gap_name(trace, gap) is the harness's name."""
@@ -90,12 +129,13 @@ def read_spans(events, trace, gap_name) -> dict:
 
     def cover(outer, inner):
         """(host ms a frame of the harness's `outer` ranges, the % of it
-        that the `inner` spans cover)."""
+        that the `inner` spans cover, None where there are none: a still
+        cell's traced frames run no update_scene)."""
         outs = [r for r in host if r[0] == outer]
         total = sum(o[2] - o[1] for o in outs)
         covered = sum(overlap(o[1], o[2], i[1], i[2])
                       for o in outs for i in spans if i[0] == inner)
-        return total * 1e-3 / frames, 100.0 * covered / total
+        return total * 1e-3 / frames, 100.0 * covered / total if total else None
 
     render_host, render_cover = cover("rtbench.render", "rtvs.render")
     update_host, update_cover = cover("rtbench.update_scene", "rtvs.update_scene")
@@ -128,6 +168,7 @@ def read_spans(events, trace, gap_name) -> dict:
         "idle_gaps_ms": top,
         "device_spans": sorted({name for name, _, _, dev in events
                                 if dev and name.startswith(SPAN)}),
+        "photon_pass": photon_pass(trace, span_ms, idle_ms),
     }
 
 

@@ -33,10 +33,16 @@ DENOISE_TREE = [("rtvs.denoise", "rtvs.render"),
                 ("rtvs.denoise.shadow", "rtvs.denoise")]
 
 
+CAUSTICS_TREE = [("rtvs.render.caustics", "rtvs.render"),
+                 ("rtvs.render.caustics.emit_trace", "rtvs.render.caustics"),
+                 ("rtvs.render.caustics.hash", "rtvs.render.caustics"),
+                 ("rtvs.render.caustics.gather", "rtvs.render.caustics")]
+
+
 def render_tree(caustics: bool):
     return ([("rtvs.render", None), ("rtvs.render.pack_tables", "rtvs.render"),
              ("rtvs.render.trace", "rtvs.render")]
-            + [("rtvs.render.caustics", "rtvs.render")] * caustics
+            + CAUSTICS_TREE * caustics
             + [("rtvs.render.assemble", "rtvs.render")] + DENOISE_TREE
             + [("rtvs.render.composite", "rtvs.render"), ("rtvs.render.readback", "rtvs.render")])
 
@@ -106,6 +112,23 @@ def test_each_frame_gives_the_span_tree(name, demo_runs):
             want.append([(span, parent, f if parent is None else None)
                          for span, parent in tree])
     assert trees == want
+
+
+@pytest.mark.parametrize("name", ["demo", "caustics"])
+def test_each_caustics_frame_counts_one_hash_build_and_its_photons(name):
+    """Golden config 5 builds the photon hash once a frame and traces the
+    photon budget, 8,192 photons (one point light); the demo scene, with
+    caustics off, builds none and reports 0."""
+    from raytracevs_tpu_torch.ops import photon as PP
+
+    eng = Engine(W, H, device="cpu")
+    for f in range(2):
+        eng.update_scene(scene(name, f), **BUDGET)
+        before = PP.build_photon_hash.launches
+        eng.render()
+        assert PP.build_photon_hash.launches - before == (name == "caustics")
+        assert eng.last_photons == (8192 if name == "caustics" else 0)
+        assert isinstance(eng.last_photons, int)
 
 
 def test_annotate_is_one_shared_no_op_without_a_profiler():
